@@ -5,26 +5,42 @@
 
 Phases, one JSON line each:
 
-  1. env      — torch / CUDA versions, the card's name and power limit,
-                nvcc, ninja
-  2. build    — builds every CUDA kernel from ``src/repro_torch/kernels/
-                csrc`` (one nvcc per source, all at once)
-  3. kernels  — each kernel against its plain PyTorch version on the card
-                (bitwise; bf16 ``mac`` within one bf16 ulp), then timed at
-                the main path's shapes with CUDA events beside its plain
-                version, one PyTorch library call computing the same
-                function, and its device-memory bound
-  4. main     — the acis-100m gradient sync at full width (12 leaves,
-                124,668,672 parameters per rank, 8 ranks on one
-                ``LocalMesh``): ``make_engine("acis")`` with kernels on,
-                ``init_arenas`` and 3 ``gradient_sync`` steps; bitwise equal
-                to the same sync with ``use_kernels=False``, within bf16
-                rounding of the ``xla`` backend and of the exact f32 mean;
-                arenas written in place; every hop and every bucket pack
-                launched its kernel
+  1. env        — torch / CUDA versions, the card's name and power limit,
+                  nvcc, ninja
+  2. build      — builds every CUDA kernel from ``src/repro_torch/kernels/
+                  csrc`` (one nvcc per source, all at once)
+  3. kernels    — each kernel against its plain PyTorch version on the
+                  card (bitwise; bf16 ``mac`` within one bf16 ulp;
+                  ``topk_accumulate`` with duplicate indices within f32
+                  rounding of the lane's sum), then timed at the main
+                  path's shapes with CUDA events beside its plain version,
+                  one PyTorch library call computing the same function
+                  where there is one, and its device-memory bound
+  4. acis       — the acis-100m gradient sync at full width (12 leaves,
+                  124,668,672 parameters per rank, 8 ranks on one
+                  ``LocalMesh``): ``make_engine("acis")`` with kernels on,
+                  ``init_arenas``, one untimed warm-up sync per engine,
+                  then 3 timed syncs in turns with the same sync at
+                  ``use_kernels=False`` (which goes first alternates);
+                  bitwise equal to it, within bf16
+                  rounding of the ``xla`` backend and of the exact f32
+                  mean; arenas written in place; every hop and every
+                  bucket pack launched its kernel
+  5. compressed — ``make_engine("acis_compressed", compressor=c)`` for c
+                  in int8, int8_hopquant, topk at the same width:
+                  ``init_state``, ``init_arenas``, a warm-up sync per
+                  engine, then 3 steps with the EF residual threaded,
+                  in turns with ``use_kernels=False`` as above; outputs and
+                  residuals bitwise equal to it, every rank holding the
+                  same totals, the EF identity over the 3 steps, and
+                  ``quant_combine`` / ``topk_accumulate`` launched as
+                  often as the compiled program says
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` reports them, and, last, ``{"ok": true, "device": ...}``.
+Each path's launch counts are set to 0 just before it runs and read just
+after; launches made to compare a kernel with its plain version are not
+counted.  Then the ``{"kernels": [...]}`` line, the card's name and
+power limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true,
+"device": ...}``.
 Any failed check raises: the exit code is non-zero and no ``ok`` line is
 printed.  Without a CUDA device, or without the repository around it, the
 script stops before any phase.
@@ -34,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -94,6 +111,28 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch counts
+# ---------------------------------------------------------------------------
+
+def kernel_modules() -> dict:
+    """Every ported kernel's wrapper module, by kernel name; each keeps
+    its launch count in ``launches``."""
+    from repro_torch.kernels import (fused_combine, pack_combine,
+                                     quant_combine, topk_accum)
+    return {"fused_combine": fused_combine, "fused_pack": pack_combine,
+            "quant_combine": quant_combine, "topk_accumulate": topk_accum}
+
+
+def reset_counts() -> None:
+    for m in kernel_modules().values():
+        m.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: m.launches for k, m in kernel_modules().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -199,64 +238,281 @@ def kernel_checks(dev) -> dict:
         report["fused_pack"]["overflow_raises"] = True
     check(report["fused_pack"].get("overflow_raises", False),
           "an overflowing pack did not raise")
+    report["quant_combine"] = quant_checks(dev, gen)
+    report["topk_accumulate"] = topk_checks(dev, gen)
     return report
 
 
-def kernel_timings(dev, peak: float) -> dict:
+def quant_cases(dev, gen) -> tuple[list, list]:
+    """Random payloads at a few row counts (rank dims in front), and six
+    rows with exact products: .5 ties (row 0, scale 1.0), an all-zero
+    row, zero scales, saturation at +127 and -127, unequal scales."""
+    def rnd(rows):
+        def q():
+            return torch.randint(-127, 128, rows + (256,), device=dev,
+                                 generator=gen, dtype=torch.int8)
+
+        def s():
+            return torch.rand(rows, device=dev, generator=gen) * 2
+        return [q(), s(), q(), s()]
+
+    qa, sa, qb, sb = rnd((6,))
+    sa.fill_(0.5)
+    sb.fill_(0.5)
+    qa[0] = torch.randint(-60, 61, (256,), device=dev, generator=gen,
+                          dtype=torch.int8)
+    qb[0] = torch.randint(-60, 61, (256,), device=dev, generator=gen,
+                          dtype=torch.int8)
+    qa[0, 0] = qb[0, 0] = 127
+    qa[0, 1:7] = torch.tensor([1, 2, 3, -1, -2, -3], dtype=torch.int8)
+    qb[0, 1:7] = torch.tensor([0, 1, 2, 0, -1, -2], dtype=torch.int8)
+    qa[1] = qb[1] = 0
+    sa[2] = sb[2] = 0.0
+    qa[3] = qb[3] = 127
+    qa[4] = qb[4] = -127
+    sa[5], sb[5] = 2.0, 0.25
+    return [rnd((1,)), rnd((7,)), rnd((8, 1500))], [qa, sa, qb, sb]
+
+
+def quant_checks(dev, gen) -> dict:
+    from repro_torch.kernels import quant_combine as qc
+
+    randoms, exact = quant_cases(dev, gen)
+    r = {"cases": 0, "max_abs_err": 0.0}
+    for qa, sa, qb, sb in randoms + [exact]:
+        q, s = qc.quant_combine(qa, sa, qb, sb)
+        wq, ws = qc.plain(qa, sa, qb, sb)
+        torch.cuda.synchronize()
+        r["max_abs_err"] = max(r["max_abs_err"], _bitwise_err(q, wq),
+                               _bitwise_err(s, ws))
+        r["cases"] += 1
+    q, s = qc.quant_combine(*exact)
+    check(q[0, 1:7].tolist() == [0, 2, 2, 0, -2, -2],
+          f"the .5 ties did not round half to even: {q[0, 1:7].tolist()}")
+    check(s[1].item() == s[2].item() == 1.0 and not q[1:3].any(),
+          "a zero row must get scale 1.0 and q 0")
+    check(bool((q[3] == 127).all() and (q[4] == -127).all()),
+          "saturated rows must hold ±127")
+    # a NaN scale: the plain version's absmax is NaN, so where(absmax > 0)
+    # gives scale 1.0; the kernel propagates NaN through its absmax to the
+    # same 1.0 and writes the row's NaN lanes as 0
+    qa, sa, qb, sb = [t.clone() for t in exact]
+    sa[3] = float("nan")
+    q, s = qc.quant_combine(qa, sa, qb, sb)
+    wq, ws = qc.plain(qa, sa, qb, sb)
+    torch.cuda.synchronize()
+    check(s[3].item() == 1.0 and ws[3].item() == 1.0,
+          f"NaN row scale {s[3].item()} (plain {ws[3].item()}), expected 1.0")
+    check(not q[3].any(), "the NaN row's lanes must be written as 0")
+    keep = torch.arange(6, device=dev) != 3
+    _bitwise_err(q[keep], wq[keep])
+    _bitwise_err(s, ws)
+    r["nan_row"] = {"scale": s[3].item(), "kernel_q_zero": True,
+                    "plain_q_equal": bool(torch.equal(q[3], wq[3]))}
+    r["cases"] += 1
+    return r
+
+
+def topk_checks(dev, gen) -> dict:
+    """Distinct indices per row (the path's case): bitwise and in place.
+    Out-of-range indices: dropped by both.  Duplicates: the atomics add
+    in the hardware's order, so a lane with d adds agrees with the plain
+    version within d·2^-23·(|dense| + Σ|vals|) at that lane."""
+    from repro_torch.core.compression import sparse_accumulate
+    from repro_torch.kernels import topk_accum as ta
+
+    def distinct(rows, size, k):
+        return torch.stack([torch.randperm(size, device=dev,
+                                           generator=gen)[:k]
+                            for _ in range(rows)]).to(torch.int32)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    r = {"cases": 0, "max_abs_err": 0.0}
+    cases = []
+    for rows, size, k in ((1, 1000, 10), (8, 100_000, 1000),
+                          (8, 1_536_000, 15_360)):
+        cases.append((randn(rows, size), distinct(rows, size, k),
+                      randn(rows, k)))
+    d, i, v = randn(1, 3000), distinct(1, 3000, 30), randn(1, 30)
+    cases.append((d[0], i[0], v[0]))                     # the 1-D form
+    d, i, v = randn(8, 5000), distinct(8, 5000, 100), randn(8, 100)
+    i[:, 0], i[:, 1], i[:, 2] = -1, 5000, 1 << 30        # out of range
+    cases.append((d, i, v))
+    for dense, idx, vals in cases:
+        want = ta.plain(dense.clone(), idx, vals)
+        ptr = dense.data_ptr()
+        got = ta.topk_accumulate_(dense, idx, vals)
+        torch.cuda.synchronize()
+        check(got is dense and dense.data_ptr() == ptr,
+              "topk_accumulate did not update the accumulator in place")
+        r["max_abs_err"] = max(r["max_abs_err"], _bitwise_err(got, want))
+        r["cases"] += 1
+    dense, vals = randn(8, 64), randn(8, 4096)
+    idx = torch.randint(0, 64, (8, 4096), device=dev, generator=gen,
+                        dtype=torch.int32)
+    want = ta.plain(dense.clone(), idx, vals)
+    absum = ta.plain(dense.abs(), idx, vals.abs())
+    mult = max(int(torch.bincount(row.long()).max()) for row in idx)
+    got = ta.topk_accumulate_(dense, idx, vals)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    check(bool((err <= mult * 2.0 ** -23 * absum).all()),
+          f"duplicates differ by {err.max().item()} beyond f32 rounding")
+    r["duplicates"] = {"max_adds_per_lane": mult,
+                       "max_abs_err": err.max().item(),
+                       "tolerance": "d*2^-23*(|dense|+sum|vals|) per lane"}
+    r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
+    r["cases"] += 1
+    dense = torch.zeros(10, device=dev)
+    before = ta.launches
+    out = sparse_accumulate(dense, torch.tensor([1, 2], device=dev,
+                                                dtype=torch.int32),
+                            torch.ones(2, device=dev), use_kernels=True)
+    torch.cuda.synchronize()
+    check(ta.launches == before + (torch.device(dev).type == "cuda"),
+          "the registry's topk_accumulate did not launch the kernel")
+    check(not dense.any() and out.sum().item() == 2.0,
+          "the functional form must leave its input as it was")
+    return r
+
+
+def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
+    """(ranks, blocks per rank) of the largest int8_hopquant hop: the
+    largest leaf's 256-lane blocks, padded to a multiple of n, split in n
+    ring chunks."""
+    from repro_torch.configs.acis_100m import grad_leaf_specs
+
+    lanes = max(math.prod(shape) for _, shape, _ in grad_leaf_specs(cfg))
+    blocks = -(-lanes // 256)
+    return n, -(-blocks // n)
+
+
+def kernel_timings(dev, peak: float, cfg) -> dict:
     """Each kernel at the main path's shapes: the largest hop (bf16
-    [8, 3,072,000] add) and the Coalesce bucket pack (f32 parts of 768,
-    9216 and 9216 per rank into the [8, 19200] arena)."""
+    [8, 3,072,000] add), the Coalesce bucket pack (f32 parts of 768,
+    9216 and 9216 per rank into the [8, 19200] arena), the largest
+    int8_hopquant hop (the embed leaf's chunk, rank dims folded into
+    rows) and the top-k accumulate of the embed leaf (k = 1% of its
+    24,576,000 lanes into the [8, 24,576,000] f32 accumulator)."""
+    from repro_torch.configs.acis_100m import grad_leaf_specs
     from repro_torch.kernels import fused_combine as fc
     from repro_torch.kernels import pack_combine as pc
+    from repro_torch.kernels import quant_combine as qc
+    from repro_torch.kernels import topk_accum as ta
 
     gen = torch.Generator(device=dev).manual_seed(99)
     x = torch.randn((8, 3_072_000), device=dev, generator=gen).bfloat16()
     y = torch.randn((8, 3_072_000), device=dev, generator=gen).bfloat16()
     out = torch.empty_like(x)
-    comb_bytes = 3 * x.numel() * x.element_size()
     comb = {
         "ms": time_ms(lambda: fc.fused_combine(x, y, op="add")),
         "plain_ms": time_ms(lambda: fc.plain(x, y, "add")),
         "library_ms": time_ms(lambda: torch.add(x, y, out=out)),
-        "bytes": comb_bytes,
+        "bytes": 3 * x.numel() * x.element_size(),
         "shape": [8, 3_072_000], "dtype": "bfloat16", "op": "add",
     }
+    del x, y, out
     arena = torch.zeros((8, 19200), device=dev)
     parts = [torch.randn((8, s), device=dev, generator=gen)
              for s in (768, 9216, 9216)]
-    pack_bytes = 2 * sum(p.numel() for p in parts) * 4
     pack = {
         "ms": time_ms(lambda: pc.fused_pack(arena, *parts)),
         "plain_ms": time_ms(lambda: pc.plain(arena, *parts)),
         "library_ms": time_ms(lambda: torch.cat(parts, dim=-1, out=arena)),
-        "bytes": pack_bytes,
+        "bytes": 2 * sum(p.numel() for p in parts) * 4,
         "shape": [8, 19200], "dtype": "float32", "op": None,
     }
-    for t in (comb, pack):
+    ranks, blocks = biggest_hop_rows(cfg, 8)
+    qa = torch.randint(-127, 128, (ranks, blocks, 256), device=dev,
+                       generator=gen, dtype=torch.int8)
+    qb = torch.randint(-127, 128, (ranks, blocks, 256), device=dev,
+                       generator=gen, dtype=torch.int8)
+    sa = torch.rand((ranks, blocks), device=dev, generator=gen)
+    sb = torch.rand((ranks, blocks), device=dev, generator=gen)
+    quant = {
+        "ms": time_ms(lambda: qc.quant_combine(qa, sa, qb, sb)),
+        "plain_ms": time_ms(lambda: qc.plain(qa, sa, qb, sb)),
+        "library_ms": None,       # no single PyTorch call computes it
+        "bytes": ranks * blocks * 3 * (256 + 4),
+        "shape": [ranks, blocks, 256], "dtype": "int8+float32",
+    }
+    del qa, qb, sa, sb
+    size = max(math.prod(shape) for _, shape, _ in grad_leaf_specs(cfg))
+    k = int(size * 0.01)
+    dense = torch.zeros((8, size), device=dev)
+    idx = torch.stack([torch.randperm(size, device=dev, generator=gen)[:k]
+                       for _ in range(8)]).to(torch.int32)
+    vals = torch.randn((8, k), device=dev, generator=gen)
+    flat_idx = (idx.long() + torch.arange(8, device=dev)[:, None] * size
+                ).view(-1)
+    flat_vals = vals.view(-1)
+    topk = {
+        "ms": time_ms(lambda: ta.topk_accumulate_(dense, idx, vals)),
+        "plain_ms": time_ms(lambda: ta.plain(dense, idx, vals)),
+        "library_ms": time_ms(lambda: dense.view(-1).index_add_(
+            0, flat_idx, flat_vals)),
+        "bytes": idx.numel() * (4 + 4) + idx.numel() * 4 * 2,
+        "shape": [8, size], "k": k, "dtype": "float32",
+    }
+    del dense, idx, vals, flat_idx, flat_vals
+    torch.cuda.empty_cache()
+    out = {"fused_combine": comb, "fused_pack": pack, "quant_combine": quant,
+           "topk_accumulate": topk}
+    for t in out.values():
         t["bound_ms"] = t["bytes"] / peak * 1e3
-    return {"fused_combine": comb, "fused_pack": pack}
+    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phases 4-5: the main paths
 # ---------------------------------------------------------------------------
 
-def expected_launches(compiled, mesh) -> tuple[int, int]:
-    """(hop-combine launches, pack launches) one sync makes, read off the
-    compiled plan: n-1 combines per ring all-reduce stage, one launch per
-    arena pack."""
-    hops = sum(mesh.axis_size(st.axis) - 1 for st in compiled.stages
-               if st.kind in ("allreduce", "batched_allreduce"))
-    packs = sum(st.arena_slot is not None for st in compiled.stages)
-    return hops, packs
+def expected_launches(compiled, mesh) -> dict:
+    """Each kernel's launches in one sync, read off the compiled plan:
+    n-1 hop combines per ring all-reduce stage, one launch per arena
+    pack, n-1 quant_combines per int8_hopquant EF stage, and per top-k
+    EF stage one accumulate of the rank's own payload, n-1 of the hops'
+    and one for the decompress."""
+    out = dict.fromkeys(kernel_modules(), 0)
+    for st in compiled.stages:
+        n = mesh.axis_size(st.axis) if st.axis else 1
+        if st.kind in ("allreduce", "batched_allreduce"):
+            out["fused_combine"] += n - 1
+        if st.arena_slot is not None:
+            out["fused_pack"] += 1
+        if st.kind in ("ef_allreduce", "delivered"):
+            comp = st.ir.nodes[0].op.ef.compressor
+            if comp == "int8_hopquant":
+                out["quant_combine"] += n - 1
+            elif comp == "topk":
+                out["topk_accumulate"] += n + 1
+    return out
+
+
+def check_launches(launches: dict, per_sync: dict, syncs: int) -> None:
+    for k, n in per_sync.items():
+        check(launches[k] == syncs * n,
+              f"{k} launched {launches[k]} times, the plan needs "
+              f"{syncs} x {n}")
+
+
+def in_turns(step: int, run_k, run_p) -> tuple:
+    """``(run_k(), run_p())``, the plain sync first on odd steps, so that
+    running first or second is not what separates their times."""
+    if step % 2:
+        res_p = run_p()
+        return run_k(), res_p
+    res_k = run_k()
+    return res_k, run_p()
 
 
 def main_path(mesh, cfg, seed: int, *, steps: int = 3,
               expect_kernels: bool = True) -> dict:
+    """The acis path: warm-up, then kernel and plain syncs in turns."""
     from repro_torch import core as acis
     from repro_torch.configs.acis_100m import grad_leaf_specs
-    from repro_torch.kernels import fused_combine as fc
-    from repro_torch.kernels import pack_combine as pc
 
     dev = mesh.device
     cuda = dev.type == "cuda"
@@ -271,46 +527,50 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
-    def run(eng, arenas, n):
+    def sync_once(eng, arenas):
         ptrs = [a.data_ptr() for a in arenas]
-        times, out = [], None
-        for _ in range(n):
-            sync_dev()
-            t0 = time.perf_counter()
-            out, _, back = eng.gradient_sync(grads, None, arenas=arenas,
-                                             mesh=mesh)
-            sync_dev()
-            times.append((time.perf_counter() - t0) * 1e3)
-            check(back == tuple(arenas), "sync returned other arenas")
+        sync_dev()
+        t0 = time.perf_counter()
+        out, _, back = eng.gradient_sync(grads, None, arenas=arenas,
+                                         mesh=mesh)
+        sync_dev()
+        dt = (time.perf_counter() - t0) * 1e3
+        check(back == tuple(arenas), "sync returned other arenas")
         check([a.data_ptr() for a in arenas] == ptrs,
               "arena data_ptr changed across a sync")
-        return out, times
+        return out, dt
 
     eng_k = acis.make_engine("acis")
     check(eng_k.config.use_kernels, "use_kernels is off by default")
     arenas_k = eng_k.init_arenas(grads, mesh=mesh)
     check(arenas_k is not None, "the sync program has no bucket arena")
     compiled = eng_k.last_sync_program()
-    hops, packs = expected_launches(compiled, mesh)
-
-    # the counts cover exactly the main path's kernel syncs
-    fc.launches = 0
-    pc.launches = 0
-    out_k, t_k = run(eng_k, arenas_k, steps)
-    launches = {"fused_combine": fc.launches, "fused_pack": pc.launches}
-    if expect_kernels:
-        check(launches["fused_combine"] == steps * hops,
-              f"hop kernel launched {launches['fused_combine']} times, "
-              f"the plan needs {steps} x {hops}")
-        check(launches["fused_pack"] == steps * packs,
-              f"pack kernel launched {launches['fused_pack']} times, "
-              f"the plan needs {steps} x {packs}")
-
+    per_sync = expected_launches(compiled, mesh)
     eng_p = acis.make_engine("acis", use_kernels=False)
-    out_p, t_p = run(eng_p, eng_p.init_arenas(grads, mesh=mesh), steps)
-    for k in grads:
-        check(torch.equal(out_k[k], out_p[k]),
-              f"{k}: kernel sync differs from use_kernels=False")
+    arenas_p = eng_p.init_arenas(grads, mesh=mesh)
+
+    # the counts cover exactly the main path's syncs: one untimed round
+    # (a warm-up per engine, with the timed rounds' buffer lifetimes, so
+    # the caching allocator has grown before the clock runs), then kernel
+    # and plain syncs in turns, alternating which goes first
+    reset_counts()
+    t_k, t_p = [], []
+    for step in range(-1, steps):
+        out_k = out_p = None
+        (out_k, dt_k), (out_p, dt_p) = in_turns(
+            step, lambda: sync_once(eng_k, arenas_k),
+            lambda: sync_once(eng_p, arenas_p))
+        for k in grads:
+            check(torch.equal(out_k[k], out_p[k]),
+                  f"{k}: kernel sync differs from use_kernels=False")
+        if step >= 0:
+            t_k.append(dt_k)
+            t_p.append(dt_p)
+    launches = read_counts()
+    if expect_kernels:
+        check_launches(launches, per_sync, steps + 1)
+        check(per_sync["fused_combine"] > 0 and per_sync["fused_pack"] > 0,
+              "the acis plan runs no hop combine or pack")
 
     # The xla baseline and the f32 mean round each lane once; the ring
     # rounds its bf16 partial sum at each of its n-1 hops, by at most half
@@ -339,11 +599,13 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
         worst_x = max(worst_x, dx.max().item())
         worst_mean = max(worst_mean, dm.max().item())
 
-    profile = device_profile(lambda: eng_k.gradient_sync(
-        grads, None, arenas=arenas_k, mesh=mesh)) if cuda else None
+    profile = {name: device_profile(lambda e=e, a=a: e.gradient_sync(
+        grads, None, arenas=a, mesh=mesh))
+        for name, e, a in (("kernels", eng_k, arenas_k),
+                           ("plain", eng_p, arenas_p))} if cuda else None
     med_k, med_p = statistics.median(t_k), statistics.median(t_p)
     return {
-        "phase": "main", "model": cfg.name, "ranks": n,
+        "phase": "acis", "model": cfg.name, "ranks": n,
         "leaves": len(specs), "params_per_rank": n_params,
         "bytes_per_rank": local_bytes, "steps": steps,
         "stages": len(compiled.stages),
@@ -351,8 +613,7 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
         "waves": compiled.plan.n_waves,
         "arena_shapes": [list(a.shape) for a in arenas_k],
         "pack_transient_bytes": compiled.pack_transient_bytes(),
-        "hop_launches_per_sync": hops, "pack_launches_per_sync": packs,
-        "launches": launches,
+        "launches_per_sync": per_sync, "launches": launches,
         "sync_ms_kernels": t_k, "sync_ms_plain": t_p,
         "median_sync_ms_kernels": med_k, "median_sync_ms_plain": med_p,
         "ring_algbw_GBps_kernels":
@@ -366,8 +627,175 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
     }
 
 
+def compressed_path(mesh, cfg, seed: int, compressor: str, *,
+                    steps: int = 3, expect_kernels: bool = True) -> dict:
+    """The acis_compressed path for one compressor: warm-up, then 3 steps
+    with the EF residual threaded, kernel and plain syncs in turns.
+
+    The EF identity over the steps — the cumulative exact mean minus the
+    cumulative synced mean equals the mean over ranks of the final
+    residual — holds up to the rounding the path does, summed over the
+    steps, per leaf: the target ``g + r`` rounds to the gradient's dtype
+    (``eps·(max|g| + 2·max|r|)``, ``eps`` = 2^-8 for bf16, 2^-23 for
+    f32), the mean rounds the total twice (``2·eps·max|out|``), the f32
+    sums round (``2^-23·M``, ``M`` the largest sum over the ranks of
+    ``|g| + |r|``), and ``int8_hopquant``'s hops requantize within half
+    a step each, which no residual sees (``(n-1)/2·M/127/n``)."""
+    from repro_torch import core as acis
+    from repro_torch.configs.acis_100m import grad_leaf_specs
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync_dev = torch.cuda.synchronize if cuda else (lambda: None)
+    specs = grad_leaf_specs(cfg)
+    n = mesh.axis_size("data")
+
+    def grads_at(step):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + step + 1)
+        return {k: torch.randn(mesh.rank_shape + shape, device=dev,
+                               generator=gen).to(dt)
+                for k, shape, dt in specs}
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    eng_k = acis.make_engine("acis_compressed", compressor=compressor)
+    check(eng_k.config.use_kernels, "use_kernels is off by default")
+    eng_p = acis.make_engine("acis_compressed", compressor=compressor,
+                             use_kernels=False)
+    g = grads_at(0)
+    ar_k = eng_k.init_arenas(g, mesh=mesh)
+    ar_p = eng_p.init_arenas(g, mesh=mesh)
+    compiled = eng_k.last_sync_program()
+    per_sync = expected_launches(compiled, mesh)
+
+    def sync_once(eng, grads, state, arenas):
+        sync_dev()
+        t0 = time.perf_counter()
+        if arenas is not None:
+            out, new, back = eng.gradient_sync(grads, state, arenas=arenas,
+                                               mesh=mesh)
+            check(back == tuple(arenas), "sync returned other arenas")
+        else:
+            out, new = eng.gradient_sync(grads, state, mesh=mesh)
+        sync_dev()
+        return out, new, (time.perf_counter() - t0) * 1e3
+
+    # the counts cover exactly this path's syncs: one untimed round (a
+    # warm-up per engine with the timed steps' buffer lifetimes, its
+    # results dropped), then the 3 steps from a zero residual
+    reset_counts()
+    st_k, st_p = eng_k.init_state(g), eng_p.init_state(g)
+    for k, v in g.items():
+        check(st_k[k].shape == v.shape and st_k[k].dtype == torch.float32
+              and not st_k[k].any(), f"{k}: init_state is not f32 zeros")
+    res_bytes = sum(v.numel() * v.element_size() for v in st_k.values())
+    cum_true = {k: torch.zeros(v.shape[1:], device=dev)
+                for k, v in g.items()}
+    cum_got = {k: torch.zeros(v.shape[1:], device=dev)
+               for k, v in g.items()}
+    tol = dict.fromkeys(g, 0.0)
+    t_k, t_p = [], []
+    worst_rank = 0.0
+    warm_k = sync_once(eng_k, g, st_k, ar_k)
+    warm_p = sync_once(eng_p, g, st_p, ar_p)
+    del warm_k, warm_p
+    for step in range(steps):
+        if step:
+            g = grads_at(step)
+        terms = {}
+        for k in g:
+            eps = 2.0 ** -8 if g[k].dtype == torch.bfloat16 else 2.0 ** -23
+            m = (g[k].float().abs() + st_k[k].abs()).sum(0).max().item()
+            terms[k] = (eps, m, eps * (g[k].abs().max().item()
+                                       + 2 * st_k[k].abs().max().item())
+                        + 2.0 ** -23 * m)
+        (out_k, new_k, dt_k), (out_p, new_p, dt_p) = in_turns(
+            step, lambda: sync_once(eng_k, g, st_k, ar_k),
+            lambda: sync_once(eng_p, g, st_p, ar_p))
+        t_k.append(dt_k)
+        t_p.append(dt_p)
+        for k in g:
+            o = out_k[k]
+            check(torch.equal(o, out_p[k]) and torch.equal(new_k[k],
+                                                           new_p[k]),
+                  f"{compressor} {k}: kernel sync differs from "
+                  "use_kernels=False")
+            check(tuple(o.shape) == tuple(g[k].shape)
+                  and o.dtype == g[k].dtype
+                  and new_k[k].dtype == torch.float32,
+                  f"{compressor} {k}: wrong shape/dtype")
+            check(bool(torch.isfinite(o).all()
+                       and torch.isfinite(new_k[k]).all()),
+                  f"{compressor} {k}: non-finite output or residual")
+            eps, m, term = terms[k]
+            omax = o.abs().max().item()
+            # every rank holds the same totals: the RS∘AG rings bit for
+            # bit; the sparse ring adds in a rank-relative order, so its
+            # ranks agree within one rounding of the output and of the sum
+            dr = (o.float() - o[0:1].float()).abs().max().item()
+            worst_rank = max(worst_rank, dr)
+            if compressor == "topk":
+                check(dr <= eps * omax + 2.0 ** -23 * m,
+                      f"topk {k}: ranks differ by {dr}")
+            else:
+                check(dr == 0.0, f"{compressor} {k}: ranks differ by {dr}")
+            term += 2 * eps * omax
+            if compressor == "int8_hopquant":
+                term += (n - 1) / 2 * m / 127 / n
+            tol[k] += term
+            cum_true[k] += g[k].float().mean(0)
+            cum_got[k] += o[0].float()
+        st_k, st_p = new_k, new_p
+        del out_k, out_p, new_k, new_p
+    launches = read_counts()
+    if expect_kernels:
+        check_launches(launches, per_sync, steps + 1)
+        kernel = {"int8_hopquant": "quant_combine",
+                  "topk": "topk_accumulate"}.get(compressor)
+        check(kernel is None or per_sync[kernel] > 0,
+              f"the {compressor} plan runs no {kernel}")
+
+    worst_ratio = worst_err = 0.0
+    for k in g:
+        err = ((cum_true[k] - cum_got[k]) - st_k[k].mean(0)).abs().max()
+        slack = 2.0 ** -22 * (cum_true[k].abs().max()
+                              + cum_got[k].abs().max()).item()
+        ratio = err.item() / (tol[k] + slack)
+        check(ratio <= 1.0, f"{compressor} {k}: the EF identity misses by "
+              f"{err.item()}, beyond its rounding bound {tol[k] + slack}")
+        worst_ratio = max(worst_ratio, ratio)
+        worst_err = max(worst_err, err.item())
+
+    profile = {name: device_profile(lambda e=e, s=s, a=a: sync_once(
+        e, g, s, a)) for name, e, s, a in (("kernels", eng_k, st_k, ar_k),
+                                          ("plain", eng_p, st_p, ar_p))} \
+        if cuda else None
+    med_k, med_p = statistics.median(t_k), statistics.median(t_p)
+    return {
+        "phase": "compressed", "compressor": compressor, "model": cfg.name,
+        "ranks": n, "leaves": len(specs),
+        "params_per_rank": sum(v[0].numel() for v in g.values()),
+        "residual_bytes": res_bytes, "steps": steps,
+        "stages": len(compiled.stages),
+        "stage_kinds": compiled.stage_kinds(),
+        "waves": compiled.plan.n_waves,
+        "arena_shapes": [list(a.shape) for a in ar_k or ()],
+        "launches_per_sync": per_sync, "launches": launches,
+        "sync_ms_kernels": t_k, "sync_ms_plain": t_p,
+        "median_sync_ms_kernels": med_k, "median_sync_ms_plain": med_p,
+        "bitwise_equal_to_plain": True,
+        "max_rank_diff": worst_rank,
+        "ef_identity_max_abs_err": worst_err,
+        "ef_identity_err_over_bound": worst_ratio,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                 if cuda else None),
+        "profile": profile,
+    }
+
+
 def device_profile(step) -> dict:
-    """One more kernel sync under ``torch.profiler``: device time by
+    """One more sync under ``torch.profiler``: device time by
     kernel name (top 10) and the device's busy share of the window (sum
     of kernel times over the host wall time, profiler overhead
     included).  A measurement only: a profiler that fails reports why."""
@@ -400,6 +828,19 @@ def device_profile(step) -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+COMPRESSORS = ("int8", "int8_hopquant", "topk")
+SOURCES = {
+    "fused_combine": ("src/repro_torch/kernels/csrc/fused_combine.cu",
+                      "src/repro/kernels/fused_combine.py:70"),
+    "fused_pack": ("src/repro_torch/kernels/csrc/fused_pack.cu",
+                   "src/repro/kernels/pack_combine.py:68"),
+    "quant_combine": ("src/repro_torch/kernels/csrc/quant_combine.cu",
+                      "src/repro/kernels/quant_combine.py:55"),
+    "topk_accumulate": ("src/repro_torch/kernels/csrc/topk_accum.cu",
+                        "src/repro/kernels/topk_accum.py:47"),
+}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -450,29 +891,28 @@ def main() -> int:
 
     dev = torch.device("cuda")
     checks = kernel_checks(dev)
-    timings = kernel_timings(dev, peak)
+    timings = kernel_timings(dev, peak, CONFIG)
     rec = {"phase": "kernels", "checks": checks, "timings": timings}
     emit(rec)
     records.append(rec)
 
     mesh = LocalMesh({"data": 8}, device="cuda")
-    rec = main_path(mesh, CONFIG, args.seed)
-    emit(rec)
-    records.append(rec)
+    paths = [main_path(mesh, CONFIG, args.seed)]
+    emit(paths[-1])
+    for comp in COMPRESSORS:
+        paths.append(compressed_path(mesh, CONFIG, args.seed, comp))
+        emit(paths[-1])
+    records.extend(paths)
 
-    sources = {"fused_combine": ("src/repro_torch/kernels/csrc/"
-                                 "fused_combine.cu",
-                                 "src/repro/kernels/fused_combine.py:70"),
-               "fused_pack": ("src/repro_torch/kernels/csrc/fused_pack.cu",
-                              "src/repro/kernels/pack_combine.py:68")}
     kernels = []
-    for k, (src, replaces) in sources.items():
+    for k, (src, replaces) in SOURCES.items():
+        launches = sum(p["launches"][k] for p in paths)
+        check(launches > 0, f"{k} was launched on no main path")
         t = timings[k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": rec["launches"][k],
+            "launches": launches,
             "max_abs_err": checks[k]["max_abs_err"],
-            "max_err": checks[k]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": t["library_ms"]})

@@ -4,21 +4,27 @@ The PyTorch counterpart of :mod:`repro.core.api`.  Model / training code
 talks to a :class:`CollectiveEngine`; a config flag selects which
 transport runs.  Ported so far:
 
-  * ``xla``  — passive-network baseline (one native reduction per leaf)
-  * ``acis`` — explicit ring schedules (Types 1-4), every gradient sync one
-    compiled switch program
+  * ``xla``             — passive-network baseline (one native reduction
+                          per leaf)
+  * ``acis``            — explicit ring schedules (Types 1-4), every
+                          gradient sync one compiled switch program
+  * ``acis_compressed`` — acis + Type 2/3 wire compression with error
+                          feedback (``compressor`` ``int8``,
+                          ``int8_hopquant`` or ``topk``): the residuals
+                          from :meth:`CollectiveEngine.init_state` are
+                          threaded through every sync
 
-The compressed and hierarchical backends (``acis_compressed``,
-``acis_hierarchical``, ``acis_hierarchical_compressed``) need
-``core/{compression,lookaside,fused}.py`` and raise
+The hierarchical backends (``acis_hierarchical``,
+``acis_hierarchical_compressed``) need the multi-axis mesh and raise
 ``NotImplementedError`` until that slice lands (ROADMAP.md, queue 1
-item 2).
+item 3).
 
 Where the reference runs inside a ``shard_map`` region, the port runs
 inside ``with mesh:`` (a :class:`~repro_torch.mesh.LocalMesh`, or pass
 ``mesh=``): every gradient is rank-stacked, ``[*rank, *local]``.  The
-``acis`` gradient sync is one traced program — per leaf a
-``reduce(axis="auto")`` and an elementwise mean — compiled once per
+``acis*`` gradient sync is one traced program — per leaf a
+``reduce(axis="auto")`` and an elementwise mean, with an error-feedback
+target/residual around it on ``acis_compressed`` — compiled once per
 pytree structure through Legalize → LowerTopology → Coalesce → FuseHops
 → SelectSchedule → Emit.  Its Coalesce bucket packs write into
 persistent **arenas** in place: :meth:`CollectiveEngine.init_arenas`
@@ -32,8 +38,11 @@ import dataclasses
 import os
 from typing import Any, Optional
 
+import torch
+
 from repro_torch import tree
 from repro_torch.core import collectives, compiler, tracing
+from repro_torch.core.lookaside import init_residual
 from repro_torch.core.types import ADD, TensorSpec
 from repro_torch.mesh import LocalMesh, ambient, current
 from repro_torch.obs import metrics as _obs
@@ -42,9 +51,9 @@ PyTree = Any
 
 BACKENDS = ("xla", "acis", "acis_compressed", "acis_hierarchical",
             "acis_hierarchical_compressed")
-PORTED_BACKENDS = ("xla", "acis")
-_WAITS = ("core/{compression,lookaside,fused}.py with the compressed and "
-          "hierarchical backends (ROADMAP.md, queue 1 item 2)")
+PORTED_BACKENDS = ("xla", "acis", "acis_compressed")
+_WAITS = ("the multi-axis LocalMesh with the hierarchical backends "
+          "(ROADMAP.md, queue 1 item 3)")
 
 
 def _use_kernels_default() -> bool:
@@ -62,10 +71,13 @@ def live_axis_sizes(axes) -> dict:
 @dataclasses.dataclass(frozen=True)
 class CollectiveConfig:
     """The reference's config fields that change what the ported path
-    computes or compiles; the compressed backends' codec/compressor, the
-    CGRA device and the tuning DB come with their slices."""
+    computes or compiles; the CGRA device and the tuning DB come with
+    their slices."""
 
     backend: str = "xla"
+    # compressor for error-feedback sync: int8 | int8_hopquant | topk
+    compressor: str = "int8"
+    topk_ratio: float = 0.01
     latency_optimal_below: int = 16384  # bytes; ring-vs-latency crossover
     # Coalesce bucket size (bytes): per-leaf reductions sharing an
     # axis/monoid/codec/dtype are concatenated into flat buckets of this
@@ -77,10 +89,12 @@ class CollectiveConfig:
     # to one bucket-sized op; False keeps per-leaf epilogues.
     epilogue_hoist: bool = True
     # route the bulk data path through the hand-written CUDA kernels
-    # (switchops registry): ring hop combines run kernels/fused_combine
-    # and the Coalesce arena pack one kernels/pack_combine launch.  On by
-    # default; $ACIS_USE_KERNELS=0 turns it off.  CPU tensors take the
-    # kernels' plain versions either way.
+    # (switchops registry): ring hop combines run kernels/fused_combine,
+    # the Coalesce arena pack one kernels/pack_combine launch, and the
+    # compressed hops kernels/quant_combine (int8_hopquant) or
+    # kernels/topk_accum (topk).  On by default; $ACIS_USE_KERNELS=0
+    # turns it off.  CPU tensors take the kernels' plain versions either
+    # way.
     use_kernels: bool = dataclasses.field(
         default_factory=_use_kernels_default)
     # merge a wave's independent same-axis allreduces into ONE ring over a
@@ -116,9 +130,18 @@ class CollectiveEngine:
         self._arena_cache: dict = {}  # (program, device, ranks) → arenas
         self._last_sync = None        # most recently built/fetched program
 
+    @property
+    def compressed(self) -> bool:
+        return "compressed" in self.config.backend
+
     def init_state(self, grads_like: PyTree) -> Optional[PyTree]:
-        """Look-aside state (Type 3): None on the uncompressed backends,
-        which are stateless."""
+        """Look-aside state (Type 3): error-feedback residuals, or None.
+
+        On ``acis_compressed``, f32 zeros shaped like the rank-stacked
+        ``grads_like`` on its devices; the uncompressed backends are
+        stateless and return None."""
+        if self.compressed:
+            return init_residual(grads_like, torch.float32)
         return None
 
     # -- topology (the compiler's view of this engine's DP axes) -------------
@@ -162,6 +185,11 @@ class CollectiveEngine:
         Coalesce bucket packs then write the leaves into those tensors in
         place, and the same tensors come back.  Runs over ``mesh``, or the
         active mesh (``with mesh:``).  ``n_total`` overrides the divisor.
+
+        On ``acis_compressed`` ``state`` is the residual pytree (from
+        :meth:`init_state`, then each sync's ``new_state``): its leaves
+        are extra program inputs, and the new residuals come back as
+        ``new_state``.
         """
         m = mesh if mesh is not None else current()
         with m:
@@ -177,12 +205,21 @@ class CollectiveEngine:
             avals = tuple(TensorSpec(m.local_shape(l), l.dtype)
                           for l in leaves)
             compiled = self._sync_program(treedef, avals, n_total)
+            args = tuple(leaves)
+            if self.compressed:
+                res, res_def = tree.tree_flatten(state)
+                if res_def != treedef:
+                    raise ValueError("the residual state must have the "
+                                     "gradients' tree structure")
+                args = args + tuple(res)
             if arenas is not None:
                 _obs.RECORDER.count("arena.roundtrip")
-                outs, arenas = compiled(*leaves, arenas=tuple(arenas))
+                outs, arenas = compiled(*args, arenas=tuple(arenas))
             else:
-                outs = compiled(*leaves)
+                outs = compiled(*args)
         synced = tree.tree_unflatten(treedef, outs[:len(leaves)])
+        if self.compressed:
+            state = tree.tree_unflatten(treedef, outs[len(leaves):])
         if arenas is not None:
             return synced, state, arenas
         return synced, state
@@ -245,8 +282,15 @@ class CollectiveEngine:
         return compiled
 
     def _build_sync(self, cfg, avals, n_total, sizes):
-        """Trace + compile the gradient-sync program under ``cfg``."""
+        """Trace + compile the gradient-sync program under ``cfg``.
+
+        On ``acis_compressed`` each leaf runs the error-feedback triple
+        around one ``ef_reduce``: the target ``g + r`` in the gradient's
+        dtype, the mean of the lossy total, and the new residual
+        ``t - delivered`` in the residual's dtype (the reference's
+        dtype rules)."""
         inner, outer = self.inner_axis, self.outer_axis
+        compressed = self.compressed
         n_leaves = len(avals)
 
         def _mean(y):
@@ -258,20 +302,39 @@ class CollectiveEngine:
                     n = n * tp.axis_size(outer)
             return y / n
 
-        def sync(*gs):
-            outs = []
-            for g in gs:
-                red = tracing.reduce(g, ADD, axis="auto")
+        def _ef_target(g, r):
+            return g + r.to(g.dtype)
+
+        def _ef_residual(t, delivered, r):
+            return (t.to(torch.float32) - delivered).to(r.dtype)
+
+        def sync(*args):
+            gs, rs = args[:n_leaves], args[n_leaves:]
+            outs, news = [], []
+            for i, g in enumerate(gs):
+                if compressed:
+                    t = tracing.map(_ef_target, g, rs[i], name="ef_target")
+                    red, dlv = tracing.ef_reduce(
+                        t, compressor=cfg.compressor,
+                        topk_ratio=cfg.topk_ratio, axis="auto")
+                else:
+                    red = tracing.reduce(g, ADD, axis="auto")
                 outs.append(tracing.map(_mean, red, name="mean",
                                         elementwise=True))
-            return tuple(outs)
+                if compressed:
+                    news.append(tracing.map(_ef_residual, t, dlv, rs[i],
+                                            name="ef_residual"))
+            return tuple(outs) + tuple(news)
 
         prog = tracing.trace(
             sync, name=f"gradient_sync[{cfg.backend}x{n_leaves}]",
-            num_inputs=n_leaves)
+            num_inputs=n_leaves * (2 if compressed else 1))
+        # the residual inputs are sized by the gradient avals, as in the
+        # reference (its in_avals are avals + avals)
+        in_avals = avals + (avals if compressed else ())
         return compiler.compile_rank_local(
             prog, inner, axis_size=sizes.get(inner), config=cfg,
-            in_avals=avals, topology=self.topology(axis_size=sizes))
+            in_avals=in_avals, topology=self.topology(axis_size=sizes))
 
     def last_sync_program(self):
         """The most recently compiled (or cache-hit) gradient-sync

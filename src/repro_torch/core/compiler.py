@@ -27,9 +27,8 @@ The reference's PlaceCGRA pass (CGRA placement of stage bodies) is not
 ported yet: every ``placement`` is None, and the cost-model views that
 need placements (:meth:`CompiledProgram.program_time`, the model columns
 of :meth:`CompiledProgram.explain`) raise ``NotImplementedError``.  So do
-the stage lowerings that need ``core/fused.py`` or ``core/lookaside.py``
-— when called; they still compile, so the stage structure matches the
-reference's.
+the stage lowerings that need ``core/fused.py`` — when called; they still
+compile, so the stage structure matches the reference's.
 
 Rank dims: a compiled program runs on rank-stacked tensors
 (``[*rank, *local]``) inside ``with mesh:``.  Every size the compiler
@@ -49,7 +48,8 @@ from typing import Any, Callable, Optional, Sequence, Union
 import torch
 
 from repro_torch import mesh as _mesh
-from repro_torch.core import collectives, executor, netmodel, ring, switchops
+from repro_torch.core import (collectives, executor, lookaside, netmodel,
+                              ring, switchops)
 from repro_torch.core.program import (AUTO_AXIS, COLLECTIVE_KINDS, DagNode,
                                       DagProgram, Node, OpKind,
                                       SwitchProgram)
@@ -63,10 +63,8 @@ PyTree = Any
 ProgramLike = Union[DagProgram, SwitchProgram, Callable]
 
 # where each lowering that is not ported yet will come from
-_WAITS_FUSED = ("core/fused.py (ROADMAP.md, queue 1 item 2: the Type 3/4 "
+_WAITS_FUSED = ("core/fused.py (ROADMAP.md, queue 1 item 2: the Type 4 "
                 "lowerings)")
-_WAITS_LOOKASIDE = ("core/lookaside.py (ROADMAP.md, queue 1 item 2: the "
-                    "Type 3/4 lowerings)")
 _WAITS_MAPPER = ("PlaceCGRA + cgra/mapper.py (ROADMAP.md, queue 1 item 1)")
 
 
@@ -2620,11 +2618,34 @@ class Emit:
 
     @staticmethod
     def _ef_allreduce(g: StageIR, ctx: CompileContext):
-        return Emit._waiting(g.kind, _WAITS_LOOKASIDE)
+        """Error-feedback compressed all-reduce (Type 3 look-aside): one
+        compression yields both the lossy total and, when the DELIVERED
+        sibling survived DCE, this rank's delivered contribution.  With
+        kernels on, the compressor's hop combines run the CUDA kernels
+        (``quant_combine`` / ``topk_accumulate``)."""
+        ef = g.nodes[0].op.ef
+        both = len(g.out_vids) == 2
+
+        def run(args, ax, _c=ef.compressor, _k=ef.topk_ratio, _b=both,
+                _uk=_use_kernels(ctx)):
+            (t,) = args
+            total, delivered = lookaside.compressed_all_reduce(
+                t, ax, compressor=_c, topk_ratio=_k, use_kernels=_uk)
+            return (total, delivered) if _b else (total,)
+        return run
 
     @staticmethod
     def _delivered(g: StageIR, ctx: CompileContext):
-        return Emit._waiting(g.kind, _WAITS_LOOKASIDE)
+        # standalone DELIVERED (its reduce was DCE'd) — rare; reuse the
+        # full look-aside op and keep only the local-feedback half
+        ef = g.nodes[0].op.ef
+
+        def run(args, ax, _c=ef.compressor, _k=ef.topk_ratio,
+                _uk=_use_kernels(ctx)):
+            (t,) = args
+            return (lookaside.compressed_all_reduce(
+                t, ax, compressor=_c, topk_ratio=_k, use_kernels=_uk)[1],)
+        return run
 
     # -- single-node lowerings ----------------------------------------------
 

@@ -76,12 +76,14 @@ register("pack_combine", _ref("pack_combine"))
 
 def load_kernels() -> None:
     """Bind the ported kernels onto the registry (idempotent).  The
-    ``prefix_sum`` and ``topk_accumulate`` kernels are not ported yet and
-    keep their plain versions."""
+    ``prefix_sum`` kernel is not ported yet and keeps its plain
+    version.  ``pack_combine`` and ``topk_accumulate`` update their
+    first operand in place, plain version and kernel alike."""
     from repro_torch.kernels import ops as kops
 
     attach_kernel("add", kops.combine_add)
     attach_kernel("max", kops.combine_max)
     attach_kernel("min", kops.combine_min)
     attach_kernel("mac", kops.combine_mac)
+    attach_kernel("topk_accumulate", kops.topk_accumulate)
     attach_kernel("pack_combine", kops.pack_combine)

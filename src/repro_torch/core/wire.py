@@ -17,6 +17,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.kernels import quant_combine as _qc
+from repro_torch.kernels.ref import block_scale
 from repro_torch.mesh import ambient
 
 PyTree = Any
@@ -96,9 +98,7 @@ def quantize_int8(x: torch.Tensor, block: int = QBLOCK
         flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (pad,))],
                          dim=-1)
     blocks = flat.reshape(flat.shape[:-1] + (-1, block))
-    absmax = blocks.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 127.0,
-                        torch.ones_like(absmax))
+    scale = block_scale(blocks.abs().amax(dim=-1, keepdim=True))
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q, scale[..., 0], size
 
@@ -113,28 +113,25 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, size: int,
     return out
 
 
-def _int8_combine(incoming, local):
-    """Encoded-domain combine: dequant both, add in f32, requant with a
-    fresh per-block absmax scale (the in-switch aggregation program for
-    the quantized wire format; ``kernels/ref.py::quant_combine``)."""
-    qi, si = incoming
-    ql, sl = local
-    acc = qi.to(torch.float32) * si[..., None] \
-        + ql.to(torch.float32) * sl[..., None]
-    absmax = acc.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0,
-                        torch.ones_like(absmax))
-    q = torch.clamp(torch.round(acc / scale[..., None]),
-                    -127, 127).to(torch.int8)
-    return q, scale
-
-
-def int8_codec(block: int = QBLOCK) -> WireCodec:
+def int8_codec(block: int = QBLOCK, *,
+               use_kernels: bool = False) -> WireCodec:
     """int8-blockwise codec with encoded-domain combine.
 
     Quantized combine is lossy and (mildly) order-dependent.  Encode
-    assumes one fixed payload shape per call site.
+    assumes one fixed payload shape per call site.  With ``use_kernels``
+    the combine is the ``quant_combine`` kernel wrapper
+    (:mod:`repro_torch.kernels.quant_combine`, 256-lane blocks): it
+    launches the CUDA kernel on CUDA payloads — one launch per ring hop,
+    every rank's chunk at once — and runs the kernel's plain version on
+    CPU ones.  Without it the combine is that plain version everywhere:
+    dequant both, add in f32, requant with a fresh per-block absmax
+    scale.
     """
+    fn = _qc.quant_combine if use_kernels else _qc.plain
+
+    def combine(incoming, local):
+        return fn(*incoming, *local)
+
     shape_box = {}
 
     def encode(x):
@@ -152,7 +149,7 @@ def int8_codec(block: int = QBLOCK) -> WireCodec:
     # wire_ratio: 1 byte payload + 4/block scales vs 4 bytes f32
     ratio = (1.0 + 4.0 / block) / 4.0
     return WireCodec(f"int8_b{block}", encode, decode,
-                     combine_encoded=_int8_combine, wire_ratio=ratio)
+                     combine_encoded=combine, wire_ratio=ratio)
 
 
 CODECS = {

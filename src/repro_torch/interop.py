@@ -27,7 +27,10 @@ def _to_torch(x) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":        # ml_dtypes' bfloat16
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:          # a view of a JAX array
+        arr = arr.copy()
+    return torch.from_numpy(arr)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -2,14 +2,17 @@
 
 Each wrapper is the drop-in, signature-compatible implementation of its
 :mod:`repro_torch.kernels.ref` function: on a CUDA tensor it launches the
-kernel, on a CPU tensor it runs the plain version.  Only the kernels
-ported so far appear here (see ROADMAP.md for the rest).
+kernel, on a CPU tensor it runs the plain version.  These are the
+kernels :func:`repro_torch.core.switchops.load_kernels` binds; the int8
+codec binds ``quant_combine`` itself (:func:`repro_torch.core.wire.
+int8_codec`), and kernels not ported yet wait in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import fused_combine as _fc
 from repro_torch.kernels import pack_combine as _pc
+from repro_torch.kernels import topk_accum as _ta
 
 
 def combine_add(x, y):
@@ -30,3 +33,7 @@ def combine_mac(acc, x, alpha: float = 1.0):
 
 def pack_combine(arena, *parts, op=None):
     return _pc.fused_pack(arena, *parts, op=op)
+
+
+def topk_accumulate(dense, idx, vals):
+    return _ta.topk_accumulate_(dense, idx, vals)

@@ -6,13 +6,17 @@ and ``chip_smoke.py`` compares each CUDA kernel with them on the card.
 Each repeats the reference oracle's arithmetic operation by operation
 (with PyTorch's one rounding per elementwise op).
 
-``pack_combine`` differs from the reference oracle in one respect: it
-writes the arena in place and returns it, because its kernel does (the
-reference returns a new array and relies on buffer donation).
+``pack_combine`` and ``topk_accumulate`` differ from the reference
+oracles in one respect: they update their accumulator in place and
+return it, because their kernels do (the reference returns a new array
+and relies on buffer donation).  ``topk_accumulate`` also folds rank
+dims into rows and drops out-of-range indices, as its kernel and the
+reference's Pallas kernel do.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -76,15 +80,25 @@ def pack_combine(arena: torch.Tensor, *parts: torch.Tensor,
 # quant_combine — encoded-domain int8 combine (dequant-add-requant)
 # ---------------------------------------------------------------------------
 
+def block_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """``absmax / 127`` per block, 1.0 where the block is all zero.
+
+    The divisor is a tensor on purpose: PyTorch's CUDA kernels divide by
+    a Python scalar as a multiply by its reciprocal, one rounding away
+    from the IEEE division the CPU does (and the ``quant_combine``
+    kernel does), which moves a lane near a rounding tie by one int8
+    step.  Tensor by tensor, every device divides."""
+    return torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                       torch.ones_like(absmax))
+
+
 def quant_combine(qa: torch.Tensor, sa: torch.Tensor,
                   qb: torch.Tensor, sb: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Combine two blockwise-int8 payloads: q[B, block], s[B]."""
     acc = qa.to(torch.float32) * sa[..., None] \
         + qb.to(torch.float32) * sb[..., None]
-    absmax = acc.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0,
-                        torch.ones_like(absmax))
+    scale = block_scale(acc.abs().amax(dim=-1))
     q = torch.clamp(torch.round(acc / scale[..., None]),
                     -127, 127).to(torch.int8)
     return q, scale
@@ -96,8 +110,19 @@ def quant_combine(qa: torch.Tensor, sa: torch.Tensor,
 
 def topk_accumulate(dense: torch.Tensor, idx: torch.Tensor,
                     vals: torch.Tensor) -> torch.Tensor:
-    """dense[idx] += vals   (duplicate indices accumulate)."""
-    return dense.index_add(0, idx.to(torch.int64), vals.to(dense.dtype))
+    """dense[idx] += vals in place (duplicate indices accumulate).
+
+    ``dense`` is ``[*rows, size]`` and ``idx``/``vals`` are
+    ``[*rows, k]``: row ``r`` adds into ``dense[r]``.  Indices outside
+    ``[0, size)`` are dropped."""
+    size = dense.shape[-1]
+    rows = math.prod(dense.shape[:-1])
+    i = idx.reshape(rows, -1).to(torch.int64)
+    keep = (i >= 0) & (i < size)
+    offs = i + torch.arange(rows, device=i.device)[:, None] * size
+    dense.view(-1).index_add_(
+        0, offs[keep], vals.reshape(rows, -1).to(dense.dtype)[keep])
+    return dense
 
 
 # ---------------------------------------------------------------------------

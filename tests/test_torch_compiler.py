@@ -129,6 +129,38 @@ def test_full_width_hop_and_pack_counts(full_width):
     assert (hops, packs) == (70, 1)
 
 
+@pytest.mark.parametrize("compressor", ["int8", "int8_hopquant", "topk"])
+def test_full_width_compressed_sync_structure_matches_reference(compressor):
+    """acis_compressed at full width: the same stages, buckets and arenas
+    as the reference.  Coalesce buckets the blockwise compressors' three
+    f32 norm-scale leaves into one EF bucket (one arena pack) and leaves
+    top-k unbucketed; what ``chip_smoke.py`` checks its launch counts
+    against: one quant_combine per hop of every int8_hopquant stage, and
+    per top-k stage one accumulate of the rank's own payload, one per hop
+    and one for the decompress."""
+    shapes = Model(JCONFIG).param_shapes()
+    jeng = jacis.make_engine("acis_compressed", compressor=compressor,
+                             use_kernels=True)
+    jar = jeng.init_arenas(shapes, axis_sizes={"data": N})
+    teng = tacis.make_engine("acis_compressed", compressor=compressor,
+                             use_kernels=True)
+    mesh = LocalMesh({"data": N}, device="meta")
+    grads = {k: torch.empty((N,) + s, dtype=dt, device="meta")
+             for k, s, dt in grad_leaf_specs(CONFIG)}
+    tar = teng.init_arenas(grads, mesh=mesh)
+    tcp, jcp = teng.last_sync_program(), jeng.last_sync_program()
+    assert_same_structure(tcp, jcp)
+    ef = [st for st in tcp.stages if st.kind == "ef_allreduce"]
+    assert all(len(st.out_vids) == 2 for st in ef)
+    if compressor == "topk":
+        assert len(ef) == 12 and tar is None and jar is None
+        assert (N + 1) * len(ef) == 108
+    else:
+        assert len(ef) == 10
+        assert [tuple(a.shape) for a in tar] == [(N, 19200)]
+        assert (N - 1) * len(ef) == 70
+
+
 # ---------------------------------------------------------------------------
 # small programs
 # ---------------------------------------------------------------------------

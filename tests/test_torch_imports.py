@@ -22,8 +22,10 @@ def _all_modules() -> list[str]:
 
 def _import_all_in_a_fresh_process(report: str) -> str:
     mods = _all_modules()
-    assert "repro_torch.core.compiler" in mods
-    assert "repro_torch.kernels.fused_combine" in mods
+    for m in ("core.compiler", "core.compression", "core.lookaside",
+              "kernels.fused_combine", "kernels.pack_combine",
+              "kernels.quant_combine", "kernels.topk_accum"):
+        assert "repro_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

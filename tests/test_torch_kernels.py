@@ -7,7 +7,11 @@ add/max/min in every dtype and every pack are bitwise; ``mac`` is within
 one rounding of the product and one of the result: XLA contracts f32
 ``x + alpha*y`` into one fused multiply-add and may keep the bf16 product
 in f32 inside its fusion, where PyTorch (and the CUDA kernel) round after
-each op.  The CUDA kernels themselves
+each op.  ``quant_combine`` meets the same contraction in ``q·s + q·s``:
+bitwise where the products are exact (the .5 ties, zero rows and
+saturation cases), within one int8 step elsewhere.  ``topk_accumulate`` is
+bitwise with distinct indices and within f32 rounding of the sum with
+duplicates, whose order differs.  The CUDA kernels themselves
 run only on the card: the ``cuda`` cases skip here, and ``chip_smoke.py``
 holds each kernel against its plain version there.
 """
@@ -20,12 +24,17 @@ import torch
 
 from repro.kernels import fused_combine as jfc
 from repro.kernels import pack_combine as jpc
+from repro.kernels import quant_combine as jqc
 from repro.kernels import ref as jref
+from repro.kernels import topk_accum as jta
 from repro_torch.core import switchops
+from repro_torch.core.compression import sparse_accumulate
 from repro_torch.kernels import fused_combine as tfc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack_combine as tpc
+from repro_torch.kernels import quant_combine as tqc
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import topk_accum as tta
 
 RAGGED = [1, 7, 129, 1000, 2048]
 DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
@@ -208,8 +217,209 @@ def test_pack_wrapper_rejects_bad_parts():
 
 
 # ---------------------------------------------------------------------------
+# quant_combine
+# ---------------------------------------------------------------------------
+
+def quant_cases(rng):
+    """(qa, sa, qb, sb) rows with exact products: .5 ties, an all-zero
+    row, zero scales, and ±127 saturation."""
+    rows = 6
+    qa = rng.integers(-127, 128, size=(rows, 256)).astype(np.int8)
+    qb = rng.integers(-127, 128, size=(rows, 256)).astype(np.int8)
+    sa = np.full(rows, 0.5, np.float32)
+    sb = np.full(rows, 0.5, np.float32)
+    # row 0: |acc| peaks at 127 (scale 1.0); qa + qb odd lanes are .5 ties
+    qa[0], qb[0] = rng.integers(-60, 61, size=(2, 256)).astype(np.int8)
+    qa[0, 0] = qb[0, 0] = 127
+    qa[0, 1:7] = [1, 2, 3, -1, -2, -3]
+    qb[0, 1:7] = [0, 1, 2, 0, -1, -2]              # ±0.5, ±1.5, ±2.5
+    qa[1] = qb[1] = 0                              # all-zero row
+    sa[2] = sb[2] = 0.0                            # zero scales
+    qa[3] = qb[3] = 127                            # saturates at 127
+    qa[4] = qb[4] = -127                           # and at -127
+    sa[5], sb[5] = 2.0, 0.25
+    return qa, sa, qb, sb
+
+
+def test_quant_combine_plain_matches_pallas_bitwise_on_exact_rows(rng):
+    qa, sa, qb, sb = quant_cases(rng)
+    wq, ws = jqc.quant_combine(*map(jnp.asarray, (qa, sa, qb, sb)),
+                               interpret=True)
+    tq, ts = tqc.quant_combine(*map(torch.from_numpy, (qa, sa, qb, sb)))
+    assert_bitwise(tq.numpy(), np.asarray(wq))
+    assert_bitwise(ts.numpy(), np.asarray(ws))
+    assert tq.numpy()[0, 1:7].tolist() == [0, 2, 2, 0, -2, -2]  # half even
+    assert ts.numpy()[1] == ts.numpy()[2] == 1.0
+    assert (tq.numpy()[1:3] == 0).all()
+    assert (tq.numpy()[3] == 127).all() and (tq.numpy()[4] == -127).all()
+
+
+@pytest.mark.parametrize("rows", [1, 9, 70])
+def test_quant_combine_plain_matches_pallas_on_random_rows(rng, rows):
+    qa = rng.integers(-127, 128, size=(rows, 256)).astype(np.int8)
+    qb = rng.integers(-127, 128, size=(rows, 256)).astype(np.int8)
+    sa = np.abs(rng.standard_normal(rows)).astype(np.float32)
+    sb = np.abs(rng.standard_normal(rows)).astype(np.float32)
+    wq, ws = jqc.quant_combine(*map(jnp.asarray, (qa, sa, qb, sb)),
+                               interpret=True)
+    tq, ts = tqc.quant_combine(*map(torch.from_numpy, (qa, sa, qb, sb)))
+    # XLA may contract q*s + q*s into one FMA: the sums, hence the
+    # scales, agree to an ulp, and a lane can requantize one step away
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ws), rtol=2e-7)
+    assert np.abs(tq.numpy().astype(int)
+                  - np.asarray(wq).astype(int)).max() <= 1
+
+
+def test_quant_combine_folds_rank_dims_into_rows(rng):
+    """The ring's chunk [*rank, blocks, 256]: each rank's rows combine as
+    the reference combines that rank's payload."""
+    qa, sa, qb, sb = (np.stack([c] * 2) for c in quant_cases(rng))
+    tq, ts = tqc.quant_combine(*map(torch.from_numpy, (qa, sa, qb, sb)))
+    assert tuple(tq.shape) == (2, 6, 256) and tuple(ts.shape) == (2, 6)
+    for r in range(2):
+        wq, ws = jqc.quant_combine(*map(jnp.asarray,
+                                        (qa[r], sa[r], qb[r], sb[r])),
+                                   interpret=True)
+        assert_bitwise(tq[r].numpy(), np.asarray(wq))
+        assert_bitwise(ts[r].numpy(), np.asarray(ws))
+
+
+def test_quant_combine_wrapper_rejects_bad_operands():
+    q, s = torch.zeros(3, 256, dtype=torch.int8), torch.ones(3)
+    with pytest.raises(ValueError, match="payloads"):
+        tqc.quant_combine(torch.zeros(3, 128, dtype=torch.int8),
+                          torch.ones(3), q, s)
+    with pytest.raises(ValueError, match="scales"):
+        tqc.quant_combine(q, torch.ones(4), q, s)
+    with pytest.raises(TypeError, match="int8 payloads"):
+        tqc.quant_combine(q.float(), s, q, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        tqc.quant_combine(q.to("meta"), s.to("meta"), q.to("meta"),
+                          s.to("meta"))
+
+
+def test_cpu_quant_combine_takes_the_plain_version(rng):
+    before = tqc.launches
+    qa, sa, qb, sb = map(torch.from_numpy, quant_cases(rng))
+    got = tqc.quant_combine(qa, sa, qb, sb)
+    want = tref.quant_combine(qa, sa, qb, sb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert tqc.launches == before
+
+
+# ---------------------------------------------------------------------------
+# topk_accumulate
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size,k", [(50, 6), (3000, 64), (5000, 1)])
+def test_topk_accumulate_plain_matches_pallas_distinct(rng, size, k):
+    dense = rng.standard_normal(size).astype(np.float32)
+    idx = rng.choice(size, size=k, replace=False).astype(np.int32)
+    vals = rng.standard_normal(k).astype(np.float32)
+    want = jta.topk_accumulate(*map(jnp.asarray, (dense, idx, vals)),
+                               interpret=True)
+    got = tta.topk_accumulate_(*map(torch.from_numpy,
+                                    (dense.copy(), idx, vals)))
+    assert_bitwise(got.numpy(), np.asarray(want))
+
+
+def test_topk_accumulate_plain_matches_pallas_duplicates(rng):
+    """Duplicates accumulate; the sum's order differs (one-hot matmul vs
+    index_add), so a lane agrees to f32 rounding: d·2^-23·Σ|v| for d
+    adds."""
+    dense = rng.standard_normal(300).astype(np.float32)
+    idx = np.array([3, 3, 7, 299, 0, 3, 7, 3], np.int32)
+    vals = rng.standard_normal(8).astype(np.float32)
+    want = np.asarray(jta.topk_accumulate(
+        *map(jnp.asarray, (dense, idx, vals)), interpret=True))
+    got = tta.topk_accumulate_(*map(torch.from_numpy,
+                                    (dense.copy(), idx, vals)))
+    tol = 5 * 2.0 ** -23 * (np.abs(vals).sum() + np.abs(dense).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+def test_topk_accumulate_drops_out_of_range_indices(rng):
+    dense = rng.standard_normal(40).astype(np.float32)
+    idx = np.array([-1, 5, 40, 1000, 39], np.int32)
+    vals = rng.standard_normal(5).astype(np.float32)
+    want = jta.topk_accumulate(*map(jnp.asarray, (dense, idx, vals)),
+                               interpret=True)
+    got = tta.topk_accumulate_(*map(torch.from_numpy,
+                                    (dense.copy(), idx, vals)))
+    assert_bitwise(got.numpy(), np.asarray(want))
+    assert_bitwise(got.numpy()[[0, 1, 2, 3, 4, 6, 38]],
+                   dense[[0, 1, 2, 3, 4, 6, 38]])
+
+
+def test_topk_accumulate_rows_in_place(rng):
+    """Rank dims fold into rows: row r adds into dense[r], in place."""
+    dense = rng.standard_normal((4, 2, 70)).astype(np.float32)
+    idx = np.stack([rng.choice(70, size=9, replace=False)
+                    for _ in range(8)]).reshape(4, 2, 9).astype(np.int32)
+    vals = rng.standard_normal((4, 2, 9)).astype(np.float32)
+    td = torch.from_numpy(dense.copy())
+    ptr = td.data_ptr()
+    out = tta.topk_accumulate_(td, torch.from_numpy(idx),
+                               torch.from_numpy(vals))
+    assert out is td and td.data_ptr() == ptr
+    for a in range(4):
+        for b in range(2):
+            want = jta.topk_accumulate(
+                *map(jnp.asarray, (dense[a, b], idx[a, b], vals[a, b])),
+                interpret=True)
+            assert_bitwise(td[a, b].numpy(), np.asarray(want))
+
+
+def test_topk_accumulate_functional_form_leaves_dense(rng):
+    """The functional form is ``compression.sparse_accumulate``; the
+    registry's kernel binding is in place."""
+    d = torch.zeros(10)
+    got = sparse_accumulate(d, torch.tensor([1, 2], dtype=torch.int32),
+                            torch.tensor([1.0, 2.0]), use_kernels=True)
+    assert float(d.abs().sum()) == 0.0 and float(got.sum()) == 3.0
+    assert tops.topk_accumulate(d, torch.tensor([1], dtype=torch.int32),
+                                torch.tensor([4.0])) is d
+    assert float(d.sum()) == 4.0
+
+
+def test_topk_accumulate_wrapper_rejects_bad_operands():
+    d = torch.zeros(4, 10)
+    i = torch.zeros(4, 3, dtype=torch.int32)
+    v = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="rows"):
+        tta.topk_accumulate_(d, i[:3], v[:3])
+    with pytest.raises(TypeError, match="integers"):
+        tta.topk_accumulate_(d, v, v)
+    with pytest.raises(TypeError, match="cast the values"):
+        tta.topk_accumulate_(d, i, v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tta.topk_accumulate_(torch.zeros(10, 4).T, i, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tta.topk_accumulate_(d.to("meta"), i.to("meta"), v.to("meta"))
+
+
+def test_cpu_topk_accumulate_launches_nothing():
+    before = tta.launches
+    tta.topk_accumulate_(torch.zeros(3, 8),
+                         torch.ones(3, 2, dtype=torch.int32),
+                         torch.ones(3, 2))
+    assert tta.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the registry: use_kernel routes through the wrappers
 # ---------------------------------------------------------------------------
+
+def test_registry_topk_accumulate_kernel_agrees_on_cpu(rng):
+    switchops.load_kernels()
+    op = switchops.get("topk_accumulate")
+    assert op.kernel is not None
+    d = torch.from_numpy(rng.standard_normal(30).astype(np.float32))
+    i = torch.tensor([4, 9, 29], dtype=torch.int32)
+    v = torch.tensor([1.0, -2.0, 0.5])
+    assert torch.equal(op(d.clone(), i, v, use_kernel=True),
+                       op(d.clone(), i, v))
+
 
 @pytest.mark.parametrize("name", ["add", "max", "min", "mac"])
 def test_registry_kernel_and_plain_agree_on_cpu(rng, name):
@@ -253,9 +463,30 @@ def test_ref_topk_accumulate_matches_reference(rng):
     idx = np.array([3, 3, 7, 49, 0, 3], np.int32)    # duplicates accumulate
     vals = rng.standard_normal(6).astype(np.float32)
     want = jref.topk_accumulate(*map(jnp.asarray, (dense, idx, vals)))
-    got = tref.topk_accumulate(*map(torch.from_numpy, (dense, idx, vals)))
+    got = tref.topk_accumulate(*map(torch.from_numpy,
+                                    (dense.copy(), idx, vals)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_ref_topk_accumulate_is_the_kernels_plain_version(rng):
+    """One plain version: the registry's, the wrapper's and the sparse
+    ring's are ``ref.topk_accumulate`` — rows folded, in place,
+    out-of-range indices dropped as the Pallas kernel drops them."""
+    dense = rng.standard_normal((3, 40)).astype(np.float32)
+    idx = np.array([[-1, 5, 40], [0, 39, 1000], [7, 7, 2]], np.int32)
+    vals = rng.standard_normal((3, 3)).astype(np.float32)
+    td = torch.from_numpy(dense.copy())
+    assert tref.topk_accumulate(td, *map(torch.from_numpy,
+                                         (idx, vals))) is td
+    for r in range(3):
+        want = jta.topk_accumulate(
+            *map(jnp.asarray, (dense[r], idx[r], vals[r])), interpret=True)
+        np.testing.assert_allclose(td[r].numpy(), np.asarray(want),
+                                   rtol=0, atol=4 * 2.0 ** -23 * 8)
+    same = torch.from_numpy(dense.copy())
+    tta.plain(same, *map(torch.from_numpy, (idx, vals)))
+    assert torch.equal(same, td)
 
 
 @pytest.mark.parametrize("shape", [(37,), (20, 3)])
@@ -315,3 +546,36 @@ def test_pack_kernel_matches_plain_on_card(cuda_device):
     ptr = arena.data_ptr()
     got = tpc.fused_pack(arena, *parts, op="max")
     assert got.data_ptr() == ptr and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_quant_combine_kernel_matches_plain_on_card(cuda_device, rng):
+    cases = [torch.from_numpy(c).to(cuda_device) for c in quant_cases(rng)]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    rand = [torch.randint(-127, 128, (4096, 256), device=cuda_device,
+                          generator=g, dtype=torch.int8),
+            torch.rand(4096, device=cuda_device, generator=g),
+            torch.randint(-127, 128, (4096, 256), device=cuda_device,
+                          generator=g, dtype=torch.int8),
+            torch.rand(4096, device=cuda_device, generator=g)]
+    for qa, sa, qb, sb in (cases, rand):
+        before = tqc.launches
+        q, s = tqc.quant_combine(qa, sa, qb, sb)
+        assert tqc.launches == before + 1
+        wq, ws = tqc.plain(qa, sa, qb, sb)
+        assert torch.equal(q, wq) and torch.equal(s, ws)
+
+
+@pytest.mark.cuda
+def test_topk_accumulate_kernel_matches_plain_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    dense = torch.randn(8, 100_000, device=cuda_device, generator=g)
+    idx = torch.stack([torch.randperm(100_000, device=cuda_device,
+                                      generator=g)[:1000]
+                       for _ in range(8)]).to(torch.int32)
+    vals = torch.randn(8, 1000, device=cuda_device, generator=g)
+    want = tta.plain(dense.clone(), idx, vals)
+    before = tta.launches
+    tta.topk_accumulate_(dense, idx, vals)
+    assert tta.launches == before + 1
+    assert torch.equal(dense, want)               # distinct: bitwise

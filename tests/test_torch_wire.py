@@ -83,7 +83,7 @@ def test_int8_encoded_combine_matches_reference(rng):
     ta = twire.quantize_int8(torch.from_numpy(a))[:2]
     tb = twire.quantize_int8(torch.from_numpy(b))[:2]
     wq, ws = jwire._int8_combine(ja, jb)
-    tq, ts = twire._int8_combine(ta, tb)
+    tq, ts = twire.int8_codec().combine_encoded(ta, tb)
     # the reference's XLA may contract q*s + q*s into one FMA: the f32
     # sums, hence scales, agree to an ulp, and a lane can requantize one
     # int8 step away
