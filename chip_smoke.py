@@ -12,7 +12,9 @@ Phases, one JSON line each:
   3. kernels    — each kernel against its plain PyTorch version on the
                   card (bitwise; bf16 ``mac`` within one bf16 ulp;
                   ``topk_accumulate`` with duplicate indices within f32
-                  rounding of the lane's sum), then timed at the main
+                  rounding of the lane's sum; ``prefix_sum`` bitwise on
+                  integer-valued data, within ``scan_tolerance`` of the
+                  exact sum on random data), then timed at the main
                   path's shapes with CUDA events beside its plain version,
                   one PyTorch library call computing the same function
                   where there is one, and its device-memory bound
@@ -35,6 +37,19 @@ Phases, one JSON line each:
                   same totals, the EF identity over the 3 steps, and
                   ``quant_combine`` / ``topk_accumulate`` launched as
                   often as the compiled program says
+  6. fused      — the Type 3/4 programs through ``make_engine("acis").
+                  compile`` on ``LocalMesh({"data": 8})``, one line each:
+                  Fig. 5's scan + gather at 4 MiB per rank (1-D and
+                  [16384, 64]; its local scan the prefix_sum kernel), NAS IS
+                  class C (histogram all-reduce + key all-to-all), map +
+                  reduce-scatter and all-gather + map, GCN aggregation at
+                  Pubmed's size in-network and as all-gather + SpMM, and
+                  rank-4 PowerSGD of one acis-100m MLP matrix; one untimed
+                  call, then 3 timed calls in turns with
+                  ``use_kernels=False``, each output held against an exact
+                  or float64 result within its stated bound, and
+                  ``prefix_sum`` launched as often as the programs say
+                  (``fused_path``)
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
@@ -49,6 +64,7 @@ script stops before any phase.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import shutil
@@ -120,10 +136,11 @@ def check(cond: bool, what: str) -> None:
 def kernel_modules() -> dict:
     """Every ported kernel's wrapper module, by kernel name; each keeps
     its launch count in ``launches``."""
-    from repro_torch.kernels import (fused_combine, pack_combine,
+    from repro_torch.kernels import (chunk_scan, fused_combine, pack_combine,
                                      quant_combine, topk_accum)
     return {"fused_combine": fused_combine, "fused_pack": pack_combine,
-            "quant_combine": quant_combine, "topk_accumulate": topk_accum}
+            "quant_combine": quant_combine, "topk_accumulate": topk_accum,
+            "prefix_sum": chunk_scan}
 
 
 def reset_counts() -> None:
@@ -150,7 +167,7 @@ def _bitwise_err(got: torch.Tensor, want: torch.Tensor) -> float:
         check(torch.equal(gn, wn), "NaN lanes differ")
         got, want = got[~gn], want[~wn]
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
-            torch.int8: torch.int8}[got.dtype]
+            torch.int8: torch.int8, torch.int32: torch.int32}[got.dtype]
     diff = (got.view(bits) != want.view(bits)).sum().item()
     if diff:
         err = (got.float() - want.float()).abs().max().item()
@@ -240,6 +257,7 @@ def kernel_checks(dev) -> dict:
           "an overflowing pack did not raise")
     report["quant_combine"] = quant_checks(dev, gen)
     report["topk_accumulate"] = topk_checks(dev, gen)
+    report["prefix_sum"] = prefix_checks(dev, gen)
     return report
 
 
@@ -378,6 +396,123 @@ def topk_checks(dev, gen) -> dict:
     return r
 
 
+def scan_tolerance(x: torch.Tensor, dim: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(exact, tol)``: the float64 prefix sum of ``x`` along ``dim``, and
+    the bound a float32 scan of random-sign data meets, in any order.
+
+    Output i of a scan is an addition tree of i additions; each rounds by
+    at most 2^-24 of its result, the sum of a contiguous run, which is at
+    most 2·M_i (M_i = max over t <= i of |exact_t|).  On random-sign data
+    the roundings are zero-mean and independent, so their sum has a
+    standard deviation below sqrt(i)·2^-24·2·M_i/sqrt(3); the bound allows
+    about seven of them, 2^-21·sqrt(i+1)·M_i, plus the output's own
+    rounding to x's dtype (2^-24 of it for float32, 2^-8 for bfloat16).
+    The worst case, i·2^-24·Σ|x_t|, is too loose to see a tile's carry
+    go missing; this bound is not (tests/test_torch_chip_smoke.py)."""
+    exact = torch.cumsum(x.double(), dim)
+    m = torch.cummax(exact.abs(), dim).values
+    shape = [1] * x.dim()
+    shape[dim] = x.shape[dim]
+    i = torch.arange(1, x.shape[dim] + 1, device=x.device,
+                     dtype=torch.float64).reshape(shape)
+    out_u = 2.0 ** -8 if x.dtype == torch.bfloat16 else 2.0 ** -24
+    return exact, 2.0 ** -21 * i.sqrt() * m + out_u * exact.abs()
+
+
+def scan_err(got: torch.Tensor, exact: torch.Tensor, tol: torch.Tensor,
+             what: str) -> float:
+    """The largest |got - exact| over its bound; raises above 1."""
+    err = (got.double() - exact).abs()
+    ratio = (err / tol.clamp_min(1e-300)).max().item()
+    check(bool((err <= tol).all()),
+          f"{what}: {err.max().item()} off the exact prefix sum, "
+          f"{ratio:.3g} x its stated bound")
+    return ratio
+
+
+def bounded_walk(shape, dim: int, dev, gen) -> torch.Tensor:
+    """bfloat16 steps in {-1, 0, 1} of a walk that stays in [0, 128] along
+    ``dim`` (a triangle wave of a random walk): every sum of a contiguous
+    run lies in [-128, 128], exact in bfloat16, so any scan order agrees
+    bit for bit."""
+    c = torch.cumsum(torch.randint(-1, 2, shape, device=dev, generator=gen),
+                     dim)
+    f = 128 - (c.remainder(256) - 128).abs()
+    return torch.diff(f, dim=dim, prepend=torch.zeros_like(
+        f.narrow(dim, 0, 1))).to(torch.bfloat16)
+
+
+def prefix_checks(dev, gen) -> dict:
+    """f32 at the fused path's shapes ([8, 2^20], [8, 16384, 64]), a ragged
+    T, lanes that fill no warp, T = 1 and one long row: integer-valued data
+    (every partial sum exact) bitwise equal to the plain version and to the
+    exact sum; random normal data within :func:`scan_tolerance` of the
+    exact sum, kernel and plain version alike, so within twice it of each
+    other.  bf16: a bounded walk bitwise; random data within the bf16
+    bound of the exact sum (the plain version's difference is reported,
+    not held: its bf16 accumulation is PyTorch's own)."""
+    from repro_torch.kernels import chunk_scan as cs
+
+    r = {"cases": 0, "max_abs_err": 0.0, "max_err_over_bound": 0.0}
+    f32 = [((8, 1 << 20), 1), ((8, 16384, 64), 1), ((8, 3 * 4096 + 123), 1),
+           ((3, 1000, 5), 1), ((4, 3000, 7), 1), ((8, 1, 64), 1),
+           ((5, 1), 1), ((100003,), 0)]
+    for shape, dim in f32:
+        x = torch.randint(-1, 2, shape, device=dev, generator=gen).float()
+        got, want = cs.prefix_sum(x, dim), cs.plain(x, dim)
+        torch.cuda.synchronize()
+        _bitwise_err(got, want)
+        check(torch.equal(got.double(), torch.cumsum(x.double(), dim)),
+              f"prefix_sum {shape}: integer-valued scan not exact")
+        x = torch.randn(shape, device=dev, generator=gen)
+        got, want = cs.prefix_sum(x, dim), cs.plain(x, dim)
+        torch.cuda.synchronize()
+        exact, tol = scan_tolerance(x, dim)
+        ratio = max(scan_err(got, exact, tol, f"prefix_sum {shape}"),
+                    scan_err(want, exact, tol, f"plain cumsum {shape}"))
+        diff = (got - want).abs()
+        check(bool((diff <= 2 * tol).all()),
+              f"prefix_sum {shape}: kernel and plain differ by "
+              f"{diff.max().item()}, beyond twice the bound")
+        r["max_abs_err"] = max(r["max_abs_err"], diff.max().item())
+        r["max_err_over_bound"] = max(r["max_err_over_bound"], ratio)
+        r["cases"] += 2
+    r["bf16_plain_max_abs_diff"] = r["bf16_err_over_bound"] = 0.0
+    for shape, dim in (((8, 3 * 4096 + 123), 1), ((8, 16384, 64), 1)):
+        x = bounded_walk(shape, dim, dev, gen)
+        got, want = cs.prefix_sum(x, dim), cs.plain(x, dim)
+        torch.cuda.synchronize()
+        _bitwise_err(got, want)
+        x = torch.randn(shape, device=dev, generator=gen).bfloat16()
+        got, want = cs.prefix_sum(x, dim), cs.plain(x, dim)
+        torch.cuda.synchronize()
+        exact, tol = scan_tolerance(x, dim)
+        # near 1 by design: a bf16 output rounds by up to half an ulp,
+        # 2^-8 of it, which the bound allows and no more
+        r["bf16_err_over_bound"] = max(
+            r["bf16_err_over_bound"],
+            scan_err(got, exact, tol, f"bf16 prefix_sum {shape}"))
+        r["bf16_plain_max_abs_diff"] = max(
+            r["bf16_plain_max_abs_diff"],
+            (got.float() - want.float()).abs().max().item())
+        r["cases"] += 2
+    for bad, err in ((torch.zeros(8, 6, device=dev).t(), ValueError),
+                     (torch.zeros(8, dtype=torch.int32, device=dev),
+                      TypeError)):
+        if torch.device(dev).type != "cuda":
+            break                 # a CPU tensor takes the plain version
+        try:
+            cs.prefix_sum(bad, 0)
+        except err:
+            continue
+        raise AssertionError(f"prefix_sum took a {bad.dtype} "
+                             f"{tuple(bad.stride())}-strided tensor")
+    r["tolerance"] = ("random f32: 2^-21*sqrt(i+1)*max_{t<=i}|S_t| + "
+                      "2^-24*|S_i| of the exact S (2^-8*|S_i| for bf16)")
+    return r
+
+
 def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
     """(ranks, blocks per rank) of the largest int8_hopquant hop: the
     largest leaf's 256-lane blocks, padded to a multiple of n, split in n
@@ -394,9 +529,12 @@ def kernel_timings(dev, peak: float, cfg) -> dict:
     [8, 3,072,000] add), the Coalesce bucket pack (f32 parts of 768,
     9216 and 9216 per rank into the [8, 19200] arena), the largest
     int8_hopquant hop (the embed leaf's chunk, rank dims folded into
-    rows) and the top-k accumulate of the embed leaf (k = 1% of its
-    24,576,000 lanes into the [8, 24,576,000] f32 accumulator)."""
+    rows), the top-k accumulate of the embed leaf (k = 1% of its
+    24,576,000 lanes into the [8, 24,576,000] f32 accumulator) and the
+    local scan of fig5_scan ([8, 2^20] f32 along dim 1; fig5_scan_2d's
+    [8, 16384, 64] beside it)."""
     from repro_torch.configs.acis_100m import grad_leaf_specs
+    from repro_torch.kernels import chunk_scan as cs
     from repro_torch.kernels import fused_combine as fc
     from repro_torch.kernels import pack_combine as pc
     from repro_torch.kernels import quant_combine as qc
@@ -457,9 +595,22 @@ def kernel_timings(dev, peak: float, cfg) -> dict:
         "shape": [8, size], "k": k, "dtype": "float32",
     }
     del dense, idx, vals, flat_idx, flat_vals
+    x = torch.randn((8, 1 << 20), device=dev, generator=gen)
+    x2 = torch.randn((8, 16384, 64), device=dev, generator=gen)
+    scan = {
+        "ms": time_ms(lambda: cs.prefix_sum(x, 1)),
+        "plain_ms": time_ms(lambda: cs.plain(x, 1)),
+        "library_ms": time_ms(lambda: torch.cumsum(x, dim=1)),
+        "bytes": 2 * x.numel() * x.element_size(),
+        "shape": [8, 1 << 20], "dim": 1, "dtype": "float32",
+        "ms_2d": time_ms(lambda: cs.prefix_sum(x2, 1)),
+        "library_ms_2d": time_ms(lambda: torch.cumsum(x2, dim=1)),
+        "shape_2d": [8, 16384, 64],
+    }
+    del x, x2
     torch.cuda.empty_cache()
     out = {"fused_combine": comb, "fused_pack": pack, "quant_combine": quant,
-           "topk_accumulate": topk}
+           "topk_accumulate": topk, "prefix_sum": scan}
     for t in out.values():
         t["bound_ms"] = t["bytes"] / peak * 1e3
     return out
@@ -474,10 +625,15 @@ def expected_launches(compiled, mesh) -> dict:
     n-1 hop combines per ring all-reduce stage, one launch per arena
     pack, n-1 quant_combines per int8_hopquant EF stage, and per top-k
     EF stage one accumulate of the rank's own payload, n-1 of the hops'
-    and one for the decompress."""
+    and one for the decompress, and one prefix_sum (every rank's local
+    scan at once) per inclusive-add scan+allgather stage."""
     out = dict.fromkeys(kernel_modules(), 0)
     for st in compiled.stages:
         n = mesh.axis_size(st.axis) if st.axis else 1
+        if st.kind == "scan+allgather":
+            scan = st.ir.nodes[1].op
+            if scan.monoid.name == "add" and not scan.exclusive:
+                out["prefix_sum"] += 1
         if st.kind in ("allreduce", "batched_allreduce"):
             out["fused_combine"] += n - 1
         if st.arena_slot is not None:
@@ -794,6 +950,380 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class FusedSizes:
+    """Per-rank sizes of the fused phase's programs (8 ranks)."""
+    scan: int                  # fig5_scan, ag_map, map_rs: f32 per rank
+    scan_2d: tuple             # fig5_scan_2d: [T, D] f32 per rank
+    is_keys: int               # nas_is_c: int32 keys per rank
+    is_max_key: int
+    is_buckets: int
+    gcn: tuple                 # (vertices, average degree, features)
+    psgd: tuple                # (rows, cols, rank)
+
+
+# Fig. 5's largest size (4 MiB per rank, benchmarks/figures.py:62); NPB IS
+# class C (2^27 keys, max key 2^23, 2^10 buckets); Pubmed
+# (benchmarks/figures.py:85-91); one acis-100m MLP matrix (d_model x d_ff)
+FUSED = FusedSizes(scan=1 << 20, scan_2d=(16384, 64), is_keys=1 << 24,
+                   is_max_key=1 << 23, is_buckets=1 << 10,
+                   gcn=(19717, 4.5, 500), psgd=(768, 2048, 4))
+# the same programs at sizes a CPU runs in seconds (a rehearsal only)
+FUSED_SMOKE = FusedSizes(scan=5000, scan_2d=(300, 8), is_keys=64,
+                         is_max_key=1 << 10, is_buckets=16,
+                         gcn=(61, 4.5, 5), psgd=(32, 24, 4))
+
+
+class FusedRun:
+    """One run of the fused phase: the mesh, the timed steps and the
+    records, one per program."""
+
+    def __init__(self, mesh, seed: int, steps: int, expect_kernels: bool):
+        self.mesh, self.steps = mesh, steps
+        self.expect_kernels = expect_kernels
+        self.dev = mesh.device
+        self.cuda = self.dev.type == "cuda"
+        self.n = mesh.axis_size("data")
+        self.gen = torch.Generator(device=self.dev).manual_seed(seed + 13)
+        self.records: list[dict] = []
+
+    def sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def timed(self, fn, *xs):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn(*xs)
+        self.sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def pair(self, name, prog, in_specs, out_specs, warm, inputs, compare,
+             after=None) -> dict:
+        """Compile ``prog`` for a kernel and a plain engine; call both on
+        ``warm`` (untimed), then ``steps`` times on ``inputs`` in turns.
+        ``compare(out_k, out_p, warm)`` checks one pair of outputs and
+        returns its numbers; ``after(compiled, out_k)`` runs once the
+        counts are read."""
+        from repro_torch import core as acis
+
+        if self.cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        eng_k = acis.make_engine("acis")
+        check(eng_k.config.use_kernels, "use_kernels is off by default")
+        eng_p = acis.make_engine("acis", use_kernels=False)
+        fk = eng_k.compile(prog, self.mesh, in_specs, out_specs)
+        fp = eng_p.compile(prog, self.mesh, in_specs, out_specs)
+        check(fk.stages == fp.stages, f"{name}: stages differ")
+        per_call = expected_launches(fk.compiled, self.mesh)
+        reset_counts()
+        (ok, _), (op, _) = in_turns(1, lambda: self.timed(fk, *warm),
+                                    lambda: self.timed(fp, *warm))
+        res = {"warm": compare(ok, op, True)}
+        t_k, t_p = [], []
+        for step in range(self.steps):
+            (ok, dk), (op, dp) = in_turns(
+                step, lambda: self.timed(fk, *inputs),
+                lambda: self.timed(fp, *inputs))
+            t_k.append(dk)
+            t_p.append(dp)
+            res[f"step{step}"] = compare(ok, op, False)
+        launches = read_counts()
+        if self.expect_kernels:
+            check_launches(launches, per_call, self.steps + 1)
+        if after is not None:
+            res["after"] = after(fk.compiled, ok)
+        rec = {"phase": "fused", "program": name, "stages": fk.stages,
+               "launches_per_call": per_call, "launches": launches,
+               "ms_kernels": t_k, "ms_plain": t_p,
+               "median_ms_kernels": statistics.median(t_k),
+               "median_ms_plain": statistics.median(t_p), "checks": res,
+               "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                        if self.cuda else None),
+               "profile": device_profile(lambda: fk(*inputs))
+               if self.cuda else None}
+        self.records.append(rec)
+        return rec
+
+    # -- the programs ----------------------------------------------------
+
+    def fig5(self, name: str, local: tuple) -> None:
+        from repro_torch import core as acis
+        from repro_torch.mesh import P
+
+        n, dev, gen = self.n, self.dev, self.gen
+        shape = (n * local[0],) + tuple(local[1:])
+        ints = torch.randint(-1, 2, shape, device=dev, generator=gen).float()
+        x = torch.randn(shape, device=dev, generator=gen)
+        exact_i = torch.cumsum(ints.double(), 0)
+        exact, tol = scan_tolerance(x, 0)
+
+        def compare(ok, op, warm):
+            check(tuple(ok.shape) == shape and ok.dtype == torch.float32,
+                  f"{name}: output {tuple(ok.shape)} {ok.dtype}")
+            if warm:
+                _bitwise_err(ok, op)
+                check(torch.equal(ok.double(), exact_i),
+                      f"{name}: integer-valued scan not exact")
+                return {"bitwise": True}
+            diff = (ok - op).abs()
+            check(bool((diff <= 2 * tol).all()),
+                  f"{name}: kernel and plain engines differ by "
+                  f"{diff.max().item()}, beyond twice the bound")
+            return {"kernels_err_over_bound": scan_err(ok, exact, tol, name),
+                    "plain_err_over_bound": scan_err(op, exact, tol, name),
+                    "max_abs_diff_vs_plain": diff.max().item()}
+
+        def after(compiled, ok):
+            # every rank's copy, from the rank-local program (one more
+            # launch, after the counts were read)
+            with self.mesh:
+                (ranks,) = compiled(x.reshape((n,) + tuple(local)))
+            self.sync()
+            for r in range(n):
+                check(torch.equal(ranks[r], ok),
+                      f"{name}: rank {r} holds another scan")
+            return {"ranks_identical": True}
+
+        rec = self.pair(name, lambda v: acis.all_gather(acis.scan(
+            acis.all_gather(v))), P("data"), P(None), (ints,), (x,),
+            compare, after)
+        rec.update(bytes_per_rank=math.prod(local) * 4,
+                   local_shape=list(local))
+
+    def nas_is(self, sizes: FusedSizes) -> None:
+        """Per-rank bucket histogram of its keys beside the key exchange."""
+        from repro_torch import core as acis
+        from repro_torch.mesh import P
+
+        n, dev = self.n, self.dev
+        keys = torch.randint(0, sizes.is_max_key, (n * sizes.is_keys,),
+                             device=dev, generator=self.gen,
+                             dtype=torch.int32)
+        shift = (sizes.is_max_key // sizes.is_buckets).bit_length() - 1
+        bucket = (keys.view(n, -1) >> shift).long() \
+            + torch.arange(n, device=dev)[:, None] * sizes.is_buckets
+        hist = torch.bincount(bucket.view(-1),
+                              minlength=n * sizes.is_buckets) \
+            .view(n, sizes.is_buckets).float()
+        del bucket
+        want_h = hist.sum(0)
+        want_k = keys.view(n, n, -1).transpose(0, 1).reshape(-1)
+
+        def compare(ok, op, warm):
+            for a, b in zip(ok, op):
+                _bitwise_err(a, b)
+            check(bool((ok[0] == want_h).all()), "nas_is_c: histogram sum")
+            check(torch.equal(ok[1], want_k),
+                  "nas_is_c: keys not delivered to their ranks")
+            return {"bitwise": True}
+
+        rec = self.pair("nas_is_c", lambda h, k: (acis.reduce(h),
+                                                  acis.all_to_all(k)),
+                        (P("data"), P("data")), (P("data"), P("data")),
+                        (hist, keys), (hist, keys), compare)
+        rec.update(keys_per_rank=sizes.is_keys, buckets=sizes.is_buckets,
+                   bytes_per_rank=(sizes.is_keys + sizes.is_buckets) * 4)
+
+    def map_programs(self, sizes: FusedSizes) -> None:
+        """map+reduce_scatter and allgather+map of torch.square.  The
+        scattered sums round n times (the squares once, n-1 ring adds),
+        each by at most 2^-24 of the lane's Σx²; the gathered squares
+        round once and equal torch.square bit for bit."""
+        from repro_torch import core as acis
+        from repro_torch.mesh import P
+
+        n = self.n
+        x = torch.randn((n * sizes.scan,), device=self.dev,
+                        generator=self.gen)
+        sq64 = x.double().square()
+        rs_exact = sq64.view(n, -1).sum(0)
+        want_sq = torch.square(x)
+
+        def rs_compare(ok, op, warm):
+            _bitwise_err(ok, op)
+            err = (ok.double() - rs_exact).abs()
+            check(bool((err <= n * 2.0 ** -24 * rs_exact).all()),
+                  f"map_rs: {err.max().item()} off the float64 sum")
+            return {"max_abs_err": err.max().item()}
+
+        def ag_compare(ok, op, warm):
+            _bitwise_err(ok, op)
+            _bitwise_err(ok, want_sq)
+            err = (ok.double() - sq64).abs()
+            check(bool((err <= 2.0 ** -24 * sq64).all()),
+                  "ag_map: squares off by more than one rounding")
+            return {"bitwise_vs_square": True}
+
+        for name, prog, out, compare in (
+                ("map_rs", lambda v: acis.reduce_scatter(
+                    acis.map(torch.square, v, name="square")), P("data"),
+                 rs_compare),
+                ("ag_map", lambda v: acis.map(
+                    torch.square, acis.all_gather(v), name="square"),
+                 P(None), ag_compare)):
+            rec = self.pair(name, prog, P("data"), out, (x,), (x,), compare)
+            rec.update(bytes_per_rank=sizes.scan * 4)
+
+    def gcn(self, sizes: FusedSizes) -> None:
+        """Â·X on a row-normalised random graph of the dataset's vertex
+        count and average degree, padded to a multiple of the ranks:
+        in-network (ring-rotated block MACs in a ``map`` body) and
+        all-gather + one SpMM.  A row with m nonzeros is an addition tree
+        over at most m products (zeros add exactly), so each output is
+        within 2·m_max·2^-24·(Â·|X|) of the float64 product of the same
+        f32 inputs, and the two programs within twice that of each
+        other."""
+        from repro_torch import core as acis
+        from repro_torch.core import lookaside
+        from repro_torch.mesh import P
+
+        n, dev, gen = self.n, self.dev, self.gen
+        verts, deg, feat = sizes.gcn
+        rows = -(-verts // n)
+        vp = rows * n
+        edges = round(verts * deg / 2)
+        src = torch.randint(0, verts, (edges,), device=dev, generator=gen)
+        dst = torch.randint(0, verts, (edges,), device=dev, generator=gen)
+        adj = torch.zeros((vp, vp), device=dev)
+        adj[src, dst] = 1.0
+        adj[dst, src] = 1.0
+        adj /= adj.sum(1, keepdim=True).clamp_min(1.0)
+        m_max = int((adj != 0).sum(1).max())
+        x = torch.randn((vp, feat), device=dev, generator=gen)
+        exact = adj.double() @ x.double()
+        tol = 2 * m_max * 2.0 ** -24 * (adj @ x.abs()).double()
+        blocks = adj.reshape(n, rows, n, rows).permute(0, 2, 1, 3) \
+            .reshape(n * n, rows, rows)
+        del adj, src, dst
+        outs = {}
+
+        def compare_to(name):
+            def compare(ok, op, warm):
+                _bitwise_err(ok, op)
+                err = (ok.double() - exact).abs()
+                check(bool((err <= tol).all()),
+                      f"{name}: {err.max().item()} off the float64 product")
+                outs[name] = ok
+                return {"max_abs_err": err.max().item(),
+                        "err_over_bound": (err / tol.clamp_min(1e-300))
+                        .max().item()}
+            return compare
+
+        def spmm(ab, full):
+            return torch.einsum("...brc,...bcd->...rd", ab, full.reshape(
+                tuple(full.shape[:-2]) + (n, rows, feat)))
+
+        recs = [
+            self.pair("gcn_pubmed", lambda a, v: acis.map(
+                lambda ab, xb: lookaside.gcn_aggregate(ab, xb, "data"),
+                a, v, name="gcn_aggregate"), (P("data"), P("data")),
+                P("data"), (blocks, x), (blocks, x),
+                compare_to("gcn_pubmed")),
+            self.pair("gcn_pubmed_baseline", lambda a, v: acis.map(
+                spmm, a, acis.all_gather(v), name="spmm"),
+                (P("data"), P("data")), P("data"), (blocks, x), (blocks, x),
+                compare_to("gcn_pubmed_baseline"))]
+        diff = (outs["gcn_pubmed"] - outs["gcn_pubmed_baseline"]).abs()
+        check(bool((diff.double() <= 2 * tol).all()),
+              f"gcn: in-network and baseline differ by {diff.max().item()}")
+        for r in recs:
+            r.update(vertices=verts, padded=vp, avg_degree=deg,
+                     features=feat, max_row_nnz=m_max,
+                     adj_blocks_bytes=blocks.numel() * 4,
+                     max_abs_diff_in_network_vs_baseline=diff.max().item())
+
+    def powersgd(self, sizes: FusedSizes) -> None:
+        """Rank-r PowerSGD of one [rows, cols] matrix, called inside
+        ``with mesh:``: one untimed step, then ``steps`` with q and the
+        residual threaded, every rank holding the same reduced matrix;
+        then the reference test's case — every rank holding one rank-r
+        matrix, which one step recovers within rtol 0.03 and atol 0.03 of
+        its largest entry."""
+        from repro_torch.core import lookaside
+
+        n, dev, gen = self.n, self.dev, self.gen
+        rows, cols, r = sizes.psgd
+        if self.cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        q = lookaside.powersgd_init((rows, cols), r, gen) \
+            .expand(n, cols, r).contiguous()
+        res = torch.zeros((n, rows, cols), device=dev)
+        reset_counts()
+        times = []
+        with self.mesh:
+            for step in range(-1, self.steps):
+                m = torch.randn((n, rows, cols), device=dev, generator=gen)
+                (red, q, res), dt = self.timed(
+                    lookaside.powersgd_all_reduce, m, q, res, "data")
+                check(bool(torch.isfinite(red).all()
+                           and torch.isfinite(res).all()),
+                      "powersgd: non-finite output")
+                for i in range(1, n):
+                    check(torch.equal(red[i], red[0]),
+                          f"powersgd: rank {i} holds another result")
+                if step >= 0:
+                    times.append(dt)
+            u = torch.randn((rows, r), device=dev, generator=gen)
+            v = torch.randn((cols, r), device=dev, generator=gen)
+            base = u @ v.T
+            q0 = torch.randn((cols, r), device=dev, generator=gen)
+            red, _, _ = lookaside.powersgd_all_reduce(
+                base.expand(n, rows, cols).contiguous(),
+                q0.expand(n, cols, r).contiguous(),
+                torch.zeros((n, rows, cols), device=dev), "data")
+        launches = read_counts()
+        err = (red[0] - base).abs()
+        check(bool((err <= 0.03 * base.abs().max()
+                    + 0.03 * base.abs()).all()),
+              f"powersgd: rank-{r} input recovered within "
+              f"{err.max().item()}")
+        self.records.append({
+            "phase": "fused", "program": f"powersgd_r{r}",
+            "shape": [rows, cols], "rank": r, "steps": self.steps,
+            "launches": launches, "ms": times,
+            "median_ms": statistics.median(times),
+            "ranks_identical": True,
+            "low_rank_max_abs_err": err.max().item(),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if self.cuda else None)})
+
+
+def fused_path(mesh, sizes: FusedSizes, seed: int, *, steps: int = 3,
+               expect_kernels: bool = True) -> list[dict]:
+    """The Type 3/4 programs through ``make_engine("acis").compile(prog,
+    mesh, in_specs, out_specs)``, each run as :meth:`FusedRun.pair` says:
+
+      * fig5_scan, fig5_scan_2d — AG∘scan∘AG (``scan+allgather``, its
+        local scan the prefix_sum kernel): the untimed call on
+        integer-valued data, bitwise equal to the plain engine and the
+        exact sum; the timed ones on random normal data, each engine
+        within :func:`scan_tolerance` of the float64 prefix sum; every
+        rank holding the same result
+      * nas_is_c — reduce(hist) + all_to_all(keys) (``allreduce+
+        alltoall``): bitwise equal to the chunk transpose and the exact
+        histogram sum
+      * map_rs, ag_map — ``map+reduce_scatter`` / ``allgather+map``
+      * gcn_pubmed, gcn_pubmed_baseline — :meth:`FusedRun.gcn`
+      * powersgd_r4 — :meth:`FusedRun.powersgd`, a direct call
+
+    Each program's launch counts are set to 0 just before its calls and
+    read just after."""
+    run = FusedRun(mesh, seed, steps, expect_kernels)
+    run.fig5("fig5_scan", (sizes.scan,))
+    run.fig5("fig5_scan_2d", sizes.scan_2d)
+    run.nas_is(sizes)
+    run.map_programs(sizes)
+    run.gcn(sizes)
+    run.powersgd(sizes)
+    if expect_kernels:
+        check(sum(r["launches"]["prefix_sum"] for r in run.records) > 0,
+              "the fused programs launched no prefix_sum")
+    return run.records
+
+
 def device_profile(step) -> dict:
     """One more sync under ``torch.profiler``: device time by
     kernel name (top 10) and the device's busy share of the window (sum
@@ -839,6 +1369,8 @@ SOURCES = {
                       "src/repro/kernels/quant_combine.py:55"),
     "topk_accumulate": ("src/repro_torch/kernels/csrc/topk_accum.cu",
                         "src/repro/kernels/topk_accum.py:47"),
+    "prefix_sum": ("src/repro_torch/kernels/csrc/prefix_sum.cu",
+                   "src/repro/kernels/chunk_scan.py:64"),
 }
 
 
@@ -863,6 +1395,10 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.mesh import LocalMesh
 
+    # full float32 matmuls (the GCN and PowerSGD programs, and their
+    # float64-held bounds), stated and set rather than left to defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     records = []
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -875,6 +1411,8 @@ def main() -> int:
            "device_count": torch.cuda.device_count(),
            "nvcc": nvcc_v.splitlines()[-1],
            "ninja_on_path": shutil.which("ninja") is not None,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "hbm_peak_Bps": peak, "hbm_peak_source": peak_note}
     emit(rec)
     records.append(rec)
@@ -902,6 +1440,9 @@ def main() -> int:
     for comp in COMPRESSORS:
         paths.append(compressed_path(mesh, CONFIG, args.seed, comp))
         emit(paths[-1])
+    for rec in fused_path(mesh, FUSED, args.seed):
+        paths.append(rec)
+        emit(rec)
     records.extend(paths)
 
     kernels = []

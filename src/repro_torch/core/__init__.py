@@ -6,6 +6,10 @@ Layering (each module mirrors its :mod:`repro.core` counterpart):
   wire        on-wire codecs (Type 0 streams, Type 2 wire dtypes)
   collectives Type 1/2 collectives, backend = xla | acis
   switchops   SPU instruction registry (plain versions + CUDA kernels)
+  compression Type 2 wire datatypes (top-k, int8, PowerSGD factors)
+  lookaside   Type 3 look-aside operators (EF, PowerSGD, prefix sum, GCN)
+  fused       Type 4 fused collectives (Fig. 5, NAS IS, MapReduce,
+              collective matmul)
   program     DAG IR (DagProgram) + the SwitchProgram chain shim
   tracing     traced frontend: programs as plain Python functions
   compiler    Legalize → LowerTopology → Coalesce → FuseHops →

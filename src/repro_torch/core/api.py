@@ -19,6 +19,14 @@ The hierarchical backends (``acis_hierarchical``,
 ``NotImplementedError`` until that slice lands (ROADMAP.md, queue 1
 item 3).
 
+:meth:`CollectiveEngine.compile` is the one entry point for any other
+switch program, the Type 3/4 ones included: a traced program compiles
+through the pass pipeline to stages such as ``scan+allgather`` (Fig. 5,
+whose local scan is the ``prefix_sum`` kernel under ``use_kernels``),
+``allreduce+alltoall`` (NAS IS), ``map+reduce_scatter`` and
+``allgather+map``, and look-aside operators (``core/lookaside.py``)
+ride in ``map`` bodies.
+
 Where the reference runs inside a ``shard_map`` region, the port runs
 inside ``with mesh:`` (a :class:`~repro_torch.mesh.LocalMesh`, or pass
 ``mesh=``): every gradient is rank-stacked, ``[*rank, *local]``.  The

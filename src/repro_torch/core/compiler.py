@@ -26,9 +26,9 @@ schedules, axes, waves and bucket layout:
 The reference's PlaceCGRA pass (CGRA placement of stage bodies) is not
 ported yet: every ``placement`` is None, and the cost-model views that
 need placements (:meth:`CompiledProgram.program_time`, the model columns
-of :meth:`CompiledProgram.explain`) raise ``NotImplementedError``.  So do
-the stage lowerings that need ``core/fused.py`` — when called; they still
-compile, so the stage structure matches the reference's.
+of :meth:`CompiledProgram.explain`) raise ``NotImplementedError``.  Every
+stage kind lowers and runs, the Type 4 fused stages through
+:mod:`repro_torch.core.fused`.
 
 Rank dims: a compiled program runs on rank-stacked tensors
 (``[*rank, *local]``) inside ``with mesh:``.  Every size the compiler
@@ -48,8 +48,8 @@ from typing import Any, Callable, Optional, Sequence, Union
 import torch
 
 from repro_torch import mesh as _mesh
-from repro_torch.core import (collectives, executor, lookaside, netmodel,
-                              ring, switchops)
+from repro_torch.core import (collectives, executor, fused, lookaside,
+                              netmodel, ring, switchops)
 from repro_torch.core.program import (AUTO_AXIS, COLLECTIVE_KINDS, DagNode,
                                       DagProgram, Node, OpKind,
                                       SwitchProgram)
@@ -62,9 +62,7 @@ from repro_torch.obs import metrics as _obs
 PyTree = Any
 ProgramLike = Union[DagProgram, SwitchProgram, Callable]
 
-# where each lowering that is not ported yet will come from
-_WAITS_FUSED = ("core/fused.py (ROADMAP.md, queue 1 item 2: the Type 4 "
-                "lowerings)")
+# where the part that is not ported yet will come from
 _WAITS_MAPPER = ("PlaceCGRA + cgra/mapper.py (ROADMAP.md, queue 1 item 1)")
 
 
@@ -2583,19 +2581,26 @@ class Emit:
     # -- fused stages --------------------------------------------------------
 
     @staticmethod
-    def _waiting(kind: str, source: str):
-        def run(args, ax):
-            raise NotImplementedError(
-                f"stage {kind!r} lowers through {source}, not ported yet")
+    def _scan_allgather(g: StageIR, ctx: CompileContext):
+        """Fig. 5: an inclusive add-scan is the fused allgather_op_allgather,
+        whose local scan is the ``prefix_sum`` kernel with kernels on;
+        any other scan rides the generic rank scan + gather."""
+        scan_op = g.nodes[1].op
+
+        def run(args, ax, _m=scan_op.monoid, _ex=scan_op.exclusive,
+                _uk=_use_kernels(ctx)):
+            (x,) = args
+            if _m.name == "add" and not _ex:
+                return (fused.allgather_op_allgather(x, ax, use_kernels=_uk),)
+            return (fused.scan_then_allgather(x, ax, _m, exclusive=_ex),)
         return run
 
     @staticmethod
-    def _scan_allgather(g: StageIR, ctx: CompileContext):
-        return Emit._waiting(g.kind, _WAITS_FUSED)
-
-    @staticmethod
     def _allreduce_alltoall(g: StageIR, ctx: CompileContext):
-        return Emit._waiting(g.kind, _WAITS_FUSED)
+        def run(args, ax):
+            hist, keys = args
+            return fused.fused_allreduce_alltoall(hist, keys, ax)
+        return run
 
     @staticmethod
     def _map_allreduce(g: StageIR, ctx: CompileContext):
@@ -2610,11 +2615,21 @@ class Emit:
 
     @staticmethod
     def _map_reduce_scatter(g: StageIR, ctx: CompileContext):
-        return Emit._waiting(g.kind, _WAITS_FUSED)
+        mp, rs = g.nodes[0].op, g.nodes[1].op
+
+        def run(args, ax, _f=mp.fn, _m=rs.monoid, _c=rs.codec):
+            (x,) = args
+            return (fused.map_reduce_scatter(x, ax, _f, _m, codec=_c),)
+        return run
 
     @staticmethod
     def _allgather_map(g: StageIR, ctx: CompileContext):
-        return Emit._waiting(g.kind, _WAITS_FUSED)
+        mp = g.nodes[1].op
+
+        def run(args, ax, _f=mp.fn):
+            (x,) = args
+            return (fused.allgather_map(x, ax, _f),)
+        return run
 
     @staticmethod
     def _ef_allreduce(g: StageIR, ctx: CompileContext):

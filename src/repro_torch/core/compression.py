@@ -8,7 +8,7 @@ datatypes beyond primitives:
                           lacking (§III: "no sparse data types").
   * blockwise int8      — payload + scales (see :mod:`repro_torch.core.wire`).
   * low-rank (PowerSGD) — rank-r factor pair, for the Type 3 iterative
-                          loop (``lookaside.powersgd_*``, not ported yet).
+                          loop (``lookaside.powersgd_*``).
 
 Rank-local like the rest of ``core``: inside ``with mesh:`` every tensor
 carries the rank dims in front and each rank compresses its own payload.
@@ -79,10 +79,7 @@ def sparse_accumulate_(dense: torch.Tensor, idx: torch.Tensor,
     """Scatter-add a sparse (idx, vals) payload into a dense accumulator,
     **in place**, rank by rank — the per-hop combine of the sparse
     all-reduce.  ``vals`` must already have ``dense``'s dtype."""
-    op = switchops.get("topk_accumulate")
-    if use_kernels and op.kernel is None:
-        switchops.load_kernels()
-        op = switchops.get("topk_accumulate")
+    op = switchops.get("topk_accumulate", load=use_kernels)
     return op(dense, idx, vals, use_kernel=use_kernels)
 
 
@@ -123,19 +120,21 @@ def sparse_all_reduce_payloads(idx: torch.Tensor, vals: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# PowerSGD low-rank factors (for lookaside.powersgd_*, not ported yet)
+# PowerSGD low-rank factors (for lookaside.powersgd_*)
 # ---------------------------------------------------------------------------
 
 def orthonormalize(p: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Gram-Schmidt columns of p [n, r] (r small)."""
+    """Gram-Schmidt columns of p [..., n, r] (r small); leading dims —
+    the rank dims inside ``with mesh:`` — are batch."""
     p = p.clone()
-    r = p.shape[1]
+    r = p.shape[-1]
     for i in range(r):
-        col = p[:, i]
-        prev = p * (torch.arange(r, device=p.device) < i)[None, :]
-        proj = prev @ (prev.T @ col)
+        col = p[..., i:i + 1]                          # [..., n, 1]
+        prev = p * (torch.arange(r, device=p.device) < i)
+        proj = prev @ (prev.mT @ col)
         col = col - proj
-        p[:, i] = col / (torch.linalg.norm(col) + eps)
+        p[..., i:i + 1] = col / (torch.linalg.vector_norm(
+            col, dim=-2, keepdim=True) + eps)
     return p
 
 

@@ -38,7 +38,11 @@ def register(name: str, ref: Callable,
     return op
 
 
-def get(name: str) -> SwitchOp:
+def get(name: str, *, load: bool = False) -> SwitchOp:
+    """The op ``name``; ``load=True`` first binds the ported kernels if
+    this op has none yet (callers that run it with ``use_kernel``)."""
+    if load and _REGISTRY[name].kernel is None:
+        load_kernels()
     return _REGISTRY[name]
 
 
@@ -68,22 +72,24 @@ register("max", torch.maximum)
 register("min", torch.minimum)
 register("mac", _ref("combine_mac"))
 register("dot_accumulate", lambda acc, a, b: acc + a @ b)
-register("prefix_sum", lambda x: torch.cumsum(x, dim=0))
+register("prefix_sum", _ref("prefix_sum"))   # (x, dim=0)
 register("relu2", lambda x: torch.square(torch.clamp_min(x, 0)))
 register("topk_accumulate", _ref("topk_accumulate"))
 register("pack_combine", _ref("pack_combine"))
 
 
 def load_kernels() -> None:
-    """Bind the ported kernels onto the registry (idempotent).  The
-    ``prefix_sum`` kernel is not ported yet and keeps its plain
-    version.  ``pack_combine`` and ``topk_accumulate`` update their
-    first operand in place, plain version and kernel alike."""
+    """Bind the ported kernels onto the registry (idempotent): the hop
+    combines, ``prefix_sum`` (the local scan of every inclusive-add
+    ``scan+allgather`` stage), ``topk_accumulate`` and ``pack_combine``.
+    ``pack_combine`` and ``topk_accumulate`` update their first operand
+    in place, plain version and kernel alike."""
     from repro_torch.kernels import ops as kops
 
     attach_kernel("add", kops.combine_add)
     attach_kernel("max", kops.combine_max)
     attach_kernel("min", kops.combine_min)
     attach_kernel("mac", kops.combine_mac)
+    attach_kernel("prefix_sum", kops.prefix_sum)
     attach_kernel("topk_accumulate", kops.topk_accumulate)
     attach_kernel("pack_combine", kops.pack_combine)

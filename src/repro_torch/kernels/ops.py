@@ -10,6 +10,7 @@ int8_codec`), and kernels not ported yet wait in ROADMAP.md.
 
 from __future__ import annotations
 
+from repro_torch.kernels import chunk_scan as _cs
 from repro_torch.kernels import fused_combine as _fc
 from repro_torch.kernels import pack_combine as _pc
 from repro_torch.kernels import topk_accum as _ta
@@ -37,3 +38,7 @@ def pack_combine(arena, *parts, op=None):
 
 def topk_accumulate(dense, idx, vals):
     return _ta.topk_accumulate_(dense, idx, vals)
+
+
+def prefix_sum(x, dim: int = 0):
+    return _cs.prefix_sum(x, dim=dim)

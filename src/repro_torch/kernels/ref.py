@@ -129,8 +129,10 @@ def topk_accumulate(dense: torch.Tensor, idx: torch.Tensor,
 # prefix_sum — long-vector inclusive scan
 # ---------------------------------------------------------------------------
 
-def prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, dim=0)
+def prefix_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim`` in ``x``'s dtype (as
+    ``jnp.cumsum`` keeps it; ``torch.cumsum`` alone widens integers)."""
+    return torch.cumsum(x, dim=dim, dtype=x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,90 @@
+"""``chip_smoke.py``'s fused phase and its prefix_sum checks, rehearsed on
+the CPU at small sizes.
+
+On the CPU every kernel wrapper runs its plain version and launches
+nothing, so the rehearsal shows the programs compile to the stages the
+script expects, run, and pass the script's own checks — and that the
+stated scan bound is tight enough to catch a scan that drops one tile's
+carry.  The card runs the same code at full size.
+"""
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import chunk_scan
+from repro_torch.mesh import LocalMesh
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod         # dataclasses look it up
+    try:
+        spec.loader.exec_module(mod)
+        yield mod
+    finally:
+        del sys.modules["chip_smoke"]
+
+
+def test_fused_path_rehearsed_on_the_cpu(smoke):
+    recs = smoke.fused_path(LocalMesh({"data": 8}, device="cpu"),
+                            smoke.FUSED_SMOKE, 0, expect_kernels=False)
+    by = {r["program"]: r for r in recs}
+    assert list(by) == ["fig5_scan", "fig5_scan_2d", "nas_is_c", "map_rs",
+                        "ag_map", "gcn_pubmed", "gcn_pubmed_baseline",
+                        "powersgd_r4"]
+    assert by["fig5_scan"]["stages"] == ["scan+allgather"]
+    assert by["fig5_scan_2d"]["stages"] == ["scan+allgather"]
+    assert by["nas_is_c"]["stages"] == ["allreduce+alltoall"]
+    assert by["map_rs"]["stages"] == ["map+reduce_scatter"]
+    assert by["ag_map"]["stages"] == ["allgather+map"]
+    assert by["gcn_pubmed"]["stages"] == ["map"]
+    assert by["gcn_pubmed_baseline"]["stages"] == ["allgather", "map"]
+    # one prefix_sum per Fig. 5 call by the plan; none launched on a CPU
+    for name in ("fig5_scan", "fig5_scan_2d"):
+        assert by[name]["launches_per_call"]["prefix_sum"] == 1
+        assert by[name]["checks"]["after"] == {"ranks_identical": True}
+        assert by[name]["checks"]["step2"]["kernels_err_over_bound"] <= 1
+    for r in recs:
+        assert r["launches"]["prefix_sum"] == 0
+        assert sum(r.get("launches_per_call", {"": 0}).values()) == \
+            r.get("launches_per_call", {}).get("prefix_sum", 0)
+    assert len(by["powersgd_r4"]["ms"]) == 3
+
+
+def test_prefix_checks_rehearsed_on_the_cpu(smoke, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    gen = torch.Generator().manual_seed(0)
+    r = smoke.prefix_checks(torch.device("cpu"), gen)
+    assert r["cases"] == 20 and r["max_abs_err"] == 0.0
+    assert 0 < r["max_err_over_bound"] <= 1
+
+
+@pytest.mark.parametrize("shape", [(8, 3 * 4096 + 123), (2, 1000, 64)])
+def test_scan_bound_catches_a_dropped_tile_carry(smoke, shape):
+    """A scan that loses one tile's total from the carries of the tiles
+    after it fails the stated bound; the plain cumsum meets it.  Tiles
+    are the kernel's: 4,096 rows of one lane, or 128 rows of 32 lanes."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    exact, tol = smoke.scan_tolerance(x, 1)
+    assert smoke.scan_err(torch.cumsum(x, 1), exact, tol, "cumsum") <= 1
+    _, _, _, lb, tiles = chunk_scan.layout(shape, 1)
+    rows = 256 // lb * 16
+    assert tiles > 1
+    total = x[:, :rows].sum(1, keepdim=True)     # tile 0 of each column
+    if x.dim() == 3:
+        total[..., lb:] = 0                       # ...of one block's lanes
+    bad = torch.cumsum(x, 1)
+    bad[:, rows:] -= total
+    with pytest.raises(AssertionError, match="stated bound"):
+        smoke.scan_err(bad, exact, tol, "a dropped carry")

@@ -256,23 +256,119 @@ def _assert_runs_equal(tcp, jcp, mesh8, xs):
 
 
 # ---------------------------------------------------------------------------
-# lowerings that wait for later slices still compile to the same stages
+# the Type 4 fused stages: same stages, same outputs as the reference
 # ---------------------------------------------------------------------------
 
-def test_waiting_lowerings_compile_then_raise_when_run():
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_fused_scan_and_alltoall_stages_run_like_the_reference(
+        mesh8, rng, use_kernels):
+    """Fig. 5 (AG∘scan∘AG → ``scan+allgather``) beside NAS IS (reduce +
+    all-to-all → ``allreduce+alltoall``) in one program.  The scan input
+    is integer-valued, so every partial sum is exact and the port's
+    in-order local scan equals the reference's associative one bit for
+    bit; ``use_kernels`` runs the prefix_sum kernel's plain version here
+    (CPU tensors)."""
     def prog(acis):
         def f(x, h, k):
             a = acis.all_gather(acis.scan(acis.all_gather(x)))
             return a, acis.reduce(h), acis.all_to_all(k)
         return acis.trace(f)
 
-    tcp, jcp = _compile_pair(prog, [(4,), (16,), (16,)])
-    assert tcp.stage_kinds() == jcp.stage_kinds()
+    tcp, jcp = _compile_pair(prog, [(4,), (16,), (16,)],
+                             use_kernels=use_kernels)
+    assert_same_structure(tcp, jcp)
     assert set(tcp.stage_kinds()) == {"scan+allgather",
                                       "allreduce+alltoall"}
+    xs = [rng.integers(-9, 10, (N, 4)).astype(np.float32),
+          rng.integers(0, 50, (N, 16)).astype(np.float32),
+          rng.standard_normal((N, 16)).astype(np.float32)]
+    _assert_runs_equal(tcp, jcp, mesh8, xs)
     with LocalMesh({"data": N}, device="cpu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcp(torch.zeros(N, 4), torch.zeros(N, 16), torch.zeros(N, 16))
+        a, h, k = tcp(*map(torch.from_numpy, xs))
+    np.testing.assert_array_equal(a.numpy()[3], np.cumsum(xs[0]))
+    np.testing.assert_array_equal(h.numpy()[5], xs[1].sum(0))
+    np.testing.assert_array_equal(
+        k.numpy(), xs[2].reshape(N, N, 2).transpose(1, 0, 2).reshape(N, 16))
+
+
+@pytest.mark.parametrize("monoid,exclusive", [("max", False),
+                                              ("add", True)])
+def test_generic_scan_allgather_stage_runs_like_the_reference(
+        mesh8, rng, monoid, exclusive):
+    """A scan that is not an inclusive add lowers to the generic rank scan
+    + gather (no prefix_sum kernel): bitwise on random data."""
+    def prog(acis):
+        def f(x):
+            m = getattr(acis, monoid.upper())
+            return acis.all_gather(acis.scan(acis.all_gather(x), m,
+                                             exclusive=exclusive))
+        return acis.trace(f)
+
+    tcp, jcp = _compile_pair(prog, [(6,)], use_kernels=True)
+    assert_same_structure(tcp, jcp)
+    assert tcp.stage_kinds() == ["scan+allgather"]
+    _assert_runs_equal(tcp, jcp, mesh8,
+                       [rng.standard_normal((N, 6)).astype(np.float32)])
+
+
+def test_map_reduce_scatter_stage_runs_like_the_reference(mesh8, rng):
+    def prog(acis):
+        def f(x):
+            sq = jnp.square if acis is jacis else torch.square
+            return acis.reduce_scatter(acis.map(sq, x, name="square"))
+        return acis.trace(f)
+
+    tcp, jcp = _compile_pair(prog, [(32,)])
+    assert_same_structure(tcp, jcp)
+    assert tcp.stage_kinds() == ["map+reduce_scatter"]
+    x = rng.standard_normal((N, 32)).astype(np.float32)
+    _assert_runs_equal(tcp, jcp, mesh8, [x])
+    with LocalMesh({"data": N}, device="cpu"):
+        (got,) = tcp(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy().reshape(-1),
+                               np.square(x).sum(0), rtol=1e-5, atol=1e-5)
+
+
+def test_allgather_map_stage_runs_like_the_reference(mesh8, rng):
+    def prog(acis):
+        def f(x):
+            # one rounding per lane (an affine map would meet XLA's FMA
+            # contraction, ROADMAP.md §3)
+            return acis.map(lambda c: c * 3.0, acis.all_gather(x),
+                            name="triple")
+        return acis.trace(f)
+
+    tcp, jcp = _compile_pair(prog, [(5,)])
+    assert_same_structure(tcp, jcp)
+    assert tcp.stage_kinds() == ["allgather+map"]
+    x = rng.standard_normal((N, 5)).astype(np.float32)
+    _assert_runs_equal(tcp, jcp, mesh8, [x])
+    with LocalMesh({"data": N}, device="cpu"):
+        (got,) = tcp(torch.from_numpy(x))
+    for r in range(N):
+        np.testing.assert_array_equal(got.numpy()[r],
+                                      (x * 3.0).reshape(-1))
+
+
+def test_fig5_program_through_engine_compile_on_a_mesh(mesh8, rng):
+    """The README spelling of the Fig. 5 program: P("data") in, P(None)
+    out — the global prefix sum on every rank."""
+    x = rng.integers(-9, 10, (N * 12,)).astype(np.float32)
+
+    def prog(acis):
+        return lambda v: acis.all_gather(acis.scan(acis.all_gather(v)))
+
+    jfn = jacis.make_engine("acis").compile(prog(jacis), mesh8, JP("data"),
+                                            JP(None))
+    tfn = tacis.make_engine("acis").compile(
+        prog(tacis), LocalMesh({"data": N}, device="cpu"), P("data"),
+        P(None))
+    assert tfn.stages == jfn.stages == ["scan+allgather"]
+    got = tfn(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(jfn(jnp.asarray(x)))
+                                  .view(np.uint32))
+    np.testing.assert_array_equal(got.numpy(), np.cumsum(x))
 
 
 def test_cost_model_views_wait_for_the_mapper():

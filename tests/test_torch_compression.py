@@ -162,3 +162,19 @@ def test_orthonormalize_matches_reference(rng):
     np.testing.assert_allclose(got.T @ got, np.eye(4), atol=1e-5)
     assert tcomp.powersgd_wire_bytes((32, 16), 4) == \
         jcomp.powersgd_wire_bytes((32, 16), 4)
+
+
+@pytest.mark.parametrize("rank_shape", [(N,), (2, 4)])
+def test_orthonormalize_batches_over_rank_dims(rng, rank_shape):
+    """Inside ``with mesh:`` PowerSGD's ``p`` is rank-stacked ``[*rank,
+    n, r]``: every rank's block is orthonormalized on its own, as the
+    reference does rank by rank (norms and projections sum in another
+    order than XLA's, hence 1e-5)."""
+    p = rng.standard_normal(rank_shape + (32, 4)).astype(np.float32)
+    got = tcomp.orthonormalize(torch.from_numpy(p)).numpy()
+    flat, got_flat = p.reshape(-1, 32, 4), got.reshape(-1, 32, 4)
+    for r in range(flat.shape[0]):
+        want = np.asarray(jcomp.orthonormalize(jnp.asarray(flat[r])))
+        np.testing.assert_allclose(got_flat[r], want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got_flat[r].T @ got_flat[r], np.eye(4),
+                                   atol=1e-5)

@@ -22,7 +22,8 @@ def _all_modules() -> list[str]:
 
 def _import_all_in_a_fresh_process(report: str) -> str:
     mods = _all_modules()
-    for m in ("core.compiler", "core.compression", "core.lookaside",
+    for m in ("core.compiler", "core.compression", "core.fused",
+              "core.lookaside", "kernels.chunk_scan",
               "kernels.fused_combine", "kernels.pack_combine",
               "kernels.quant_combine", "kernels.topk_accum"):
         assert "repro_torch." + m in mods

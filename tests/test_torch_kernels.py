@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import chunk_scan as jcs
 from repro.kernels import fused_combine as jfc
 from repro.kernels import pack_combine as jpc
 from repro.kernels import quant_combine as jqc
@@ -29,6 +30,7 @@ from repro.kernels import ref as jref
 from repro.kernels import topk_accum as jta
 from repro_torch.core import switchops
 from repro_torch.core.compression import sparse_accumulate
+from repro_torch.kernels import chunk_scan as tcs
 from repro_torch.kernels import fused_combine as tfc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack_combine as tpc
@@ -440,6 +442,117 @@ def test_registry_pack_kernel_is_in_place():
 
 
 # ---------------------------------------------------------------------------
+# prefix_sum
+#
+# The reference's Pallas kernel scans 256-row chunks log-step in x's dtype
+# and carries the last row; the port's plain version sums in order in f32
+# (torch.cumsum, one rounding per output for bf16).  Bitwise wherever every
+# partial sum is exact: integer-valued f32, and for bf16 a walk that stays
+# in [0, 128].  On random data each side is within its rounding of the
+# exact sum S_i = Σ_{t≤i} x_t: an f32 sum in any order within
+# i·2^-24·A_i (A_i = Σ_{t≤i}|x_t|); the Pallas bf16 scan within
+# (9 + i // 256)·2^-8·A_i (8 log-steps, the carry chain and its add, each
+# rounding to bf16); the port's bf16 output within 2^-8·|S_i| + i·2^-24·A_i.
+# ---------------------------------------------------------------------------
+
+def bounded_walk(rng, shape) -> np.ndarray:
+    """Steps in {-1, 0, 1} of a walk clipped to [0, 128] along axis 0:
+    every partial sum of any contiguous run lies in [-128, 128], exact in
+    bfloat16."""
+    steps = rng.integers(-1, 2, shape)
+    s, prev = np.zeros(shape, np.int64), np.zeros(shape[1:], np.int64)
+    for t in range(shape[0]):
+        prev = np.clip(prev + steps[t], 0, 128)
+        s[t] = prev
+    return np.diff(s, axis=0, prepend=0).astype(np.float32)
+
+
+def prefix_bounds(x: np.ndarray, dt: str):
+    """(port, reference) rounding bounds per output, as stated above."""
+    a = np.cumsum(np.abs(x.astype(np.float64)), axis=0)
+    i = np.arange(1, x.shape[0] + 1).reshape((-1,) + (1,) * (x.ndim - 1))
+    f32 = i * 2.0 ** -24 * a
+    if dt == "float32":
+        return f32, f32
+    exact = np.abs(np.cumsum(x.astype(np.float64), axis=0))
+    return 2.0 ** -8 * exact + f32, (9 + (i - 1) // 256) * 2.0 ** -8 * a
+
+
+@pytest.mark.parametrize("data", ["exact", "normal"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(100,), (256,), (1000,), (100, 3),
+                                   (256, 8), (1000, 5)])
+def test_prefix_sum_plain_matches_pallas(rng, shape, dt, data):
+    if data == "exact":
+        x = rng.integers(-4, 5, shape).astype(np.float32) \
+            if dt == "float32" else bounded_walk(rng, shape)
+    else:
+        x = rng.standard_normal(shape).astype(np.float32)
+    x = x.astype(DTYPES[dt][0])
+    want = np.asarray(jcs.prefix_sum(jnp.asarray(x), interpret=True))
+    got = _numpy(tcs.prefix_sum(_torch(x)))
+    if data == "exact":
+        assert_bitwise(got, want)
+        return
+    tol_port, tol_ref = prefix_bounds(x.astype(np.float32), dt)
+    assert np.all(np.abs(got.astype(np.float64) - want.astype(np.float64))
+                  <= tol_port + tol_ref)
+
+
+def test_prefix_sum_scans_one_dim_with_batch_and_lanes(rng):
+    """``dim`` splits the dims: those before it are batch (rank dims on the
+    fused path), those after it lanes — each (batch, lane) column is the
+    reference kernel's ``[T, D]`` scan."""
+    x = rng.integers(-4, 5, (3, 300, 2, 4)).astype(np.float32)
+    got = tcs.prefix_sum(torch.from_numpy(x), dim=1).numpy()
+    for b in range(3):
+        want = np.asarray(jcs.prefix_sum(jnp.asarray(x[b].reshape(300, 8)),
+                                         interpret=True))
+        assert_bitwise(got[b].reshape(300, 8), want)
+    assert_bitwise(tcs.prefix_sum(torch.from_numpy(x), dim=-3).numpy(), got)
+    assert_bitwise(tcs.prefix_sum(torch.from_numpy(x), dim=3).numpy(),
+                   np.cumsum(x, axis=3))
+
+
+def test_prefix_sum_wrapper_on_cpu_runs_the_plain_version(rng):
+    x = torch.from_numpy(rng.standard_normal((4, 33)).astype(np.float32))
+    before = tcs.launches
+    assert torch.equal(tcs.prefix_sum(x, dim=1), torch.cumsum(x, 1))
+    assert torch.equal(tcs.prefix_sum(x[:, :0], dim=1), x[:, :0])
+    i = torch.arange(10, dtype=torch.int32)
+    assert tcs.prefix_sum(i).dtype == torch.int32     # as jnp.cumsum keeps it
+    assert tcs.launches == before
+    with pytest.raises(ValueError, match="at least one dim"):
+        tcs.prefix_sum(torch.tensor(1.0))
+    with pytest.raises(IndexError):
+        tcs.prefix_sum(x, dim=2)
+
+
+@pytest.mark.parametrize("shape,dim,want", [
+    ((8, 1 << 20), 1, (8, 1 << 20, 1, 1, 256)),        # fig5_scan: 2,048 blocks
+    ((8, 16384, 64), 1, (8, 16384, 64, 32, 128)),      # fig5_scan_2d: 2,048
+    ((8, 12411), 1, (8, 12411, 1, 1, 4)),              # ragged T
+    ((1000, 5), 0, (1, 1000, 5, 8, 2)),
+    ((8, 1, 64), 1, (8, 1, 64, 32, 1)),                # T = 1: one pass
+])
+def test_prefix_sum_launch_layout(shape, dim, want):
+    """Tiles of 4,096 elements: a block takes up to 32 lanes and
+    (256 / lanes) · 16 rows."""
+    b, t, d, lb, tiles = tcs.layout(shape, dim)
+    assert (b, t, d, lb, tiles) == want
+    assert tiles * (256 // lb) * 16 >= t > (tiles - 1) * (256 // lb) * 16
+
+
+def test_registry_prefix_sum_kernel_and_plain_agree_on_cpu(rng):
+    switchops.load_kernels()
+    op = switchops.get("prefix_sum")
+    assert op.kernel is not None
+    x = _torch(_data(rng, 300, "float32")).reshape(3, 100)
+    assert torch.equal(op(x, dim=1, use_kernel=True), op(x, dim=1))
+    assert torch.equal(op(x), torch.cumsum(x, 0))
+
+
+# ---------------------------------------------------------------------------
 # every plain version of kernels/ref.py against the reference oracle
 # ---------------------------------------------------------------------------
 
@@ -579,3 +692,19 @@ def test_topk_accumulate_kernel_matches_plain_on_card(cuda_device):
     tta.topk_accumulate_(dense, idx, vals)
     assert tta.launches == before + 1
     assert torch.equal(dense, want)               # distinct: bitwise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((8, 12411), 1), ((8, 1000, 64), 1),
+                                       ((3, 1000, 5), 1), ((8, 1, 64), 1),
+                                       ((100003,), 0)])
+def test_prefix_sum_kernel_matches_plain_on_card(cuda_device, shape, dim):
+    """Integer-valued data: every partial sum exact, so the kernel equals
+    torch.cumsum bit for bit in any order."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randint(-1, 2, shape, device=cuda_device, generator=g,
+                      dtype=torch.int32).float()
+    before = tcs.launches
+    got = tcs.prefix_sum(x, dim=dim)
+    assert tcs.launches == before + 1
+    assert torch.equal(got, tcs.plain(x, dim))

@@ -325,3 +325,304 @@ def test_residual_state_carries_from_the_reference(mesh8, rng):
             torch.from_numpy(g2), res["r"], "data")
     assert_bitwise(t2.numpy(), np.asarray(w2))
     assert_bitwise(tr2.numpy().reshape(-1), np.asarray(wr2))
+
+
+# ---------------------------------------------------------------------------
+# distributed prefix sum (the Fig. 5 FEM op)
+#
+# jnp.cumsum on the CPU is an associative scan and the port's plain
+# prefix_sum sums in order: integer-valued data (every partial sum exact)
+# is bitwise, random floats are held within the worst-case rounding of a
+# prefix sum in any order, i·2^-24·Σ_{t≤i}|x_t| on each side.
+# ---------------------------------------------------------------------------
+
+def _global_scan_bound(x: np.ndarray) -> np.ndarray:
+    """``x`` is [ranks, T, ...]; the bound for the scan of the rank-major
+    concatenation, in the same shape."""
+    flat = np.abs(x.astype(np.float64)).reshape((-1,) + x.shape[2:])
+    i = np.arange(1, flat.shape[0] + 1).reshape((-1,) + (1,) * (x.ndim - 2))
+    return (i * 2.0 ** -24 * np.cumsum(flat, axis=0)).reshape(x.shape)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("exclusive", [False, True])
+@pytest.mark.parametrize("local", [(16,), (16, 3), (0,), (0, 3)])
+def test_distributed_prefix_sum_matches_reference(mesh8, rng, local,
+                                                  exclusive, use_kernels):
+    """Bitwise on integer-valued data, the empty block included: an
+    exclusive scan of an empty block still yields its carry row, as the
+    reference's ``concat([carry[None], inc[:-1]])`` does."""
+    x = rng.integers(-5, 6, (N,) + local).astype(np.float32)
+
+    def ref(xl):
+        return jla.distributed_prefix_sum(xl[0], "data",
+                                          exclusive=exclusive)[None]
+
+    spec = _spec(x)
+    want = np.asarray(smap(ref, mesh8, spec, spec)(jnp.asarray(x)))
+    with LocalMesh({"data": N}, device="cpu"):
+        got = tla.distributed_prefix_sum(_t(x), "data", exclusive=exclusive,
+                                         use_kernels=use_kernels)
+    assert_bitwise(got.numpy(), want)
+    if local[0]:
+        flat = np.cumsum(x.reshape((-1,) + local[1:]).astype(np.float64), 0)
+        if exclusive:
+            flat = np.concatenate([np.zeros((1,) + local[1:]), flat[:-1]])
+        np.testing.assert_array_equal(got.numpy().reshape(flat.shape), flat)
+    else:
+        assert got.shape == (N, int(exclusive)) + local[1:]
+
+
+def test_distributed_prefix_sum_random_within_rounding(mesh8, rng):
+    x = rng.standard_normal((N, 64, 2)).astype(np.float32)
+
+    def ref(xl):
+        return jla.distributed_prefix_sum(xl[0], "data")[None]
+
+    spec = _spec(x)
+    want = np.asarray(smap(ref, mesh8, spec, spec)(jnp.asarray(x)))
+    with LocalMesh({"data": N}, device="cpu"):
+        got = tla.distributed_prefix_sum(_t(x), "data").numpy()
+    bound = _global_scan_bound(x)
+    exact = np.cumsum(x.reshape(-1, 2).astype(np.float64), 0).reshape(x.shape)
+    assert np.all(np.abs(got - want) <= 2 * bound)
+    assert np.all(np.abs(got - exact) <= bound)
+
+
+def test_prefix_sum_scans_the_local_dim_not_the_ranks(rng):
+    """The local scan runs along the first *local* dim: on rank-stacked
+    data dim 0 is the rank dim, and scanning it (the plain op's default
+    dim) would sum across ranks — a different, wrong answer on this
+    input."""
+    from repro_torch.core import switchops
+
+    x = torch.from_numpy(rng.integers(-5, 6, (N, 6)).astype(np.float32))
+    with LocalMesh({"data": N}, device="cpu"):
+        got = tla.distributed_prefix_sum(x, "data")
+    want = torch.cumsum(x.reshape(-1), 0).reshape(N, 6)
+    assert torch.equal(got, want)
+    local = switchops.get("prefix_sum")(x, dim=1)
+    assert torch.equal(local, torch.cumsum(x, 1))
+    across = switchops.get("prefix_sum")(x)           # dim 0: the ranks
+    carry = torch.cat([torch.zeros(1), torch.cumsum(x[:, -1], 0)[:-1]])
+    assert not torch.equal(across + carry[:, None], want)
+
+
+# ---------------------------------------------------------------------------
+# GCN aggregation (paper Fig. 4 case study)
+# ---------------------------------------------------------------------------
+
+def _random_graph(rng, n_nodes, d):
+    adj = (rng.random((n_nodes, n_nodes)) < 0.2).astype(np.float32)
+    deg = np.maximum(adj.sum(1, keepdims=True), 1)
+    adj = adj / deg                      # row-normalized Â
+    x = rng.standard_normal((n_nodes, d)).astype(np.float32)
+    return adj, x
+
+
+@pytest.mark.parametrize("in_network", [True, False])
+def test_gcn_aggregate_matches_reference(mesh8, rng, in_network):
+    """Both modes against the reference and the dense product; block
+    MACs sum their products in another order than XLA's dot, so they are
+    held within the reference test's tolerance."""
+    n_nodes, d = N * 8, 12
+    adj, x = _random_graph(rng, n_nodes, d)
+    rows = n_nodes // N
+    # adj_blocks[rank][b] = adj rows of `rank`, cols of block b
+    adj_blocks = adj.reshape(N, rows, N, rows).transpose(0, 2, 1, 3).copy()
+    xs = x.reshape(N, rows, d)
+
+    def ref(al, xl):
+        return jla.gcn_aggregate(al[0], xl[0], "data",
+                                 in_network=in_network)[None]
+
+    want = np.asarray(smap(ref, mesh8, (_spec(adj_blocks), _spec(xs)),
+                           _spec(xs))(jnp.asarray(adj_blocks),
+                                      jnp.asarray(xs)))
+    with LocalMesh({"data": N}, device="cpu"):
+        got = tla.gcn_aggregate(_t(adj_blocks), _t(xs), "data",
+                                in_network=in_network).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.reshape(n_nodes, d), adj @ x,
+                               rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# PowerSGD (the in-collective loop)
+#
+# Matmuls and Gram-Schmidt norms sum in another order than XLA's, so the
+# port is held within 1e-4 of the reference, relative to each output's
+# largest entry.  q comes from numpy: torch.Generator does not give
+# jax.random's bits.
+# ---------------------------------------------------------------------------
+
+def _close(got, want, rel=1e-4):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_powersgd_matches_reference(mesh8, rng, steps):
+    """One step, and three with q and the residual threaded."""
+    rows, cols, r = 24, 16, 3
+    ms = rng.standard_normal((steps, N, rows, cols)).astype(np.float32)
+    q0 = rng.standard_normal((cols, r)).astype(np.float32)
+
+    def ref(ml, q, res):
+        red, new_q, new_res = jla.powersgd_all_reduce(ml[0], q, res[0],
+                                                      "data")
+        return red[None], new_q, new_res[None]
+
+    step = smap(ref, mesh8, (P("data", None, None), P(None, None),
+                             P("data", None, None)),
+                (P("data", None, None), P(None, None),
+                 P("data", None, None)))
+    jq, jres = jnp.asarray(q0), jnp.zeros((N, rows, cols), jnp.float32)
+    tq = torch.from_numpy(q0).expand(N, cols, r)
+    tres = torch.zeros(N, rows, cols)
+    for s in range(steps):
+        jred, jq, jres = step(jnp.asarray(ms[s]), jq, jres)
+        with LocalMesh({"data": N}, device="cpu"):
+            tred, tq, tres = tla.powersgd_all_reduce(
+                torch.from_numpy(ms[s]), tq, tres, "data")
+        _close(tred.numpy(), jred)
+        _close(tres.numpy(), jres)
+        for i in range(N):           # the reduced factors agree everywhere
+            _close(tq.numpy()[i], jq)
+            assert torch.equal(tred[i], tred[0])
+
+
+def test_powersgd_low_rank_exact_for_low_rank_input(rng):
+    """If the true mean gradient is rank<=r, one power iteration with a
+    warm Q recovers it (up to orthonormalization conditioning) — the
+    reference test's case and tolerance."""
+    rows, cols, r = 32, 16, 4
+    u = rng.standard_normal((rows, r)).astype(np.float32)
+    v = rng.standard_normal((cols, r)).astype(np.float32)
+    base = u @ v.T
+    m = torch.from_numpy(np.broadcast_to(base, (N, rows, cols)).copy())
+    q0 = torch.from_numpy(rng.standard_normal((cols, r)).astype(np.float32))
+    with LocalMesh({"data": N}, device="cpu"):
+        red, new_q, _ = tla.powersgd_all_reduce(
+            m, q0.expand(N, cols, r), torch.zeros(N, rows, cols), "data")
+    assert tuple(new_q.shape) == (N, cols, r)
+    np.testing.assert_allclose(red.numpy()[0], base, rtol=0.03,
+                               atol=0.03 * np.abs(base).max())
+
+
+def test_powersgd_init_draws_from_the_generator():
+    g1 = torch.Generator().manual_seed(3)
+    g2 = torch.Generator().manual_seed(3)
+    a = tla.powersgd_init((32, 16), 4, g1)
+    assert tuple(a.shape) == (16, 4) and a.dtype == torch.float32
+    assert torch.equal(a, tla.powersgd_init((32, 16), 4, g2))
+
+
+# ---------------------------------------------------------------------------
+# look-aside ops routed through engine.compile.  The port's map bodies get
+# rank-stacked tensors, so where the reference's body indexes its local
+# leading dim (`ab[0]`, `[None]`) the port's indexes the one after the rank
+# dim (`ab[:, 0]`, `.unsqueeze(1)`).  PlaceCGRA is not ported: the
+# reference's host-fallback placement has no counterpart to compare.
+# ---------------------------------------------------------------------------
+
+def test_distributed_prefix_sum_through_engine_compile(mesh8, rng):
+    from repro import core as jacis
+    from repro_torch import core as tacis
+    from repro_torch.mesh import P as TP
+
+    x = rng.integers(-5, 6, (N * 16,)).astype(np.float32)
+    jfn = jacis.make_engine("acis").compile(
+        lambda v: jacis.map(
+            lambda b: jla.distributed_prefix_sum(b, "data"), v,
+            name="prefix_sum", fusable=False),
+        mesh8, P("data"), P("data"),
+        in_avals=(jax.ShapeDtypeStruct((16,), jnp.float32),))
+    tfn = tacis.make_engine("acis").compile(
+        lambda v: tacis.map(
+            lambda b: tla.distributed_prefix_sum(b, "data"), v,
+            name="prefix_sum", fusable=False),
+        LocalMesh({"data": N}, device="cpu"), TP("data"), TP("data"),
+        in_avals=(tacis.TensorSpec((16,), torch.float32),))
+    assert tfn.stages == jfn.stages == ["map"]
+    got = tfn(torch.from_numpy(x)).numpy()
+    assert_bitwise(got, np.asarray(jfn(jnp.asarray(x))))
+    np.testing.assert_array_equal(got, np.cumsum(x))
+
+
+def test_gcn_aggregate_through_engine_compile(mesh8, rng):
+    from repro import core as jacis
+    from repro_torch import core as tacis
+    from repro_torch.mesh import P as TP
+
+    n_nodes, d = N * 8, 12
+    adj, x = _random_graph(rng, n_nodes, d)
+    rows = n_nodes // N
+    adj_blocks = adj.reshape(N, rows, N, rows).transpose(0, 2, 1, 3).copy()
+    xs = x.reshape(N, rows, d)
+    jfn = jacis.make_engine("acis").compile(
+        lambda a, v: jacis.map(
+            lambda ab, xb: jla.gcn_aggregate(ab[0], xb[0], "data")[None],
+            a, v, name="gcn_aggregate"),
+        mesh8, (P("data", None, None, None), P("data", None, None)),
+        P("data", None, None),
+        in_avals=(jax.ShapeDtypeStruct((1, N, rows, rows), jnp.float32),
+                  jax.ShapeDtypeStruct((1, rows, d), jnp.float32)))
+    tfn = tacis.make_engine("acis").compile(
+        lambda a, v: tacis.map(
+            lambda ab, xb: tla.gcn_aggregate(ab[:, 0], xb[:, 0],
+                                             "data").unsqueeze(1),
+            a, v, name="gcn_aggregate"),
+        LocalMesh({"data": N}, device="cpu"),
+        (TP("data", None, None, None), TP("data", None, None)),
+        TP("data", None, None),
+        in_avals=(tacis.TensorSpec((1, N, rows, rows), torch.float32),
+                  tacis.TensorSpec((1, rows, d), torch.float32)))
+    assert tfn.stages == jfn.stages == ["map"]
+    got = tfn(torch.from_numpy(adj_blocks), torch.from_numpy(xs)).numpy()
+    want = np.asarray(jfn(jnp.asarray(adj_blocks), jnp.asarray(xs)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.reshape(n_nodes, d), adj @ x,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_gcn_baseline_through_engine_compile_matches(mesh8, rng):
+    from repro import core as jacis
+    from repro_torch import core as tacis
+    from repro_torch.mesh import P as TP
+
+    n_nodes, d = N * 4, 6
+    adj, x = _random_graph(rng, n_nodes, d)
+    rows = n_nodes // N
+    adj_blocks = adj.reshape(N, rows, N, rows).transpose(0, 2, 1, 3).copy()
+    xs = x.reshape(N, rows, d)
+
+    def jprog(a, v):
+        gathered = jacis.all_gather(v)
+        return jacis.map(
+            lambda ab, full: jnp.einsum(
+                "brc,bcd->rd", ab[0], full.reshape(N, rows, d))[None],
+            a, gathered, name="spmm")
+
+    def tprog(a, v):
+        gathered = tacis.all_gather(v)
+        return tacis.map(
+            lambda ab, full: torch.einsum(
+                "...brc,...bcd->...rd", ab[:, 0],
+                full.reshape(-1, N, rows, d)).unsqueeze(1),
+            a, gathered, name="spmm")
+
+    jfn = jacis.make_engine("acis").compile(
+        jprog, mesh8, (P("data", None, None, None), P("data", None, None)),
+        P("data", None, None))
+    tfn = tacis.make_engine("acis").compile(
+        tprog, LocalMesh({"data": N}, device="cpu"),
+        (TP("data", None, None, None), TP("data", None, None)),
+        TP("data", None, None))
+    assert tfn.stages == jfn.stages
+    got = tfn(torch.from_numpy(adj_blocks), torch.from_numpy(xs)).numpy()
+    want = np.asarray(jfn(jnp.asarray(adj_blocks), jnp.asarray(xs)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.reshape(n_nodes, d), adj @ x,
+                               rtol=1e-4, atol=1e-4)
