@@ -14,10 +14,13 @@ Phases, one JSON line each:
                   ``topk_accumulate`` with duplicate indices within f32
                   rounding of the lane's sum; ``prefix_sum`` bitwise on
                   integer-valued data, within ``scan_tolerance`` of the
-                  exact sum on random data), then timed at the main
+                  exact sum on random data; ``rwkv6_recurrence`` within
+                  ``wkv_tolerance`` of the float64 recurrence, as its
+                  plain version is), then timed at the main
                   path's shapes with CUDA events beside its plain version,
                   one PyTorch library call computing the same function
-                  where there is one, and its device-memory bound
+                  where there is one, and its bound (bytes over the
+                  memory rate, or f32 operations over the f32 rate)
   4. acis       — the acis-100m gradient sync at full width (12 leaves,
                   124,668,672 parameters per rank, 8 ranks on one
                   ``LocalMesh``): ``make_engine("acis")`` with kernels on,
@@ -50,6 +53,20 @@ Phases, one JSON line each:
                   or float64 result within its stated bound, and
                   ``prefix_sum`` launched as often as the programs say
                   (``fused_path``)
+  7. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
+                  2048, 32 heads of 64, d_ff 7168, vocab 65,536) on seeded
+                  random bf16 weights made on the card: ``Model.prefill``
+                  of 8 prompts of 512 tokens and 32 greedy
+                  ``decode_step``s, kernels on and ``use_kernels=False``
+                  in turns after a warm-up, logits held within
+                  ``BF16_REL``; a 64-token prefill held against 64 decode
+                  steps; a profile of one prefill and one decode step;
+                  ``ServeEngine(slots=4)`` over 8 requests, each
+                  completion held against a fresh one-slot engine's; then
+                  the same checks on the weights cast to f32 within
+                  ``F32_REL`` (``serve_path``); ``rwkv6_recurrence``
+                  launched once per layer per prefill call, decode step
+                  and engine tick
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
@@ -78,12 +95,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# device-memory peak by card name (NVIDIA data sheets): the bound_ms
-# denominator.
-HBM_PEAK = (
-    ("H100 PCIe", 2.0e12, "H100 PCIe: 2.0 TB/s HBM2e"),
-    ("H100", 3.35e12, "H100 SXM: 3.35 TB/s HBM3"),
-    ("H200", 4.8e12, "H200: 4.8 TB/s HBM3e"),
+# device-memory and float32 (outside the tensor cores) peaks by card name
+# (NVIDIA data sheets): the bound_ms denominators.
+PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12, "H100 PCIe: 2.0 TB/s HBM2e, 51 TFLOP/s f32"),
+    ("H100", 3.35e12, 67e12, "H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s f32"),
+    ("H200", 4.8e12, 67e12, "H200: 4.8 TB/s HBM3e, 67 TFLOP/s f32"),
 )
 
 
@@ -98,11 +115,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hbm_peak(name: str) -> tuple[float, str]:
-    for key, peak, note in HBM_PEAK:
+def device_peaks(name: str) -> tuple[float, float, str]:
+    """``(bytes/s, f32 flop/s, source)`` of the card called ``name``."""
+    for key, hbm, f32, note in PEAKS:
         if key in name:
-            return peak, note
-    raise RuntimeError(f"no device-memory peak known for {name!r}")
+            return hbm, f32, note
+    raise RuntimeError(f"no peak rates known for {name!r}")
 
 
 def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
@@ -137,10 +155,11 @@ def kernel_modules() -> dict:
     """Every ported kernel's wrapper module, by kernel name; each keeps
     its launch count in ``launches``."""
     from repro_torch.kernels import (chunk_scan, fused_combine, pack_combine,
-                                     quant_combine, topk_accum)
+                                     quant_combine, rwkv6_recurrence,
+                                     topk_accum)
     return {"fused_combine": fused_combine, "fused_pack": pack_combine,
             "quant_combine": quant_combine, "topk_accumulate": topk_accum,
-            "prefix_sum": chunk_scan}
+            "prefix_sum": chunk_scan, "rwkv6_recurrence": rwkv6_recurrence}
 
 
 def reset_counts() -> None:
@@ -258,6 +277,7 @@ def kernel_checks(dev) -> dict:
     report["quant_combine"] = quant_checks(dev, gen)
     report["topk_accumulate"] = topk_checks(dev, gen)
     report["prefix_sum"] = prefix_checks(dev, gen)
+    report["rwkv6_recurrence"] = wkv_checks(dev, gen)
     return report
 
 
@@ -513,6 +533,152 @@ def prefix_checks(dev, gen) -> dict:
     return r
 
 
+def wkv_inputs(dev, gen, b: int, t: int, h: int, k: int, v: int,
+               dtype=torch.bfloat16, *, model_w: bool = True) -> list:
+    """r, k, v (``dtype``), w (f32) in the model's ``[B, T, H, ·]`` layout
+    passed as ``[B, H, T, ·]`` views, and u ``[H, K]``.  ``model_w``: the
+    decay near init, exp(-exp(-6 + 0.5·N)) ≈ 0.9975; else U(0.5, 1) as the
+    reference sweep draws it."""
+    def act(width):
+        return (0.5 * torch.randn((b, t, h, width), device=dev,
+                                  generator=gen)).to(dtype).transpose(1, 2)
+    if model_w:
+        w = torch.exp(-torch.exp(-6 + 0.5 * torch.randn(
+            (b, t, h, k), device=dev, generator=gen)))
+    else:
+        w = 0.5 + 0.5 * torch.rand((b, t, h, k), device=dev, generator=gen)
+    u = 0.1 * torch.randn((h, k), device=dev, generator=gen)
+    return [act(k), act(k), act(v), w.transpose(1, 2), u]
+
+
+# (batch, T, heads, K, V): the serve phase's prefill and decode, then the
+# reference sweep (tests/test_kernels.py) and a ragged case
+WKV_SHAPES = ((8, 512, 32, 64, 64), (8, 1, 32, 64, 64), (1, 16, 1, 8, 8),
+              (1, 64, 2, 16, 16), (1, 100, 4, 32, 32), (1, 130, 2, 64, 64),
+              (1, 200, 1, 8, 8), (2, 37, 3, 64, 8))
+
+
+def wkv_checks(dev, gen, shapes=WKV_SHAPES) -> dict:
+    """``rwkv6_recurrence`` against its plain version at the serve phase's
+    shapes (prefill [8, 512, 32, 64] and decode [8, 1, 32, 64] from a
+    state, written in place) and the reference sweep's (K and V from 8 to
+    64, T across chunk edges), in f32 and bf16, with and without s0 and
+    ``kv_bf16``: kernel and plain version each within ``wkv_tolerance``
+    of the float64 recurrence on the same inputs (so within twice it of
+    each other)."""
+    from repro_torch.kernels import rwkv6_recurrence as rk
+
+    r = {"cases": 0, "max_abs_err": 0.0, "max_err_over_bound": 0.0,
+         "plain_max_err_over_bound": 0.0}
+    for b, t, h, k, v in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_s0 in (False, True):
+                for kv_bf16 in (False, True):
+                    args = wkv_inputs(dev, gen, b, t, h, k, v, dtype,
+                                      model_w=h == 32)
+                    s0 = torch.randn((b, h, k, v), device=dev,
+                                     generator=gen) if with_s0 else None
+                    eo, es, otol, stol = rk.wkv_tolerance(
+                        *args, s0, kv_bf16=kv_bf16)
+                    po, ps = rk.plain(*args, s0, kv_bf16=kv_bf16)
+                    o, s = rk.rwkv6_recurrence(*args, s0, kv_bf16=kv_bf16,
+                                               s_out=s0)
+                    torch.cuda.synchronize()
+                    check(o.dtype == dtype and (o.stride() == args[2].stride()
+                                                or o.device.type == "cpu"),
+                          "rwkv6_recurrence: o not in v's dtype and layout")
+                    check(s0 is None or s is s0,
+                          "rwkv6_recurrence: the state was not written in "
+                          "place")
+                    for got_o, got_s, key in ((o, s, "max_err_over_bound"),
+                                              (po, ps,
+                                               "plain_max_err_over_bound")):
+                        eo_ = (got_o.double() - eo).abs()
+                        es_ = (got_s.double() - es).abs()
+                        check(bool((eo_ <= otol).all()
+                                   and (es_ <= stol).all()),
+                              f"rwkv6_recurrence {(b, t, h, k, v)} {dtype} "
+                              f"s0={with_s0} kv_bf16={kv_bf16} ({key}): off "
+                              "the float64 recurrence beyond wkv_tolerance")
+                        ratio = max((eo_ / otol.clamp_min(1e-300)).max()
+                                    .item() if t else 0.0,
+                                    (es_ / stol.clamp_min(1e-300)).max()
+                                    .item())
+                        r[key] = max(r[key], ratio)
+                    r["max_abs_err"] = max(
+                        r["max_abs_err"],
+                        (o.float() - po.float()).abs().max().item()
+                        if t else 0.0, (s - ps).abs().max().item())
+                    r["cases"] += 1
+    if torch.device(dev).type == "cuda":
+        args = wkv_inputs(dev, gen, 1, 4, 1, 128, 64)
+        for bad, err in (([args[0].float()] + args[1:], TypeError),
+                         (args, ValueError)):
+            try:
+                rk.rwkv6_recurrence(*bad)
+            except err:
+                continue
+            raise AssertionError("rwkv6_recurrence took operands it does "
+                                 "not support")
+    r["tolerance"] = ("wkv_tolerance: state E_t = |w_t| E_{t-1} + "
+                      "3*2^-24*A_t (A the |.| recurrence), output "
+                      "sum|r|E + (K+3)*2^-24*sum|r|(A + |u kv|) + its "
+                      "rounding to v's dtype (2^-8 |o| for bf16)")
+    return r
+
+
+def wkv_work(b: int, t: int, h: int, k: int, v: int,
+             in_bytes: int) -> tuple[int, int]:
+    """``(bytes, flops)`` the recurrence needs: r, k, v read once in
+    their dtype, w f32, u, s0 read and s written in f32, o written in v's
+    dtype; 7 f32 operations per (k, v) per token (k·v, S + u·kv as two,
+    r·(…) and its sum as two, w·S + kv as two)."""
+    act = b * t * h
+    nbytes = act * (2 * k + v) * in_bytes + act * k * 4 \
+        + act * v * in_bytes + h * k * 4 + 2 * b * h * k * v * 4
+    return nbytes, 7 * act * k * v
+
+
+def wkv_timings(dev, gen, cfg, sizes) -> dict:
+    """The serve phase's two WKV calls per layer: prefill ([batch,
+    prompt, H, 64] bf16 in the model's layout, kv in bf16, from a zero
+    state) and decode ([batch, 1, H, 64] from a state, in place).  CUDA
+    events around back-to-back calls; at decode the host's launch rate
+    bounds that window, so the device's own time per launch comes from
+    the profiler too."""
+    from repro_torch.kernels import rwkv6_recurrence as rk
+
+    h, hd = cfg.d_model // 64, 64
+    b, t = sizes.batch, sizes.prompt
+    pre = wkv_inputs(dev, gen, b, t, h, hd, hd)
+    s0 = torch.zeros((b, h, hd, hd), device=dev)
+    dec = wkv_inputs(dev, gen, b, 1, h, hd, hd)
+    sd = torch.randn((b, h, hd, hd), device=dev, generator=gen)
+    nbytes, flops = wkv_work(b, t, h, hd, hd, 2)
+    dbytes, dflops = wkv_work(b, 1, h, hd, hd, 2)
+
+    def decode():
+        rk.rwkv6_recurrence(*dec, sd, kv_bf16=True, s_out=sd)
+
+    prof = device_profile(lambda: [decode() for _ in range(50)])
+    per = [x for x in prof.get("top", []) if "wkv_kernel" in x["name"]]
+    return {
+        "ms": time_ms(lambda: rk.rwkv6_recurrence(*pre, s0, kv_bf16=True)),
+        "plain_ms": time_ms(lambda: rk.plain(*pre, s0, kv_bf16=True),
+                            reps=3, inner=1),
+        "library_ms": None,       # no single PyTorch call computes it
+        "bytes": nbytes, "flops": flops,
+        "shape": [b, t, h, hd], "dtype": "bfloat16 (w float32)",
+        "kv_bf16": True,
+        "decode": {
+            "shape": [b, 1, h, hd], "bytes": dbytes, "flops": dflops,
+            "ms_back_to_back": time_ms(decode, inner=50),
+            "plain_ms": time_ms(lambda: rk.plain(*dec, sd, kv_bf16=True)),
+            "device_ms_per_launch": (per[0]["ms"] / per[0]["count"]
+                                     if per else None)},
+    }
+
+
 def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
     """(ranks, blocks per rank) of the largest int8_hopquant hop: the
     largest leaf's 256-lane blocks, padded to a multiple of n, split in n
@@ -524,7 +690,8 @@ def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
     return n, -(-blocks // n)
 
 
-def kernel_timings(dev, peak: float, cfg) -> dict:
+def kernel_timings(dev, peak: float, f32_peak: float, cfg,
+                   serve_cfg) -> dict:
     """Each kernel at the main path's shapes: the largest hop (bf16
     [8, 3,072,000] add), the Coalesce bucket pack (f32 parts of 768,
     9216 and 9216 per rank into the [8, 19200] arena), the largest
@@ -532,7 +699,10 @@ def kernel_timings(dev, peak: float, cfg) -> dict:
     rows), the top-k accumulate of the embed leaf (k = 1% of its
     24,576,000 lanes into the [8, 24,576,000] f32 accumulator) and the
     local scan of fig5_scan ([8, 2^20] f32 along dim 1; fig5_scan_2d's
-    [8, 16384, 64] beside it)."""
+    [8, 16384, 64] beside it), and the serve phase's WKV
+    (:func:`wkv_timings`).  ``bound_ms`` is the larger of the bytes over
+    the memory rate and the f32 operations (where counted) over the f32
+    rate; ``bound_by`` says which."""
     from repro_torch.configs.acis_100m import grad_leaf_specs
     from repro_torch.kernels import chunk_scan as cs
     from repro_torch.kernels import fused_combine as fc
@@ -610,9 +780,13 @@ def kernel_timings(dev, peak: float, cfg) -> dict:
     del x, x2
     torch.cuda.empty_cache()
     out = {"fused_combine": comb, "fused_pack": pack, "quant_combine": quant,
-           "topk_accumulate": topk, "prefix_sum": scan}
+           "topk_accumulate": topk, "prefix_sum": scan,
+           "rwkv6_recurrence": wkv_timings(dev, gen, serve_cfg, SERVE)}
     for t in out.values():
-        t["bound_ms"] = t["bytes"] / peak * 1e3
+        by_bytes = t["bytes"] / peak * 1e3
+        by_ops = t.get("flops", 0) / f32_peak * 1e3
+        t["bound_ms"] = max(by_bytes, by_ops)
+        t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     return out
 
 
@@ -1324,6 +1498,382 @@ def fused_path(mesh, sizes: FusedSizes, seed: int, *, steps: int = 3,
     return run.records
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serving rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServeSizes:
+    """The serve phase's traffic."""
+    batch: int                 # Model.prefill / decode_step batch
+    prompt: int                # prefill tokens per sequence
+    steps: int                 # greedy decode steps after the prefill
+    check_prompt: int          # prefill held against this many decode steps
+    f32_steps: int             # decode steps of the f32 semantics check
+    slots: int                 # ServeEngine slots
+    requests: tuple            # ServeEngine: (prompt tokens, new tokens)
+
+
+# 8 prompts of 512 tokens then 32 greedy steps; a continuous-batching mix
+# of 8 requests (prompts 16-96, 16-32 new tokens) over 4 slots, so that 4
+# requests land in reused slots
+SERVE = ServeSizes(batch=8, prompt=512, steps=32, check_prompt=64,
+                   f32_steps=8, slots=4,
+                   requests=((16, 32), (96, 16), (40, 24), (72, 20),
+                             (24, 28), (88, 16), (32, 32), (56, 24)))
+# the same path at sizes a CPU runs in seconds (a rehearsal only)
+SERVE_SMOKE = ServeSizes(batch=2, prompt=12, steps=3, check_prompt=6,
+                         f32_steps=2, slots=2,
+                         requests=((3, 4), (6, 3), (2, 5), (4, 2)))
+
+# Two runs of the model that differ only in rounding order (kernel vs
+# plain WKV sums; a prompt prefilled at once vs token by token; a batch of
+# four vs one in the matmuls) agree within this share of a row's largest
+# |logit| (and of each cache leaf's largest magnitude).  bf16 weights, the
+# served configuration: every op rounds to bf16, and a one-ulp flip
+# anywhere spreads through 24 layers.  f32-cast weights, the semantics
+# check: only f32 sums move.  A greedy token is compared only up to its
+# row's first step whose top-2 gap is under twice the bound: a near-tie
+# either run may break either way, and at the bf16 bound that is most
+# steps of a random-weight model (the record's ``top2_gap_rel_median``).
+# PERF.md gives the measured shares.
+BF16_REL = 2.0 ** -4
+F32_REL = 2.0 ** -14
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _top2_gap(lg: torch.Tensor) -> torch.Tensor:
+    top = lg.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def hold_logits(want: list, got: list, rel: float) -> dict:
+    """Logits of the same steps from two runs (the second fed the first
+    one's tokens): each within ``rel`` of its row's largest |logit|, and
+    the argmax equal up to each row's first near-tie in ``want``."""
+    worst, compared, total = 0.0, 0, 0
+    alive = None
+    for a, b in zip(want, got):
+        check(bool(torch.isfinite(b).all()), "non-finite logits")
+        tol = rel * a.float().abs().amax(-1)
+        err = ((b.float() - a.float()).abs().amax(-1) / tol).max().item()
+        worst = max(worst, err)
+        ok = _top2_gap(a) >= 2 * tol
+        alive = ok if alive is None else alive & ok
+        same = a.argmax(-1) == b.argmax(-1)
+        check(bool(same[alive].all()), "greedy tokens differ before a "
+              "near-tie")
+        compared += int(alive.sum())
+        total += alive.numel()
+    check(worst <= 1, f"logits differ by {worst:.3g} x the bound "
+          f"({rel} of the row's largest |logit|)")
+    return {"logit_err_over_bound": worst, "tokens_compared": compared,
+            "tokens": total}
+
+
+def hold_cache(want, got, rel: float) -> float:
+    """Every cache leaf within ``rel`` of its largest magnitude."""
+    from repro_torch import tree
+
+    worst = 0.0
+    for a, b in zip(tree.tree_leaves(want), tree.tree_leaves(got)):
+        a, b = a.float(), b.float()
+        err = (b - a).abs().max().item() / (rel * a.abs().max()
+                                            .clamp_min(1e-30).item())
+        worst = max(worst, err)
+    check(worst <= 1, f"cache differs by {worst:.3g} x the bound ({rel})")
+    return worst
+
+
+def run_model(model, params, toks, steps: int, dev, feed=None) -> dict:
+    """``Model.prefill`` of ``toks`` then ``steps`` greedy
+    ``decode_step``s (or the tokens in ``feed``), each bracketed by a
+    device sync and timed on the host clock (the argmax is outside); the
+    cache in the params' dtype."""
+    b, t = toks.shape
+    cache = model.init_cache(b, t + steps + 1, params["embed"].dtype,
+                             device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, toks, cache)
+    _sync(dev)
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [],
+           "logits": [lg], "tokens": []}
+    for i in range(steps):
+        tok = lg.argmax(-1) if feed is None else feed[i]
+        out["tokens"].append(tok)
+        _sync(dev)
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, tok, cache, t + i)
+        _sync(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(lg)
+    out["cache"] = cache
+    return out
+
+
+def prefill_vs_decode(model, params, toks, dev, rel: float) -> dict:
+    """``prefill`` of ``toks`` held against as many ``decode_step``s: the
+    last logits and every cache leaf within ``rel``."""
+    b, t = toks.shape
+    dt = params["embed"].dtype
+    cache_a = model.init_cache(b, t + 1, dt, device=dev)
+    lg_a, cache_a = model.prefill(params, toks, cache_a)
+    cache_b = model.init_cache(b, t + 1, dt, device=dev)
+    for i in range(t):
+        lg_b, cache_b = model.decode_step(params, toks[:, i], cache_b, i)
+    _sync(dev)
+    out = hold_logits([lg_a], [lg_b], rel)
+    out["cache_err_over_bound"] = hold_cache(cache_a, cache_b, rel)
+    return out
+
+
+class GapModel:
+    """A model whose every decode step also records row 0's top-2 logit
+    gap and twice the ``rel`` bound: a one-slot engine's near-ties."""
+
+    def __init__(self, model, rel: float):
+        self.model, self.rel, self.gaps = model, rel, []
+
+    def init_cache(self, *a, **kw):
+        return self.model.init_cache(*a, **kw)
+
+    def decode_step(self, params, token, cache, index):
+        lg, cache = self.model.decode_step(params, token, cache, index)
+        self.gaps.append((_top2_gap(lg[0]).item(),
+                          2 * self.rel * lg[0].float().abs().max().item()))
+        return lg, cache
+
+
+def engine_path(model, params, cfg, sizes: ServeSizes, seed: int, dev,
+                rel: float, *, expect_kernels: bool = True) -> dict:
+    """``ServeEngine(slots)`` over the request mix, then each request
+    alone in a fresh one-slot engine: the completions equal up to the
+    fresh run's first step whose top-2 gap is under twice ``rel``
+    (requests past the slot count land in reused slots)."""
+    import numpy as np
+
+    from repro_torch.obs import metrics
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(seed)
+    reqs = [(i, rng.integers(0, cfg.vocab, p).astype(np.int32), n)
+            for i, (p, n) in enumerate(sizes.requests)]
+    max_seq = max(p + n for p, n in sizes.requests) + 2
+    rec = metrics.Recorder()
+    reset_counts()
+    eng = ServeEngine(model, params, slots=sizes.slots, max_seq=max_seq,
+                      recorder=rec)
+    for rid, prompt, n_new in reqs:
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if expect_kernels:
+        check(launches["rwkv6_recurrence"] == eng.ticks * cfg.n_layers,
+              f"rwkv6_recurrence launched {launches['rwkv6_recurrence']} "
+              f"times in {eng.ticks} ticks of {cfg.n_layers} layers")
+    check([c.rid for c in done] == [r[0] for r in reqs]
+          and [len(c.tokens) for c in done] == [n for _, _, n in reqs],
+          "the engine did not complete every request in full")
+    compared = 0
+    for (rid, prompt, n_new), comp in zip(reqs, done):
+        gm = GapModel(model, rel)
+        alone = ServeEngine(gm, params, slots=1, max_seq=max_seq)
+        alone.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+        want = alone.run_to_completion()[0].tokens
+        for j, (a, b) in enumerate(zip(want, comp.tokens)):
+            gap, tol = gm.gaps[len(prompt) - 1 + j]
+            if gap < tol:
+                break
+            check(a == b, f"request {rid}: token {j} is {b}, a fresh "
+                  f"engine gives {a}")
+            compared += 1
+    ticks = sorted(eng._tick_times)
+    n_tok = sum(len(c.tokens) for c in done)
+    return {
+        "phase": "serve", "program": "engine", "model": cfg.name,
+        "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "slots": sizes.slots, "requests": [list(r) for r in sizes.requests],
+        "reused_slot_requests": max(0, len(reqs) - sizes.slots),
+        "ticks": eng.ticks, "wall_s": wall, "generated_tokens": n_tok,
+        "tokens_per_s": n_tok / wall,
+        "tick_p50_ms": ticks[len(ticks) // 2] * 1e3,
+        "tick_p99_ms": ticks[min(len(ticks) - 1,
+                                 int(len(ticks) * 0.99))] * 1e3,
+        "counters": {k: rec.counter(k) for k in (
+            "serve.ticks", "serve.admitted", "serve.retired",
+            "serve.host_sync")},
+        "rel": rel, "fresh_engine_tokens_compared": compared,
+        "launches": launches,
+        "launches_per_tick": {"rwkv6_recurrence": cfg.n_layers},
+    }
+
+
+def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
+               expect_kernels: bool = True) -> list[dict]:
+    """rwkv6-1.6b at full width and depth on seeded random bf16 weights
+    (made on the device from ``seed``), the served configuration:
+
+      * ``Model.prefill`` of ``batch`` prompts of ``prompt`` tokens, then
+        ``steps`` greedy ``decode_step``s: one untimed warm-up pair, then
+        two timed pairs in turns, kernels on and ``use_kernels=False``,
+        both fed the warm-up's greedy tokens; logits held kernel vs plain
+        within ``BF16_REL`` (:func:`hold_logits`)
+      * :func:`prefill_vs_decode` on ``check_prompt`` tokens
+      * a profile of one prefill and one decode step
+      * :func:`engine_path`, timed
+
+    then the same weights cast to f32, the semantics check within
+    ``F32_REL``: kernel vs plain over a prefill and ``f32_steps`` decode
+    steps, :func:`prefill_vs_decode`, and :func:`engine_path` (slot reuse
+    against fresh engines, where near-ties are rare).
+
+    ``rwkv6_recurrence`` must launch once per layer per prefill call and
+    per decode step or engine tick."""
+    from repro_torch import tree
+    from repro_torch.models import Model
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model_k, model_p = Model(cfg), Model(cfg, use_kernels=False)
+    check(model_k.use_kernels, "use_kernels is off by default")
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_k.init(gen, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    leaves = tree.tree_leaves(params)
+    toks = torch.randint(0, cfg.vocab, (sizes.batch, sizes.prompt),
+                         device=dev, generator=gen)
+    n_layers = cfg.n_layers
+
+    def counted(fn, calls: int, what: str):
+        """``fn()`` with the counts set to 0 just before and read just
+        after; ``rwkv6_recurrence`` must launch once per layer per call."""
+        reset_counts()
+        out = fn()
+        got = read_counts()
+        if expect_kernels:
+            check(got["rwkv6_recurrence"] == calls * n_layers,
+                  f"{what}: rwkv6_recurrence launched "
+                  f"{got['rwkv6_recurrence']} times, {calls} prefill and "
+                  f"decode calls of {n_layers} layers need "
+                  f"{calls * n_layers}")
+        return out, got
+
+    # a warm-up pair (kernel free-running, plain fed its tokens), then
+    # kernel and plain in turns, both fed the warm-up's tokens
+    def timed_runs():
+        warm_k = run_model(model_k, params, toks, sizes.steps, dev)
+        feed = warm_k["tokens"]
+        warm_p = run_model(model_p, params, toks, sizes.steps, dev,
+                           feed=feed)
+        held = [hold_logits(warm_k["logits"], warm_p["logits"], BF16_REL)]
+        gaps = torch.cat([_top2_gap(lg) / lg.float().abs().amax(-1)
+                          for lg in warm_k["logits"]])
+        runs = []
+        for step in range(2):
+            rk, rp = in_turns(
+                step, lambda: run_model(model_k, params, toks, sizes.steps,
+                                        dev, feed=feed),
+                lambda: run_model(model_p, params, toks, sizes.steps, dev,
+                                  feed=feed))
+            held.append(hold_logits(rk["logits"], rp["logits"], BF16_REL))
+            runs.append((rk["prefill_ms"], rk["step_ms"], rp["prefill_ms"],
+                         rp["step_ms"]))
+        hold_cache(warm_p["cache"], rk["cache"], BF16_REL)
+        return held, runs, gaps.median().item()
+
+    (held, runs, gap_median), launches = counted(
+        timed_runs, 3 * (1 + sizes.steps), "prefill and decode")
+    short = toks[:, :sizes.check_prompt]
+    vs_decode, launches_b = counted(
+        lambda: prefill_vs_decode(model_k, params, short, dev, BF16_REL),
+        1 + sizes.check_prompt, "prefill vs decode")
+    peak_mem = torch.cuda.max_memory_allocated() if cuda else None
+
+    pre_k, pre_p = [r[0] for r in runs], [r[2] for r in runs]
+    step_k = [t for r in runs for t in r[1]]
+    step_p = [t for r in runs for t in r[3]]
+    med = statistics.median
+    ntok = sizes.batch * sizes.prompt
+    record = {
+        "phase": "serve", "program": "prefill_decode", "model": cfg.name,
+        "params": sum(x.numel() for x in leaves),
+        "param_bytes": sum(x.numel() * x.element_size() for x in leaves),
+        "init_s": init_s, "batch": sizes.batch, "prompt": sizes.prompt,
+        "steps": sizes.steps,
+        "prefill_ms_kernels": pre_k, "prefill_ms_plain": pre_p,
+        "prefill_tokens_per_s_kernels": ntok / med(pre_k) * 1e3,
+        "prefill_tokens_per_s_plain": ntok / med(pre_p) * 1e3,
+        "decode_ms_per_step_kernels": med(step_k),
+        "decode_ms_per_step_plain": med(step_p),
+        "decode_tokens_per_s_kernels": sizes.batch / med(step_k) * 1e3,
+        "decode_tokens_per_s_plain": sizes.batch / med(step_p) * 1e3,
+        "bf16_rel": BF16_REL,
+        "kernel_vs_plain": {
+            "logit_err_over_bound": max(h["logit_err_over_bound"]
+                                        for h in held),
+            "tokens_compared": sum(h["tokens_compared"] for h in held),
+            "tokens": sum(h["tokens"] for h in held)},
+        "top2_gap_rel_median": gap_median,
+        "prefill_vs_decode": vs_decode,
+        "max_memory_allocated": peak_mem,
+        "launches": {k: launches[k] + launches_b[k] for k in launches},
+        "launches_per_call": {"prefill": n_layers,
+                              "decode_step": n_layers},
+    }
+    if cuda:
+        cache = model_k.init_cache(sizes.batch, sizes.prompt + 2,
+                                   device=dev)
+        record["profile"] = {
+            "prefill": device_profile(lambda: model_k.prefill(
+                params, toks, cache)),
+            "decode_step": device_profile(lambda: model_k.decode_step(
+                params, toks[:, 0], cache, sizes.prompt))}
+        del cache
+    eng = engine_path(model_k, params, cfg, sizes, seed, dev, BF16_REL,
+                      expect_kernels=expect_kernels)
+
+    # the semantics check: the same weights in f32
+    params = tree.tree_map(lambda x: x.float(), params)
+
+    def f32_runs():
+        rk = run_model(model_k, params, toks, sizes.f32_steps, dev)
+        rp = run_model(model_p, params, toks, sizes.f32_steps, dev,
+                       feed=rk["tokens"])
+        out = hold_logits(rk["logits"], rp["logits"], F32_REL)
+        out["cache_err_over_bound"] = hold_cache(rk["cache"], rp["cache"],
+                                                 F32_REL)
+        return out
+
+    f32_held, launches_c = counted(f32_runs, 1 + sizes.f32_steps,
+                                   "f32 kernel vs plain")
+    f32_vs_decode, launches_d = counted(
+        lambda: prefill_vs_decode(model_k, params, short, dev, F32_REL),
+        1 + sizes.check_prompt, "f32 prefill vs decode")
+    eng32 = engine_path(model_k, params, cfg, sizes, seed, dev, F32_REL,
+                        expect_kernels=expect_kernels)
+    record["f32_check"] = {"rel": F32_REL, "steps": sizes.f32_steps,
+                           "kernel_vs_plain": f32_held,
+                           "prefill_vs_decode": f32_vs_decode}
+    record["launches"] = {k: record["launches"][k] + launches_c[k]
+                          + launches_d[k] for k in launches}
+    eng["program"], eng32["program"] = "engine", "engine_f32"
+    return [record, eng, eng32]
+
+
 def device_profile(step) -> dict:
     """One more sync under ``torch.profiler``: device time by
     kernel name (top 10) and the device's busy share of the window (sum
@@ -1353,6 +1903,7 @@ def device_profile(step) -> dict:
     return {"window_ms": wall_us / 1e3, "device_ms": busy / 1e3,
             "device_busy_share": busy / wall_us if wall_us else None,
             "kernels": len(by_name),
+            "launches": sum(c for _, c in by_name.values()),
             "top": [{"name": n[:90], "ms": t / 1e3, "count": c}
                     for n, (t, c) in top]}
 
@@ -1371,6 +1922,8 @@ SOURCES = {
                         "src/repro/kernels/topk_accum.py:47"),
     "prefix_sum": ("src/repro_torch/kernels/csrc/prefix_sum.cu",
                    "src/repro/kernels/chunk_scan.py:64"),
+    "rwkv6_recurrence": ("src/repro_torch/kernels/csrc/rwkv6_recurrence.cu",
+                         "src/repro/kernels/rwkv6_recurrence.py:83"),
 }
 
 
@@ -1392,6 +1945,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.configs.acis_100m import CONFIG
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
     from repro_torch.kernels import build
     from repro_torch.mesh import LocalMesh
 
@@ -1402,7 +1956,7 @@ def main() -> int:
     records = []
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
-    peak, peak_note = hbm_peak(name)
+    peak, f32_peak, peak_note = device_peaks(name)
     nvcc_v = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                             text=True, check=True).stdout.strip()
     rec = {"phase": "env", "torch": torch.__version__,
@@ -1413,7 +1967,8 @@ def main() -> int:
            "ninja_on_path": shutil.which("ninja") is not None,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-           "hbm_peak_Bps": peak, "hbm_peak_source": peak_note}
+           "hbm_peak_Bps": peak, "f32_peak_flops": f32_peak,
+           "peak_source": peak_note}
     emit(rec)
     records.append(rec)
 
@@ -1429,7 +1984,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     checks = kernel_checks(dev)
-    timings = kernel_timings(dev, peak, CONFIG)
+    timings = kernel_timings(dev, peak, f32_peak, CONFIG, RWKV6)
     rec = {"phase": "kernels", "checks": checks, "timings": timings}
     emit(rec)
     records.append(rec)
@@ -1441,6 +1996,10 @@ def main() -> int:
         paths.append(compressed_path(mesh, CONFIG, args.seed, comp))
         emit(paths[-1])
     for rec in fused_path(mesh, FUSED, args.seed):
+        paths.append(rec)
+        emit(rec)
+    del mesh
+    for rec in serve_path(RWKV6, args.seed, SERVE):
         paths.append(rec)
         emit(rec)
     records.extend(paths)
@@ -1455,7 +2014,7 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": checks[k]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,39 +1,19 @@
 """acis-100m — the ~100M-param dense model of the end-to-end training
 example, the vehicle for the paper's gradient-sync collectives.
 
-The port's copy of :mod:`repro.configs.acis_100m` (the port has no models
-yet, so the config is a plain dataclass), plus :func:`grad_leaf_specs`:
-the model's gradient leaves — one per parameter — with the shapes and
-dtypes the reference's ``Model(CONFIG).param_shapes()`` gives them, in
-the reference's flatten order.  ``chip_smoke.py`` builds the full-width
+The port's copy of :mod:`repro.configs.acis_100m`, plus
+:func:`grad_leaf_specs`: the model's gradient leaves — one per
+parameter — with the shapes and dtypes the reference's
+``Model(CONFIG).param_shapes()`` gives them, in the reference's flatten
+order.  ``chip_smoke.py`` builds the full-width
 gradient pytree from it.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
-
-@dataclasses.dataclass(frozen=True)
-class ModelConfig:
-    name: str
-    family: str
-    n_layers: int
-    d_model: int
-    n_heads: int
-    n_kv_heads: int
-    d_ff: int
-    vocab: int
-    activation: str
-    max_seq: int
-    remat: str = "none"
-
-    @property
-    def head_dim(self) -> int:
-        return self.d_model // self.n_heads
-
+from repro_torch.models.config import ModelConfig
 
 CONFIG = ModelConfig(
     name="acis-100m", family="dense",

@@ -6,8 +6,10 @@ The port holds every rank's slice in one tensor, ``[*rank, *local]``.
 These functions convert between the two layouts (numpy on the
 reference's side, torch on the port's), leaf by leaf for pytrees, so a
 test can feed one seeded numpy input to both packages and compare.
-Dtypes are carried over (bfloat16 through a float32 round trip, which is
-exact).
+Model params and serving caches have the same tree in both packages
+(:func:`params_from_reference`, :func:`cache_from_reference` and their
+inverses).  Dtypes are carried over (bfloat16 through a float32 round
+trip, which is exact).
 """
 
 from __future__ import annotations
@@ -70,3 +72,19 @@ def tree_ranks_from_reference(t: PyTree, mesh: LocalMesh) -> PyTree:
 
 def tree_reference_from_ranks(t: PyTree, mesh: LocalMesh) -> PyTree:
     return tree.tree_map(lambda x: reference_from_ranks(x, mesh), t)
+
+
+def params_from_reference(t: PyTree, device="cpu") -> PyTree:
+    """The reference's model params (a pytree of JAX or numpy arrays) →
+    the port's, leaf by leaf on ``device``, dtypes kept."""
+    return tree.tree_map(lambda x: _to_torch(x).to(device), t)
+
+
+def params_to_reference(t: PyTree) -> PyTree:
+    """The inverse: the port's params → numpy arrays, dtypes kept."""
+    return tree.tree_map(_to_numpy, t)
+
+
+# a serving cache is a pytree of arrays like the params
+cache_from_reference = params_from_reference
+cache_to_reference = params_to_reference

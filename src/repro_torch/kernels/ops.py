@@ -13,6 +13,7 @@ from __future__ import annotations
 from repro_torch.kernels import chunk_scan as _cs
 from repro_torch.kernels import fused_combine as _fc
 from repro_torch.kernels import pack_combine as _pc
+from repro_torch.kernels import rwkv6_recurrence as _rw
 from repro_torch.kernels import topk_accum as _ta
 
 
@@ -42,3 +43,7 @@ def topk_accumulate(dense, idx, vals):
 
 def prefix_sum(x, dim: int = 0):
     return _cs.prefix_sum(x, dim=dim)
+
+
+def rwkv6_recurrence(r, k, v, w, u, s0=None, *, kv_bf16: bool = False):
+    return _rw.rwkv6_recurrence(r, k, v, w, u, s0, kv_bf16=kv_bf16)

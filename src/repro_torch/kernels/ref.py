@@ -152,32 +152,41 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# rwkv6 — data-dependent-decay WKV recurrence (one head)
+# rwkv6 — data-dependent-decay WKV recurrence (multi-head, batched)
 # ---------------------------------------------------------------------------
 
 def rwkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor, u: torch.Tensor,
-                     s0: Optional[torch.Tensor] = None
+                     s0: Optional[torch.Tensor] = None, *,
+                     kv_bf16: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """RWKV-6 "Finch" WKV for a single head.
+    """RWKV-6 "Finch" WKV, batched over leading dims.
 
-    r,k,w: [T, K], v: [T, V], u: [K].  State S: [K, V].
-      o_t = (S_{t-1} + (u * k_t)^T v_t)^T r_t
-      S_t = diag(w_t) S_{t-1} + k_t^T v_t
-    Returns (o: [T, V], S_T).
+    r, k, w: [..., T, K], v: [..., T, V], u: [..., K] (broadcast against
+    the leading dims: ``[H, K]`` for ``[*batch, H, T, K]`` inputs), s0:
+    [..., K, V] (zeros when None).  Per token, in float32:
+      kv  = k_t ⊗ v_t                  (rounded to bf16 if ``kv_bf16``)
+      o_t = Σ_k r_t[k] · (S + u ⊙ kv)[k, :]
+      S   = diag(w_t) S + kv
+    Returns (o: [..., T, V] in v's dtype, S_T: [..., K, V] float32).
+    ``kv_bf16`` repeats the reference's serving arithmetic
+    (``rwkv6_decode`` forms kv from bf16 k and v, so in bf16); the
+    default is the TPU kernel's exact f32 product.
     """
-    T, K = r.shape
-    V = v.shape[1]
-    out_dtype = v.dtype
     f32 = torch.float32
-    S = torch.zeros((K, V), dtype=f32, device=r.device) if s0 is None \
-        else s0.to(f32)
+    T, V, out_dtype = v.shape[-2], v.shape[-1], v.dtype
+    lead = torch.broadcast_shapes(r.shape[:-2], v.shape[:-2],
+                                  u.shape[:-1])
+    S = torch.zeros(lead + (r.shape[-1], V), dtype=f32, device=r.device) \
+        if s0 is None else s0.to(f32)
     r, k, v, w, u = (t.to(f32) for t in (r, k, v, w, u))
     os = []
     for t in range(T):
-        kv = k[t][:, None] * v[t][None, :]                     # [K, V]
-        os.append(((S + u[:, None] * kv) * r[t][:, None]).sum(0))
-        S = w[t][:, None] * S + kv
-    o = torch.stack(os) if os else torch.zeros((0, V), dtype=f32,
-                                                device=r.device)
+        kv = k[..., t, :, None] * v[..., t, None, :]           # [..., K, V]
+        if kv_bf16:
+            kv = kv.to(torch.bfloat16).to(f32)
+        os.append(((S + u[..., :, None] * kv) * r[..., t, :, None]).sum(-2))
+        S = w[..., t, :, None] * S + kv
+    o = torch.stack(os, -2) if os else torch.zeros(
+        lead + (0, V), dtype=f32, device=r.device)
     return o.to(out_dtype), S

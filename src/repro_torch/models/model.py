@@ -1,0 +1,81 @@
+"""Model — the public facade over the port's models.
+
+    model = Model(cfg)                                 # use_kernels=True
+    params    = model.init(torch.Generator("cuda").manual_seed(0))
+    cache     = model.init_cache(batch, seq)
+    lg, cache = model.prefill(params, tokens, cache)   # cache in place
+    lg, cache = model.decode_step(params, token, cache, index)
+
+The counterpart of :class:`repro.models.model.Model` for the families the
+port runs (the ``ssm`` serving path).  Params and caches live on the card
+unless the caller passes ``device=`` (the tests pass ``"cpu"``; ``"meta"``
+gives shapes and dtypes without memory).  ``use_kernels=False`` runs every
+kernel's plain PyTorch version instead, on any device — the engine's
+convention, which ``chip_smoke.py`` uses to time both on the card.
+``prefill`` and ``decode_step`` update the cache in place and return it;
+clone it first to keep the old one.  ``forward`` (training) waits for
+ROADMAP.md queue 1 item 7.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.mesh import default_device
+from repro_torch.models import decode as D
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+
+
+def _device(device) -> torch.device:
+    return default_device() if device is None else torch.device(device)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, *, use_kernels: bool = True):
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+
+    # -- params --------------------------------------------------------------
+
+    def init(self, generator: Optional[torch.Generator],
+             device=None) -> PyTree:
+        """Seeded random params; ``generator`` must live on ``device``
+        (none is needed on ``meta``)."""
+        return T.init_stack(generator, self.cfg, device=_device(device))
+
+    def param_shapes(self) -> PyTree:
+        return self.init(None, device="meta")
+
+    # -- training ------------------------------------------------------------
+
+    def forward(self, params: PyTree, tokens: torch.Tensor, **_):
+        raise NotImplementedError(
+            "Model.forward (training) is not ported yet: ROADMAP.md queue 1 "
+            "item 7")
+
+    def logits(self, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
+        return T.logits(params, self.cfg, hidden)
+
+    # -- serving -------------------------------------------------------------
+
+    def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
+                   device=None) -> PyTree:
+        return D.init_cache(self.cfg, batch, seq, dtype,
+                            device=_device(device))
+
+    @torch.no_grad()
+    def prefill(self, params: PyTree, tokens: torch.Tensor,
+                cache: PyTree) -> tuple[torch.Tensor, PyTree]:
+        return D.prefill(params, self.cfg, tokens, cache,
+                         use_kernels=self.use_kernels)
+
+    @torch.no_grad()
+    def decode_step(self, params: PyTree, token: torch.Tensor,
+                    cache: PyTree, index) -> tuple[torch.Tensor, PyTree]:
+        return D.decode_step(params, self.cfg, token, cache, index,
+                             use_kernels=self.use_kernels)

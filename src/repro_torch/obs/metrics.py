@@ -40,7 +40,7 @@ serve.decode_s            histogram   per-tick decode seconds (enabled only)
 serve.decode_p50_s/p99_s  gauge       tick-latency percentiles over the
                                       sliding measurement window
 serve.host_sync           counter     the tick's one device->host block
-                                      (logits for sampling)
+                                      (the greedy tokens)
 serve.slo_rejected        counter     requests dropped at admission: the
                                       SLOPolicy estimate misses deadline
 serve.admit_deferred      counter     admits postponed (prefill cap)

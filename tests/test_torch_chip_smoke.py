@@ -88,3 +88,70 @@ def test_scan_bound_catches_a_dropped_tile_carry(smoke, shape):
     bad[:, rows:] -= total
     with pytest.raises(AssertionError, match="stated bound"):
         smoke.scan_err(bad, exact, tol, "a dropped carry")
+
+
+# ---------------------------------------------------------------------------
+# the serve phase and the rwkv6_recurrence checks
+# ---------------------------------------------------------------------------
+
+def test_serve_path_rehearsed_on_the_cpu(smoke):
+    from repro_torch.configs.rwkv6_1_6b import SMOKE
+    pre, eng, eng32 = smoke.serve_path(SMOKE, 0, smoke.SERVE_SMOKE,
+                                       device="cpu", expect_kernels=False)
+    assert pre["program"] == "prefill_decode" and eng["program"] == "engine"
+    assert eng32["program"] == "engine_f32" and eng32["dtype"] == "float32"
+    assert pre["params"] == 494_720
+    assert len(pre["prefill_ms_kernels"]) == len(pre["prefill_ms_plain"]) \
+        == 2
+    # on a CPU the wrapper runs the plain version: bitwise equal runs
+    assert pre["kernel_vs_plain"]["logit_err_over_bound"] == 0.0
+    assert pre["prefill_vs_decode"]["logit_err_over_bound"] <= 1
+    f32 = pre["f32_check"]
+    assert f32["kernel_vs_plain"]["logit_err_over_bound"] == 0.0
+    assert f32["kernel_vs_plain"]["tokens_compared"] > 0
+    assert f32["prefill_vs_decode"]["cache_err_over_bound"] <= 1
+    assert eng32["fresh_engine_tokens_compared"] \
+        == eng32["generated_tokens"]
+    assert pre["launches_per_call"] == {"prefill": 2, "decode_step": 2}
+    assert eng["reused_slot_requests"] == 2
+    assert eng["counters"]["serve.admitted"] == 4
+    assert eng["fresh_engine_tokens_compared"] > 0
+    for rec in (pre, eng, eng32):
+        assert sum(rec["launches"].values()) == 0     # nothing on a CPU
+
+
+def test_wkv_checks_rehearsed_on_the_cpu(smoke, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    gen = torch.Generator().manual_seed(0)
+    r = smoke.wkv_checks(torch.device("cpu"), gen,
+                         shapes=((2, 1, 4, 64, 64), (1, 37, 2, 16, 8)))
+    assert r["cases"] == 16 and r["max_abs_err"] == 0.0
+    assert 0 < r["max_err_over_bound"] <= 1
+
+
+def test_wkv_work_and_bound_at_the_prefill_shape(smoke):
+    """About 109 MB and 3.8 GFLOP at [8, 512, 32, 64] bf16: on an H100
+    the f32 operations (0.056 ms at 67 TFLOP/s) bound it, not the bytes
+    (0.033 ms at 3.35 TB/s); at decode the state's bytes do."""
+    nbytes, flops = smoke.wkv_work(8, 512, 32, 64, 64, 2)
+    assert 108e6 < nbytes < 110e6 and flops == 7 * 8 * 512 * 32 * 64 * 64
+    assert flops / 67e12 > nbytes / 3.35e12
+    nbytes, flops = smoke.wkv_work(8, 1, 32, 64, 64, 2)
+    assert flops / 67e12 < nbytes / 3.35e12
+
+
+def test_hold_logits_compares_tokens_up_to_the_first_near_tie(smoke):
+    a = torch.tensor([[10.0, 9.9, 0.0], [10.0, 0.0, 1.0]])
+    # row 0 is a near-tie (gap 0.1 < 2 * 2^-5 * 10): its flip is allowed
+    b = torch.tensor([[9.9, 10.0, 0.0], [10.0, 0.1, 1.0]])
+    r = smoke.hold_logits([a, a], [b, b], 2.0 ** -5)
+    assert r["tokens_compared"] == 2 and r["tokens"] == 4
+    with pytest.raises(AssertionError, match="near-tie"):
+        smoke.hold_logits([a], [torch.tensor([[10.0, 9.9, 0.0],
+                                              [9.0, 0.0, 9.5]])], 2.0 ** -5)
+    with pytest.raises(AssertionError, match="the bound"):
+        smoke.hold_logits([a], [a + torch.tensor([0.0, 0.0, 1.0])],
+                          2.0 ** -5)
+    # at the f32 check's bound the 0.1 gap is no tie: the flip fails
+    with pytest.raises(AssertionError):
+        smoke.hold_logits([a], [b], smoke.F32_REL)

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack_combine as tpc
 from repro_torch.kernels import quant_combine as tqc
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv6_recurrence as trw
 from repro_torch.kernels import topk_accum as tta
 
 RAGGED = [1, 7, 129, 1000, 2048]
@@ -634,6 +635,75 @@ def test_ref_rwkv6_recurrence_matches_reference(rng):
                                atol=1e-5)
 
 
+def _wkv_args(rng, b, t, h, k, v, *, dtype=np.float32):
+    """r, k, v, w in the model's [B, T, H, ·] layout, passed as [B, H, T,
+    ·] views (as models.rwkv6.wkv does), u [H, K] and s0 [B, H, K, V]."""
+    def act(width, scale=0.5):
+        return torch.from_numpy((rng.standard_normal((b, t, h, width))
+                                 * scale).astype(dtype)).transpose(1, 2)
+    w = torch.from_numpy(rng.uniform(0.9, 1.0, (b, t, h, k)).astype(
+        np.float32)).transpose(1, 2)
+    u = torch.from_numpy((rng.standard_normal((h, k)) * 0.1).astype(
+        np.float32))
+    s0 = torch.from_numpy(rng.standard_normal((b, h, k, v)).astype(
+        np.float32))
+    return [act(k), act(k), act(v), w, u, s0]
+
+
+def test_ref_rwkv6_recurrence_batches_over_leading_dims(rng):
+    """[B, H, T, K] with u [H, K] and s0: each (b, h) equals the
+    single-head plain version on its own slice, bit for bit."""
+    r, k, v, w, u, s0 = _wkv_args(rng, 2, 7, 3, 8, 5)
+    for kv_bf16 in (False, True):
+        o, s = tref.rwkv6_recurrence(r, k, v, w, u, s0, kv_bf16=kv_bf16)
+        assert o.shape == (2, 3, 7, 5) and s.shape == (2, 3, 8, 5)
+        for b in range(2):
+            for h in range(3):
+                oh, sh = tref.rwkv6_recurrence(
+                    r[b, h], k[b, h], v[b, h], w[b, h], u[h], s0[b, h],
+                    kv_bf16=kv_bf16)
+                assert torch.equal(o[b, h], oh) and torch.equal(s[b, h], sh)
+
+
+def test_rwkv6_wrapper_on_cpu_runs_the_plain_version(rng):
+    r, k, v, w, u, s0 = _wkv_args(rng, 2, 5, 2, 16, 16)
+    before = trw.launches
+    want_o, want_s = trw.plain(r, k, v, w, u, s0)
+    o, s = trw.rwkv6_recurrence(r, k, v, w, u, s0)
+    assert torch.equal(o, want_o) and torch.equal(s, want_s)
+    ptr = s0.data_ptr()
+    o2, s2 = trw.rwkv6_recurrence(r, k, v, w, u, s0, s_out=s0)
+    assert s2 is s0 and s0.data_ptr() == ptr and torch.equal(s0, want_s)
+    assert torch.equal(o2, want_o) and trw.launches == before
+    assert torch.equal(tops.rwkv6_recurrence(r, k, v, w, u)[0],
+                       trw.plain(r, k, v, w, u)[0])
+
+
+def test_rwkv6_wrapper_rejects_bad_operands(rng):
+    r, k, v, w, u, s0 = _wkv_args(rng, 2, 5, 2, 8, 8)
+    for bad in ((r, k[:, :, :4], v, w, u), (r, k, v[:, :1], w, u),
+                (r, k, v, w, u[:1]), (r, k, v, w, u, s0[:1])):
+        with pytest.raises(ValueError):
+            trw.rwkv6_recurrence(*bad)
+    with pytest.raises(ValueError, match="s_out"):
+        trw.rwkv6_recurrence(r, k, v, w, u, s0, s_out=s0.double())
+
+
+def test_rwkv6_kernel_reads_the_models_layout_through_strides():
+    """The kernel's (batch, head, time) strides for the [B, H, T, ·] view
+    of a contiguous [B, T, H, ·] activation; batch dims that fold into
+    one; and ones that do not, which raise rather than copy."""
+    x = torch.empty(8, 512, 32, 64).transpose(1, 2)
+    assert trw._bht_strides(x) == (512 * 32 * 64, 64, 32 * 64)
+    y = torch.empty(2, 3, 4, 5, 6)
+    assert trw._bht_strides(y) == (4 * 5 * 6, 5 * 6, 6)
+    assert trw._bht_strides(torch.empty(4, 5, 6)) == (0, 30, 6)
+    with pytest.raises(ValueError, match="fold"):
+        trw._bht_strides(y.transpose(0, 1))
+    with pytest.raises(ValueError, match="unit-stride"):
+        trw._bht_strides(y.transpose(3, 4))
+
+
 # ---------------------------------------------------------------------------
 # on the card (skipped on hosts without CUDA; chip_smoke.py runs these
 # checks at the main path's shapes)
@@ -708,3 +778,28 @@ def test_prefix_sum_kernel_matches_plain_on_card(cuda_device, shape, dim):
     got = tcs.prefix_sum(x, dim=dim)
     assert tcs.launches == before + 1
     assert torch.equal(got, tcs.plain(x, dim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_bf16", [False, True])
+def test_rwkv6_kernel_matches_plain_on_card(cuda_device, rng, dtype,
+                                            kv_bf16):
+    """The model's layout (strided views) at decode (T = 1, state in
+    place) and prefill-like T: within ``wkv_tolerance`` of the float64
+    recurrence, as the plain version is."""
+    for t in (1, 37):
+        args = [a.to(cuda_device) for a in _wkv_args(rng, 2, t, 4, 64, 64)]
+        args[:3] = [a.to(dtype) for a in args[:3]]
+        r, k, v, w, u, s0 = args
+        eo, es, otol, stol = trw.wkv_tolerance(r, k, v, w, u, s0,
+                                               kv_bf16=kv_bf16)
+        po, ps = trw.plain(r, k, v, w, u, s0, kv_bf16=kv_bf16)
+        before = trw.launches
+        o, s = trw.rwkv6_recurrence(r, k, v, w, u, s0, kv_bf16=kv_bf16,
+                                    s_out=s0)
+        assert trw.launches == before + 1 and s is s0
+        assert o.dtype == dtype and o.stride() == v.stride()
+        for got_o, got_s in ((o, s), (po, ps)):
+            assert bool(((got_o.double() - eo).abs() <= otol).all())
+            assert bool(((got_s.double() - es).abs() <= stol).all())
