@@ -16,7 +16,8 @@ Phases, one JSON line each:
                   integer-valued data, within ``scan_tolerance`` of the
                   exact sum on random data; ``rwkv6_recurrence`` within
                   ``wkv_tolerance`` of the float64 recurrence, as its
-                  plain version is), then timed at the main
+                  plain version is; ``rglru_scan`` bitwise, and both
+                  within ``rglru_tolerance``), then timed at the main
                   path's shapes with CUDA events beside its plain version,
                   one PyTorch library call computing the same function
                   where there is one, and its bound (bytes over the
@@ -67,6 +68,14 @@ Phases, one JSON line each:
                   ``F32_REL`` (``serve_path``); ``rwkv6_recurrence``
                   launched once per layer per prefill call, decode step
                   and engine tick
+  8. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
+                  12 x (lru, lru, window) + (lru, lru); d_model 4096, 16
+                  query heads and 1 KV head of 256, lru_width 4096, conv
+                  width 4, window 2048, d_ff 12288 GeGLU, vocab 256,000)
+                  through the same checks, plus 2 prompts of 2,560 tokens
+                  (past the window) and 16 decode steps, kernels against
+                  plain; ``rglru_scan`` launched once per lru layer (26)
+                  per prefill call, decode step and engine tick
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
@@ -152,23 +161,27 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def kernel_modules() -> dict:
-    """Every ported kernel's wrapper module, by kernel name; each keeps
-    its launch count in ``launches``."""
+    """Every ported kernel's wrapper module and the name of its launch
+    count there, by kernel name (``chunk_scan`` holds two kernels)."""
     from repro_torch.kernels import (chunk_scan, fused_combine, pack_combine,
                                      quant_combine, rwkv6_recurrence,
                                      topk_accum)
-    return {"fused_combine": fused_combine, "fused_pack": pack_combine,
-            "quant_combine": quant_combine, "topk_accumulate": topk_accum,
-            "prefix_sum": chunk_scan, "rwkv6_recurrence": rwkv6_recurrence}
+    return {"fused_combine": (fused_combine, "launches"),
+            "fused_pack": (pack_combine, "launches"),
+            "quant_combine": (quant_combine, "launches"),
+            "topk_accumulate": (topk_accum, "launches"),
+            "prefix_sum": (chunk_scan, "launches"),
+            "rwkv6_recurrence": (rwkv6_recurrence, "launches"),
+            "rglru_scan": (chunk_scan, "rglru_launches")}
 
 
 def reset_counts() -> None:
-    for m in kernel_modules().values():
-        m.launches = 0
+    for m, attr in kernel_modules().values():
+        setattr(m, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: m.launches for k, m in kernel_modules().items()}
+    return {k: getattr(m, attr) for k, (m, attr) in kernel_modules().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +291,7 @@ def kernel_checks(dev) -> dict:
     report["topk_accumulate"] = topk_checks(dev, gen)
     report["prefix_sum"] = prefix_checks(dev, gen)
     report["rwkv6_recurrence"] = wkv_checks(dev, gen)
+    report["rglru_scan"] = rglru_checks(dev, gen)
     return report
 
 
@@ -679,6 +693,136 @@ def wkv_timings(dev, gen, cfg, sizes) -> dict:
     }
 
 
+# (batch, T, D): the hybrid serve phase's prefill and decode, its long
+# prefill past the window, then the reference sweep (tests/test_kernels.py,
+# no batch dims) and ragged lanes
+RGLRU_SHAPES = ((8, 512, 4096), (8, 1, 4096), (2, 2560, 4096), (None, 8, 4),
+                (None, 64, 16), (None, 300, 8), (None, 1024, 4),
+                (3, 37, 1000))
+
+
+def rglru_checks(dev, gen, shapes=RGLRU_SHAPES) -> dict:
+    """``rglru_scan`` against its plain version at the hybrid serve
+    phase's shapes (prefill [8, 512, 4096] and decode [8, 1, 4096] from a
+    state written in place, the long prefill [2, 2560, 4096]) and the
+    reference sweep's ([T, D] from zero), f32 and bf16 a and b, and a
+    time-strided view: bit for bit equal to the plain version (both round
+    the product and the sum separately), and both within
+    ``rglru_tolerance`` of the float64 recurrence."""
+    from repro_torch.kernels import chunk_scan as cs
+
+    r = {"cases": 0, "max_abs_err": 0.0, "max_err_over_bound": 0.0,
+         "plain_max_err_over_bound": 0.0}
+    for b, t, d in shapes:
+        lead = () if b is None else (b,)
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_h0 in ((False,) if b is None else (False, True)):
+                # decays as the model draws them near init: a in (0.9, 1)
+                a = (0.9 + 0.1 * torch.rand(lead + (t, d), device=dev,
+                                            generator=gen)).to(dtype)
+                bb = torch.randn(lead + (t, d), device=dev,
+                                 generator=gen).to(dtype)
+                h0 = torch.randn(lead + (d,), device=dev, generator=gen) \
+                    if with_h0 else None
+                want = cs.rglru_plain(a, bb, h0)
+                h_out = None if h0 is None else h0.clone()
+                before = cs.rglru_launches
+                got = cs.rglru_scan(a, bb, h_out, h_out=h_out)
+                _sync(torch.device(dev))
+                check(got.dtype == torch.float32 and got.shape == a.shape,
+                      "rglru_scan: h not float32 of a's shape")
+                check(h_out is None or torch.equal(h_out, got[..., -1, :]),
+                      "rglru_scan: the final state was not written in place")
+                check(torch.device(dev).type == "cpu"
+                      or cs.rglru_launches == before + 1,
+                      "rglru_scan did not launch its kernel")
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       _bitwise_err(got, want))
+                exact, tol = cs.rglru_tolerance(a, bb, h0)
+                for got_h, key in ((got, "max_err_over_bound"),
+                                   (want, "plain_max_err_over_bound")):
+                    ratio = ((got_h.double() - exact).abs()
+                             / tol.clamp_min(1e-300)).max().item()
+                    check(ratio <= 1, f"rglru_scan {(b, t, d)} {dtype} "
+                          f"h0={with_h0} ({key}): {ratio:.3g} x "
+                          "rglru_tolerance")
+                    r[key] = max(r[key], ratio)
+                r["cases"] += 1
+    # a time-strided view (every other step of a longer buffer), read in
+    # place
+    a = 0.9 + 0.1 * torch.rand((2, 74, 256), device=dev, generator=gen)
+    bb = torch.randn((2, 74, 256), device=dev, generator=gen)
+    got = cs.rglru_scan(a[:, ::2], bb[:, ::2])
+    r["max_abs_err"] = max(r["max_abs_err"], _bitwise_err(
+        got, cs.rglru_plain(a[:, ::2], bb[:, ::2])))
+    r["cases"] += 1
+    if torch.device(dev).type == "cuda":
+        for bad, err in (((a.double(), bb.double()), TypeError),
+                         ((a, bb.bfloat16()), TypeError),
+                         ((a.transpose(1, 2), bb.transpose(1, 2)),
+                          ValueError)):
+            try:
+                cs.rglru_scan(*bad)
+            except err:
+                continue
+            raise AssertionError("rglru_scan took operands it does not "
+                                 "support")
+    r["tolerance"] = ("bitwise to the plain version; both within "
+                      "rglru_tolerance: E_t = |a_t| E_{t-1} (1+2u) + "
+                      "u (1+u) (|a_t h_{t-1}| + |h_t|), u = 2^-24, around "
+                      "the float64 recurrence")
+    return r
+
+
+def rglru_work(b: int, t: int, d: int, in_bytes: int = 4
+               ) -> tuple[int, int]:
+    """``(bytes, flops)`` the recurrence needs: a and b read once, h0
+    read and h written in f32, the final state written (``h_out``); one
+    multiply and one add per lane per step."""
+    return (2 * b * t * d * in_bytes + b * t * d * 4 + 2 * b * d * 4,
+            2 * b * t * d)
+
+
+def rglru_timings(dev, gen, cfg, sizes) -> dict:
+    """The hybrid serve phase's two calls per lru layer: prefill ([batch,
+    prompt, lru_width] f32 a and b from the cached state, written back in
+    place) and decode ([batch, 1, lru_width]); at decode the device time
+    per launch comes from the profiler, as for the WKV."""
+    from repro_torch.kernels import chunk_scan as cs
+
+    b, t, d = sizes.batch, sizes.prompt, cfg.hybrid.lru_width or cfg.d_model
+
+    def inputs(steps):
+        return (0.9 + 0.1 * torch.rand((b, steps, d), device=dev,
+                                       generator=gen),
+                torch.randn((b, steps, d), device=dev, generator=gen),
+                torch.randn((b, d), device=dev, generator=gen))
+    pa, pb, ph = inputs(t)
+    da, db, dh = inputs(1)
+    nbytes, flops = rglru_work(b, t, d)
+    dbytes, dflops = rglru_work(b, 1, d)
+
+    def decode():
+        cs.rglru_scan(da, db, dh, h_out=dh)
+
+    prof = device_profile(lambda: [decode() for _ in range(50)])
+    per = [x for x in prof.get("top", []) if "rglru_kernel" in x["name"]]
+    return {
+        "ms": time_ms(lambda: cs.rglru_scan(pa, pb, ph, h_out=ph)),
+        "plain_ms": time_ms(lambda: cs.rglru_plain(pa, pb, ph), reps=5,
+                            inner=1),
+        "library_ms": None,       # no single PyTorch call computes it
+        "bytes": nbytes, "flops": flops,
+        "shape": [b, t, d], "dtype": "float32",
+        "decode": {
+            "shape": [b, 1, d], "bytes": dbytes, "flops": dflops,
+            "ms_back_to_back": time_ms(decode, inner=50),
+            "plain_ms": time_ms(lambda: cs.rglru_plain(da, db, dh)),
+            "device_ms_per_launch": (per[0]["ms"] / per[0]["count"]
+                                     if per else None)},
+    }
+
+
 def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
     """(ranks, blocks per rank) of the largest int8_hopquant hop: the
     largest leaf's 256-lane blocks, padded to a multiple of n, split in n
@@ -691,7 +835,7 @@ def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
 
 
 def kernel_timings(dev, peak: float, f32_peak: float, cfg,
-                   serve_cfg) -> dict:
+                   serve_cfg, hybrid_cfg) -> dict:
     """Each kernel at the main path's shapes: the largest hop (bf16
     [8, 3,072,000] add), the Coalesce bucket pack (f32 parts of 768,
     9216 and 9216 per rank into the [8, 19200] arena), the largest
@@ -699,8 +843,9 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     rows), the top-k accumulate of the embed leaf (k = 1% of its
     24,576,000 lanes into the [8, 24,576,000] f32 accumulator) and the
     local scan of fig5_scan ([8, 2^20] f32 along dim 1; fig5_scan_2d's
-    [8, 16384, 64] beside it), and the serve phase's WKV
-    (:func:`wkv_timings`).  ``bound_ms`` is the larger of the bytes over
+    [8, 16384, 64] beside it), the serve phase's WKV
+    (:func:`wkv_timings`) and the hybrid serve phase's RG-LRU scan
+    (:func:`rglru_timings`).  ``bound_ms`` is the larger of the bytes over
     the memory rate and the f32 operations (where counted) over the f32
     rate; ``bound_by`` says which."""
     from repro_torch.configs.acis_100m import grad_leaf_specs
@@ -781,7 +926,8 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     torch.cuda.empty_cache()
     out = {"fused_combine": comb, "fused_pack": pack, "quant_combine": quant,
            "topk_accumulate": topk, "prefix_sum": scan,
-           "rwkv6_recurrence": wkv_timings(dev, gen, serve_cfg, SERVE)}
+           "rwkv6_recurrence": wkv_timings(dev, gen, serve_cfg, SERVE),
+           "rglru_scan": rglru_timings(dev, gen, hybrid_cfg, SERVE_HYBRID)}
     for t in out.values():
         by_bytes = t["bytes"] / peak * 1e3
         by_ops = t.get("flops", 0) / f32_peak * 1e3
@@ -1499,12 +1645,12 @@ def fused_path(mesh, sizes: FusedSizes, seed: int, *, steps: int = 3,
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serving rwkv6-1.6b
+# phases 7-8: serving rwkv6-1.6b and recurrentgemma-9b
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class ServeSizes:
-    """The serve phase's traffic."""
+    """A serve phase's traffic."""
     batch: int                 # Model.prefill / decode_step batch
     prompt: int                # prefill tokens per sequence
     steps: int                 # greedy decode steps after the prefill
@@ -1512,6 +1658,7 @@ class ServeSizes:
     f32_steps: int             # decode steps of the f32 semantics check
     slots: int                 # ServeEngine slots
     requests: tuple            # ServeEngine: (prompt tokens, new tokens)
+    long: tuple = ()           # (batch, prompt, steps) past the window
 
 
 # 8 prompts of 512 tokens then 32 greedy steps; a continuous-batching mix
@@ -1525,13 +1672,21 @@ SERVE = ServeSizes(batch=8, prompt=512, steps=32, check_prompt=64,
 SERVE_SMOKE = ServeSizes(batch=2, prompt=12, steps=3, check_prompt=6,
                          f32_steps=2, slots=2,
                          requests=((3, 4), (6, 3), (2, 5), (4, 2)))
+# the hybrid phase: the same traffic, and 2 prompts of 2,560 tokens (past
+# the 2,048-token window, so the ring wraps in prefill and decode) with 16
+# decode steps
+SERVE_HYBRID = dataclasses.replace(SERVE, long=(2, 2560, 16))
+# its rehearsal at the smoke config's 16-token window: a 40-token long
+# prompt, and a 20-token request that wraps the engine's ring
+SERVE_HYBRID_SMOKE = dataclasses.replace(
+    SERVE_SMOKE, requests=((3, 4), (6, 3), (20, 5), (4, 2)), long=(2, 40, 3))
 
 # Two runs of the model that differ only in rounding order (kernel vs
-# plain WKV sums; a prompt prefilled at once vs token by token; a batch of
+# plain WKV sums; attention over a prompt vs a ring; a prompt prefilled at once vs token by token; a batch of
 # four vs one in the matmuls) agree within this share of a row's largest
 # |logit| (and of each cache leaf's largest magnitude).  bf16 weights, the
 # served configuration: every op rounds to bf16, and a one-ulp flip
-# anywhere spreads through 24 layers.  f32-cast weights, the semantics
+# anywhere spreads through the layers.  f32-cast weights, the semantics
 # check: only f32 sums move.  A greedy token is compared only up to its
 # row's first step whose top-2 gap is under twice the bound: a near-tie
 # either run may break either way, and at the bf16 bound that is most
@@ -1649,8 +1804,41 @@ class GapModel:
         return lg, cache
 
 
+def serve_kernel(cfg) -> tuple[str, int]:
+    """The recurrence kernel a serving model launches and how often per
+    prefill call, decode step and engine tick: once per layer of its
+    kind (``rwkv6_recurrence`` per rwkv layer, ``rglru_scan`` per lru
+    layer)."""
+    from repro_torch.models.transformer import layer_schedule
+
+    kind, kernel = {"ssm": ("rwkv", "rwkv6_recurrence"),
+                    "hybrid": ("lru", "rglru_scan")}[cfg.family]
+    return kernel, layer_schedule(cfg).count(kind)
+
+
+def check_serve_launches(got: dict, cfg, calls: int, what: str) -> None:
+    """The model's kernel launched once per layer of its kind per call,
+    and the other serving kernel not at all."""
+    kernel, per = serve_kernel(cfg)
+    for k in ("rwkv6_recurrence", "rglru_scan"):
+        want = calls * per if k == kernel else 0
+        check(got[k] == want, f"{what}: {k} launched {got[k]} times, "
+              f"{calls} calls of {cfg.name} need {want}")
+
+
+def cast_params_(params, dtype) -> None:
+    """Cast every floating leaf of ``params`` to ``dtype`` in place, leaf
+    by leaf, so that the old leaf is freed before the next is made."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            cast_params_(v, dtype)
+        elif v.is_floating_point():
+            params[k] = v.to(dtype)
+
+
 def engine_path(model, params, cfg, sizes: ServeSizes, seed: int, dev,
-                rel: float, *, expect_kernels: bool = True) -> dict:
+                rel: float, *, expect_kernels: bool = True,
+                phase: str = "serve") -> dict:
     """``ServeEngine(slots)`` over the request mix, then each request
     alone in a fresh one-slot engine: the completions equal up to the
     fresh run's first step whose top-2 gap is under twice ``rel``
@@ -1677,9 +1865,7 @@ def engine_path(model, params, cfg, sizes: ServeSizes, seed: int, dev,
     wall = time.perf_counter() - t0
     launches = read_counts()
     if expect_kernels:
-        check(launches["rwkv6_recurrence"] == eng.ticks * cfg.n_layers,
-              f"rwkv6_recurrence launched {launches['rwkv6_recurrence']} "
-              f"times in {eng.ticks} ticks of {cfg.n_layers} layers")
+        check_serve_launches(launches, cfg, eng.ticks, "engine ticks")
     check([c.rid for c in done] == [r[0] for r in reqs]
           and [len(c.tokens) for c in done] == [n for _, _, n in reqs],
           "the engine did not complete every request in full")
@@ -1698,8 +1884,9 @@ def engine_path(model, params, cfg, sizes: ServeSizes, seed: int, dev,
             compared += 1
     ticks = sorted(eng._tick_times)
     n_tok = sum(len(c.tokens) for c in done)
+    kernel, per_tick = serve_kernel(cfg)
     return {
-        "phase": "serve", "program": "engine", "model": cfg.name,
+        "phase": phase, "program": "engine", "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
         "slots": sizes.slots, "requests": [list(r) for r in sizes.requests],
         "reused_slot_requests": max(0, len(reqs) - sizes.slots),
@@ -1713,14 +1900,35 @@ def engine_path(model, params, cfg, sizes: ServeSizes, seed: int, dev,
             "serve.host_sync")},
         "rel": rel, "fresh_engine_tokens_compared": compared,
         "launches": launches,
-        "launches_per_tick": {"rwkv6_recurrence": cfg.n_layers},
+        "launches_per_tick": {kernel: per_tick},
     }
 
 
+def long_prefill(model_k, model_p, params, cfg, sizes: ServeSizes, gen,
+                 dev, rel: float) -> dict:
+    """``sizes.long``: prompts past the window, prefilled and decoded with
+    kernels on, then with ``use_kernels=False`` fed the same tokens;
+    logits and every cache leaf (the wrapped rings included) within
+    ``rel``."""
+    b, t, steps = sizes.long
+    toks = torch.randint(0, cfg.vocab, (b, t), device=dev, generator=gen)
+    rk = run_model(model_k, params, toks, steps, dev)
+    rp = run_model(model_p, params, toks, steps, dev, feed=rk["tokens"])
+    out = hold_logits(rk["logits"], rp["logits"], rel)
+    out["cache_err_over_bound"] = hold_cache(rk["cache"], rp["cache"], rel)
+    out.update(batch=b, prompt=t, steps=steps,
+               prefill_ms_kernels=rk["prefill_ms"],
+               prefill_ms_plain=rp["prefill_ms"],
+               decode_ms_per_step_kernels=statistics.median(rk["step_ms"]),
+               decode_ms_per_step_plain=statistics.median(rp["step_ms"]))
+    return out
+
+
 def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
-               expect_kernels: bool = True) -> list[dict]:
-    """rwkv6-1.6b at full width and depth on seeded random bf16 weights
-    (made on the device from ``seed``), the served configuration:
+               expect_kernels: bool = True, phase: str = "serve"
+               ) -> list[dict]:
+    """A serving model at full width and depth on seeded random bf16
+    weights (made on the device from ``seed``), the served configuration:
 
       * ``Model.prefill`` of ``batch`` prompts of ``prompt`` tokens, then
         ``steps`` greedy ``decode_step``s: one untimed warm-up pair, then
@@ -1728,16 +1936,18 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
         both fed the warm-up's greedy tokens; logits held kernel vs plain
         within ``BF16_REL`` (:func:`hold_logits`)
       * :func:`prefill_vs_decode` on ``check_prompt`` tokens
+      * :func:`long_prefill`, where ``sizes.long`` is set
       * a profile of one prefill and one decode step
       * :func:`engine_path`, timed
 
-    then the same weights cast to f32, the semantics check within
-    ``F32_REL``: kernel vs plain over a prefill and ``f32_steps`` decode
-    steps, :func:`prefill_vs_decode`, and :func:`engine_path` (slot reuse
-    against fresh engines, where near-ties are rare).
+    then the same weights cast to f32 in place, the semantics check
+    within ``F32_REL``: kernel vs plain over a prefill and ``f32_steps``
+    decode steps, :func:`prefill_vs_decode`, :func:`long_prefill`, and
+    :func:`engine_path` (slot reuse against fresh engines, where
+    near-ties are rare).
 
-    ``rwkv6_recurrence`` must launch once per layer per prefill call and
-    per decode step or engine tick."""
+    The model's recurrence kernel (:func:`serve_kernel`) must launch once
+    per layer of its kind per prefill call, decode step and engine tick."""
     from repro_torch import tree
     from repro_torch.models import Model
 
@@ -1746,6 +1956,7 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     gen = torch.Generator(device=dev).manual_seed(seed)
     model_k, model_p = Model(cfg), Model(cfg, use_kernels=False)
     check(model_k.use_kernels, "use_kernels is off by default")
+    kernel, per_call = serve_kernel(cfg)
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1753,23 +1964,20 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     params = model_k.init(gen, device=dev)
     _sync(dev)
     init_s = time.perf_counter() - t0
-    leaves = tree.tree_leaves(params)
+    n_params = sum(x.numel() for x in tree.tree_leaves(params))
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree.tree_leaves(params))
     toks = torch.randint(0, cfg.vocab, (sizes.batch, sizes.prompt),
                          device=dev, generator=gen)
-    n_layers = cfg.n_layers
 
     def counted(fn, calls: int, what: str):
         """``fn()`` with the counts set to 0 just before and read just
-        after; ``rwkv6_recurrence`` must launch once per layer per call."""
+        after (:func:`check_serve_launches`)."""
         reset_counts()
         out = fn()
         got = read_counts()
         if expect_kernels:
-            check(got["rwkv6_recurrence"] == calls * n_layers,
-                  f"{what}: rwkv6_recurrence launched "
-                  f"{got['rwkv6_recurrence']} times, {calls} prefill and "
-                  f"decode calls of {n_layers} layers need "
-                  f"{calls * n_layers}")
+            check_serve_launches(got, cfg, calls, what)
         return out, got
 
     # a warm-up pair (kernel free-running, plain fed its tokens), then
@@ -1801,6 +2009,13 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     vs_decode, launches_b = counted(
         lambda: prefill_vs_decode(model_k, params, short, dev, BF16_REL),
         1 + sizes.check_prompt, "prefill vs decode")
+    launches = {k: launches[k] + launches_b[k] for k in launches}
+    if sizes.long:
+        long_held, launches_l = counted(
+            lambda: long_prefill(model_k, model_p, params, cfg, sizes, gen,
+                                 dev, BF16_REL),
+            1 + sizes.long[2], "long prefill")
+        launches = {k: launches[k] + launches_l[k] for k in launches}
     peak_mem = torch.cuda.max_memory_allocated() if cuda else None
 
     pre_k, pre_p = [r[0] for r in runs], [r[2] for r in runs]
@@ -1809,9 +2024,8 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     med = statistics.median
     ntok = sizes.batch * sizes.prompt
     record = {
-        "phase": "serve", "program": "prefill_decode", "model": cfg.name,
-        "params": sum(x.numel() for x in leaves),
-        "param_bytes": sum(x.numel() * x.element_size() for x in leaves),
+        "phase": phase, "program": "prefill_decode", "model": cfg.name,
+        "params": n_params, "param_bytes": param_bytes,
         "init_s": init_s, "batch": sizes.batch, "prompt": sizes.prompt,
         "steps": sizes.steps,
         "prefill_ms_kernels": pre_k, "prefill_ms_plain": pre_p,
@@ -1830,10 +2044,11 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
         "top2_gap_rel_median": gap_median,
         "prefill_vs_decode": vs_decode,
         "max_memory_allocated": peak_mem,
-        "launches": {k: launches[k] + launches_b[k] for k in launches},
-        "launches_per_call": {"prefill": n_layers,
-                              "decode_step": n_layers},
+        "kernel": kernel,
+        "launches_per_call": {"prefill": per_call, "decode_step": per_call},
     }
+    if sizes.long:
+        record["long_prefill"] = long_held
     if cuda:
         cache = model_k.init_cache(sizes.batch, sizes.prompt + 2,
                                    device=dev)
@@ -1844,10 +2059,13 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
                 params, toks[:, 0], cache, sizes.prompt))}
         del cache
     eng = engine_path(model_k, params, cfg, sizes, seed, dev, BF16_REL,
-                      expect_kernels=expect_kernels)
+                      expect_kernels=expect_kernels, phase=phase)
 
-    # the semantics check: the same weights in f32
-    params = tree.tree_map(lambda x: x.float(), params)
+    # the semantics check: the same weights in f32, cast leaf by leaf
+    cast_params_(params, torch.float32)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
     def f32_runs():
         rk = run_model(model_k, params, toks, sizes.f32_steps, dev)
@@ -1863,13 +2081,22 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     f32_vs_decode, launches_d = counted(
         lambda: prefill_vs_decode(model_k, params, short, dev, F32_REL),
         1 + sizes.check_prompt, "f32 prefill vs decode")
-    eng32 = engine_path(model_k, params, cfg, sizes, seed, dev, F32_REL,
-                        expect_kernels=expect_kernels)
+    launches = {k: launches[k] + launches_c[k] + launches_d[k]
+                for k in launches}
     record["f32_check"] = {"rel": F32_REL, "steps": sizes.f32_steps,
                            "kernel_vs_plain": f32_held,
                            "prefill_vs_decode": f32_vs_decode}
-    record["launches"] = {k: record["launches"][k] + launches_c[k]
-                          + launches_d[k] for k in launches}
+    if sizes.long:
+        record["f32_check"]["long_prefill"], launches_e = counted(
+            lambda: long_prefill(model_k, model_p, params, cfg, sizes, gen,
+                                 dev, F32_REL),
+            1 + sizes.long[2], "f32 long prefill")
+        launches = {k: launches[k] + launches_e[k] for k in launches}
+    eng32 = engine_path(model_k, params, cfg, sizes, seed, dev, F32_REL,
+                        expect_kernels=expect_kernels, phase=phase)
+    record["f32_check"]["max_memory_allocated"] = \
+        torch.cuda.max_memory_allocated() if cuda else None
+    record["launches"] = launches
     eng["program"], eng32["program"] = "engine", "engine_f32"
     return [record, eng, eng32]
 
@@ -1924,6 +2151,8 @@ SOURCES = {
                    "src/repro/kernels/chunk_scan.py:64"),
     "rwkv6_recurrence": ("src/repro_torch/kernels/csrc/rwkv6_recurrence.cu",
                          "src/repro/kernels/rwkv6_recurrence.py:83"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/chunk_scan.py:113"),
 }
 
 
@@ -1945,6 +2174,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.configs.acis_100m import CONFIG
+    from repro_torch.configs.recurrentgemma_9b import CONFIG as RGEMMA
     from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
     from repro_torch.kernels import build
     from repro_torch.mesh import LocalMesh
@@ -1984,7 +2214,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     checks = kernel_checks(dev)
-    timings = kernel_timings(dev, peak, f32_peak, CONFIG, RWKV6)
+    timings = kernel_timings(dev, peak, f32_peak, CONFIG, RWKV6, RGEMMA)
     rec = {"phase": "kernels", "checks": checks, "timings": timings}
     emit(rec)
     records.append(rec)
@@ -2000,6 +2230,10 @@ def main() -> int:
         emit(rec)
     del mesh
     for rec in serve_path(RWKV6, args.seed, SERVE):
+        paths.append(rec)
+        emit(rec)
+    for rec in serve_path(RGEMMA, args.seed, SERVE_HYBRID,
+                          phase="serve_hybrid"):
         paths.append(rec)
         emit(rec)
     records.extend(paths)

@@ -3,8 +3,8 @@
 ``get(name)`` returns the full published config and ``get_smoke(name)``
 the reduced same-family config of the CPU tests, as
 :mod:`repro.configs` does.  The port holds a config once it runs the
-model's path: ``rwkv6-1.6b`` (serving) and ``acis-100m`` (its gradient
-leaves, for the sync paths).  Every other name of the reference's
+model's path: ``rwkv6-1.6b`` and ``recurrentgemma-9b`` (serving) and
+``acis-100m`` (its gradient leaves, for the sync paths).  Every other name of the reference's
 registry raises ``NotImplementedError`` naming the ROADMAP.md item it
 waits for.
 """
@@ -18,18 +18,15 @@ from repro_torch.models.config import ModelConfig
 # the reference's canonical dashed ids -> the port's modules
 PORTED = {
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "acis-100m": "acis_100m",
 }
 
 # the reference's other ids -> the ROADMAP.md item that ports their path
-WAITING = {
-    "recurrentgemma-9b": "queue 2 item 6 (rglru_scan) with queue 1 item 6 "
-                         "(the hybrid family: GQA window attention)",
-    **{name: "queue 1 item 6 (models)" for name in (
-        "nemotron-4-15b", "granite-8b", "qwen3-8b", "granite-3-8b",
-        "qwen2-moe-a2.7b", "deepseek-v2-236b", "whisper-small",
-        "llama-3.2-vision-11b")},
-}
+WAITING = {name: "queue 1 item 6 (models)" for name in (
+    "nemotron-4-15b", "granite-8b", "qwen3-8b", "granite-3-8b",
+    "qwen2-moe-a2.7b", "deepseek-v2-236b", "whisper-small",
+    "llama-3.2-vision-11b")}
 
 
 def _module(name: str):

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_combine", "fused_pack", "quant_combine", "topk_accum",
-           "prefix_sum", "rwkv6_recurrence")
+           "prefix_sum", "rwkv6_recurrence", "rglru_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -45,5 +45,9 @@ def prefix_sum(x, dim: int = 0):
     return _cs.prefix_sum(x, dim=dim)
 
 
+def rglru_scan(a, b, h0=None):
+    return _cs.rglru_scan(a, b, h0)
+
+
 def rwkv6_recurrence(r, k, v, w, u, s0=None, *, kv_bf16: bool = False):
     return _rw.rwkv6_recurrence(r, k, v, w, u, s0, kv_bf16=kv_bf16)

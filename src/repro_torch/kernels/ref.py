@@ -141,14 +141,19 @@ def prefix_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """a, b: [T, D]; returns h: [T, D] with h_t = a_t*h_{t-1} + b_t."""
-    h = torch.zeros(a.shape[1:], dtype=a.dtype, device=a.device) \
-        if h0 is None else h0
+    """h_t = a_t * h_{t-1} + b_t over the time dim of ``[..., T, D]``
+    inputs (leading dims batch, D lanes), from ``h0`` ``[..., D]`` (zeros
+    when None).  Computed in float32, each product and sum rounded once,
+    and returned as float32 ``[..., T, D]``, as the TPU kernel does."""
+    f32 = torch.float32
+    a, b = a.to(f32), b.to(f32)
+    h = torch.zeros(a.shape[:-2] + a.shape[-1:], dtype=f32,
+                    device=a.device) if h0 is None else h0.to(f32)
     hs = []
-    for t in range(a.shape[0]):
-        h = a[t] * h + b[t]
+    for t in range(a.shape[-2]):
+        h = a[..., t, :] * h + b[..., t, :]
         hs.append(h)
-    return torch.stack(hs) if hs else torch.empty_like(a)
+    return torch.stack(hs, -2) if hs else torch.zeros_like(a)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """Models: the port's counterpart of :mod:`repro.models`.
 
-Ported so far: the ``ssm`` family (RWKV-6) on its serving path —
-``Model.init`` / ``init_cache`` / ``prefill`` / ``decode_step`` — with the
-``rwkv6_recurrence`` kernel computing every WKV step.  Other families and
-training wait in ROADMAP.md (queue 1 items 6-7).
+Ported so far, on their serving paths (``Model.init`` / ``init_cache`` /
+``prefill`` / ``decode_step``): the ``ssm`` family (RWKV-6), with the
+``rwkv6_recurrence`` kernel computing every WKV step, and the ``hybrid``
+family (RG-LRU + sliding-window attention, recurrentgemma), with the
+``rglru_scan`` kernel computing every RG-LRU recurrence.  The dense,
+moe, encdec and vlm families and training wait in ROADMAP.md (queue 1
+items 6-7).
 """
 
 from repro_torch.models.config import ModelConfig

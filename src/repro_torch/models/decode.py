@@ -1,20 +1,24 @@
 """Serving paths: cache init, prefill, and single-token decode.
 
-The part of :mod:`repro.models.decode` the ``ssm`` family needs.  Caches
-mirror the stacked-layer structure: one stacked cache per period position
-(``[n_periods, B, ...]``) plus unstacked caches for remainder layers.
-Cache kind per block:
+The part of :mod:`repro.models.decode` the ``ssm`` and ``hybrid``
+families need.  Caches mirror the stacked-layer structure: one stacked
+cache per period position (``[n_periods, B, ...]``) plus unstacked caches
+for remainder layers.  Cache kinds per block:
 
-  rwkv — {s: [B, H, K, V] f32, x_tok, x_ch: [B, D]}
+  rwkv   — {s: [B, H, K, V] f32, x_tok, x_ch: [B, D]}
+  lru    — {h: [B, W] f32, conv: [B, cw-1, W]}
+  window — ring buffer {k, v: [B, S, Hkv, dh], pos: [B, S] int32 (-1 =
+           empty)}, S = min(window, seq)
 
 ``decode_step`` walks the stacked layers in a Python loop (the reference
-scans them) and ``prefill`` runs the whole prompt through each layer in
-turn, one ``rwkv6_recurrence`` launch per layer, where the reference runs
-T decode steps.  Both update the cache IN PLACE and return it: the
-counterpart of the reference engine's donated cache.  A caller that
-needs the cache as it was clones it first
-(``tree_map(torch.clone, cache)``).  Other cache kinds (KV caches, ring
-buffers, RG-LRU state) wait for their families (ROADMAP.md queue 1
+scans them), then the remainder.  ``prefill`` runs the whole prompt
+through each layer in turn — one ``rwkv6_recurrence`` or ``rglru_scan``
+launch per recurrent layer, the causal + window mask over the prompt for
+a window layer — where the reference runs T decode steps.  Both update
+the cache IN PLACE and return it: the counterpart of the reference
+engine's donated cache.  A caller that needs the cache as it was clones
+it first (``tree_map(torch.clone, cache)``).  Full KV caches (the dense,
+moe, encdec and vlm kinds) wait for their families (ROADMAP.md queue 1
 item 6).
 """
 
@@ -25,11 +29,13 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _not_ported, _norm, _period_of, \
-    logits
+from repro_torch.models.transformer import PORTED_KINDS, _not_ported, \
+    _norm, _period_of, logits
 
 PyTree = Any
 
@@ -40,6 +46,13 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, seq: int,
     if kind == "rwkv":
         return RW.init_rwkv6_cache(batch, cfg.d_model, dtype, device=device,
                                    lead=lead)
+    if kind == "window":
+        return A.init_window_cache(batch, min(cfg.hybrid.window, seq),
+                                   cfg.n_kv_heads, cfg.head_dim, dtype,
+                                   device=device, lead=lead)
+    if kind == "lru":
+        return RG.init_rglru_cache(batch, cfg.hybrid, cfg.d_model, dtype,
+                                   device=device, lead=lead)
     raise _not_ported(kind)
 
 
@@ -54,11 +67,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                 for j, kind in enumerate(rem)}}
 
 
-def _rwkv_stack(cfg: ModelConfig) -> None:
-    period, _, rem = _period_of(cfg)
+def _ported_stack(cfg: ModelConfig) -> tuple[list[str], int, list[str]]:
+    """:func:`_period_of`, raising for a kind the port does not run."""
+    period, n_periods, rem = _period_of(cfg)
     for kind in period + rem:
-        if kind != "rwkv":
+        if kind not in PORTED_KINDS:
             raise _not_ported(kind)
+    return period, n_periods, rem
 
 
 def layer_views(stacked: PyTree) -> list[PyTree]:
@@ -70,22 +85,76 @@ def layer_views(stacked: PyTree) -> list[PyTree]:
             for i in range(len(per_leaf[0]))]
 
 
+def _layers(params: PyTree, cache: PyTree, cfg: ModelConfig):
+    """``(params, cache, kind)`` of every layer in depth order: the
+    stacked periods, then the remainder (the hybrid and ssm stacks have
+    no leading remainder)."""
+    period, _, _ = _period_of(cfg)
+    for pp, cc in zip(layer_views(params["layers"]),
+                      layer_views(cache["layers"])):
+        for j, kind in enumerate(period):
+            name = f"pos{j}_{kind}"
+            yield pp[name], cc[name], kind
+    for name in sorted(cache["rem"]):
+        yield params["rem"][name], cache["rem"][name], name.split("_", 1)[1]
+
+
+def _attn_kw(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                d_head=cfg.head_dim, qk_norm=cfg.qk_norm,
+                rope_theta=cfg.rope_theta, window=cfg.hybrid.window)
+
+
 def _norms(p, cfg):
     return (lambda z: _norm(p["ln1"], z, cfg),
             lambda z: _norm(p["ln2"], z, cfg))
 
 
 # ---------------------------------------------------------------------------
-# single-block decode
+# single-block decode and prefill
 # ---------------------------------------------------------------------------
 
 def block_decode(p: PyTree, x: torch.Tensor, cache: PyTree, index,
                  cfg: ModelConfig, kind: str, *, use_kernels: bool = True
                  ) -> tuple[torch.Tensor, PyTree]:
-    if kind != "rwkv":
+    """One token x [B, 1, D] through one block; ``index`` (scalar or
+    per-row [B]) is read by window layers."""
+    if kind == "rwkv":
+        return RW.rwkv6_decode(p["tok"], p["ch"], x, cache, *_norms(p, cfg),
+                               use_kernels=use_kernels)
+    if kind == "window":
+        h, cache = A.window_decode(p["attn"], _norm(p["ln1"], x, cfg), cache,
+                                   index, **_attn_kw(cfg))
+    elif kind == "lru":
+        h, cache = RG.rglru_decode(p["mixer"], _norm(p["ln1"], x, cfg),
+                                   cache, use_kernels=use_kernels)
+    else:
         raise _not_ported(kind)
-    return RW.rwkv6_decode(p["tok"], p["ch"], x, cache, *_norms(p, cfg),
-                           use_kernels=use_kernels)
+    x = x + h
+    x = x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
+    return x, cache
+
+
+def block_prefill(p: PyTree, x: torch.Tensor, cache: PyTree,
+                  cfg: ModelConfig, kind: str, *, use_kernels: bool = True
+                  ) -> tuple[torch.Tensor, PyTree]:
+    """A whole prompt x [B, T, D] through one block (window layers from
+    position 0)."""
+    if kind == "rwkv":
+        return RW.rwkv6_prefill(p["tok"], p["ch"], x, cache,
+                                *_norms(p, cfg), use_kernels=use_kernels)
+    if kind == "window":
+        h, cache = A.window_prefill(p["attn"], _norm(p["ln1"], x, cfg),
+                                    cache, chunk=cfg.attn_chunk,
+                                    **_attn_kw(cfg))
+    elif kind == "lru":
+        h, cache = RG.rglru_prefill(p["mixer"], _norm(p["ln1"], x, cfg),
+                                    cache, use_kernels=use_kernels)
+    else:
+        raise _not_ported(kind)
+    x = x + h
+    x = x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -95,18 +164,16 @@ def block_decode(p: PyTree, x: torch.Tensor, cache: PyTree, index,
 def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
                 cache: PyTree, index, *, use_kernels: bool = True
                 ) -> tuple[torch.Tensor, PyTree]:
-    """token: [B] int; ``index`` scalar or per-row [B] (unread by state
-    caches).  Returns (logits [B, V] f32, cache), the cache updated in
-    place."""
-    _rwkv_stack(cfg)
-    period, _, _ = _period_of(cfg)
+    """token: [B] int; ``index`` scalar or per-row [B] (read by window
+    layers: RoPE, ring slot and mask are per row).  Returns (logits
+    [B, V] f32, cache), the cache updated in place."""
+    period, _, rem = _ported_stack(cfg)
     x = L.embed_lookup(params["embed"], token[:, None])
-    for pp, cc in zip(layer_views(params["layers"]),
-                      layer_views(cache["layers"])):
-        for j, kind in enumerate(period):
-            name = f"pos{j}_{kind}"
-            x, _ = block_decode(pp[name], x, cc[name], index, cfg, kind,
-                                use_kernels=use_kernels)
+    if "window" in period + rem:           # one copy to the device
+        index = torch.as_tensor(index, device=x.device)
+    for p, c, kind in _layers(params, cache, cfg):
+        x, _ = block_decode(p, x, c, index, cfg, kind,
+                            use_kernels=use_kernels)
     x = _norm(params["final_norm"], x, cfg)
     return logits(params, cfg, x)[:, 0, :], cache
 
@@ -117,20 +184,15 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     """Fill the caches with a whole prompt [B, T]; returns (last_logits,
     cache), the cache updated in place.
 
-    For an all-``rwkv`` stack each layer takes the whole prompt at once
-    (:func:`~repro_torch.models.rwkv6.rwkv6_prefill`: one kernel launch
-    over T per layer); it computes what T decode steps compute.  Other
-    stacks raise.
+    Each layer takes the whole prompt at once (:func:`block_prefill`):
+    recurrent layers continue their cached state with one kernel launch
+    over T, window layers attend from position 0 (the reference's prefill
+    starts every sequence there); it computes what T decode steps from
+    position 0 compute.
     """
-    _rwkv_stack(cfg)
-    period, _, _ = _period_of(cfg)
+    _ported_stack(cfg)
     x = L.embed_lookup(params["embed"], tokens)
-    for pp, cc in zip(layer_views(params["layers"]),
-                      layer_views(cache["layers"])):
-        for j, kind in enumerate(period):
-            name = f"pos{j}_{kind}"
-            x, _ = RW.rwkv6_prefill(pp[name]["tok"], pp[name]["ch"], x,
-                                    cc[name], *_norms(pp[name], cfg),
-                                    use_kernels=use_kernels)
+    for p, c, kind in _layers(params, cache, cfg):
+        x, _ = block_prefill(p, x, c, cfg, kind, use_kernels=use_kernels)
     x = _norm(params["final_norm"], x[:, -1:], cfg)
     return logits(params, cfg, x)[:, 0, :], cache

@@ -1,14 +1,15 @@
-"""Base layers (pure-functional): norms, dense and embedding init, logits.
+"""Base layers (pure-functional): norms, dense and embedding init, RoPE,
+the FFN variants, the causal temporal conv, logits.
 
-The part of :mod:`repro.models.layers` the ``ssm`` serving path needs.
-Params are plain nested dicts of tensors; ``init_*`` builds them from an
+The part of :mod:`repro.models.layers` the serving paths need.  Params
+are plain nested dicts of tensors; ``init_*`` builds them from an
 explicit ``torch.Generator`` on a given device, with the reference's
 distributions and dtypes (normals drawn in f32, then cast).  ``lead``
 prefixes every shape, so a stacked layer's leaves come out ``[n, ...]``
 in one draw, as the reference's ``vmap`` over layer keys gives them.  On
 the ``meta`` device nothing is drawn: the leaves carry shape and dtype
-only.  RoPE, the FFN variants and the causal conv wait with their
-families (ROADMAP.md queue 1 item 6).
+only.  ``shard_act`` is dropped: without activation sharding it is the
+identity (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 PyTree = Any
 
@@ -38,6 +40,16 @@ def normal(gen: Optional[torch.Generator], shape: tuple[int, ...],
         return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=device)
+
+
+def uniform(gen: Optional[torch.Generator], shape: tuple[int, ...], device,
+            lo: float, hi: float) -> torch.Tensor:
+    """Uniform f32 draws in ``[lo, hi)`` (uninitialised on meta)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.empty(shape, dtype=torch.float32, device=device).uniform_(
+        lo, hi, generator=gen)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype=torch.bfloat16,
@@ -94,6 +106,112 @@ def init_norm(d: int, kind: str = "rms", *, device="cpu",
 def apply_norm(p: PyTree, x: torch.Tensor, kind: str = "rms",
                eps: float = 1e-6) -> torch.Tensor:
     return layernorm(p, x, eps) if "bias" in p else rmsnorm(p, x, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(d_head: int, theta: float = 10000.0, *,
+                     device="cpu") -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., T, H, d_head]; positions: [..., T] (absolute)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)        # [d/2]
+    angles = positions[..., :, None, None].to(torch.float32) * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN variants
+# ---------------------------------------------------------------------------
+
+def init_ffn(gen, d: int, f: int, activation: str, dtype=torch.bfloat16,
+             *, device="cpu", lead: tuple[int, ...] = ()) -> PyTree:
+    dense = dict(device=device, lead=lead)
+    if activation in ("swiglu", "geglu"):
+        return {"wi_gate": dense_init(gen, d, f, dtype, **dense),
+                "wi_up": dense_init(gen, d, f, dtype, **dense),
+                "wo": dense_init(gen, f, d, dtype, **dense)}
+    return {"wi": dense_init(gen, d, f, dtype, **dense),
+            "wo": dense_init(gen, f, d, dtype, **dense)}
+
+
+def ffn(p: PyTree, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The reference's FFN; ``gelu`` is the tanh approximation, as
+    ``jax.nn.gelu(approximate=True)``."""
+    if activation == "swiglu":
+        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    elif activation == "geglu":
+        h = F.gelu(x @ p["wi_gate"], approximate="tanh") * (x @ p["wi_up"])
+    elif activation == "relu2":
+        h = torch.relu(x @ p["wi"]).square()
+    elif activation == "gelu":
+        h = F.gelu(x @ p["wi"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# causal temporal conv (RG-LRU branch)
+# ---------------------------------------------------------------------------
+
+def init_conv1d(gen, width: int, channels: int, dtype=torch.bfloat16, *,
+                device="cpu", lead: tuple[int, ...] = ()) -> PyTree:
+    k = normal(gen, lead + (width, channels), device) / math.sqrt(width)
+    return {"kernel": k.to(dtype),
+            "bias": torch.zeros(lead + (channels,), dtype=dtype,
+                                device=device)}
+
+
+def causal_conv1d(p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, the reference's training form (a
+    sum of shifted products in x's dtype).  x: [B, T, C]."""
+    width = p["kernel"].shape[0]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + pad[:, i:i + x.shape[1], :] * p["kernel"][i]
+    return out + p["bias"]
+
+
+def conv1d_prefill(p: PyTree, window: torch.Tensor, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """T steps of :func:`conv1d_decode` at once, with its arithmetic.
+
+    window: [B, width-1, C] (the width-1 inputs before x); x: [B, T, C].
+    Output t is the window ending at x_t times the kernel, summed in f32
+    over the width and rounded once to x's dtype (the reference's einsum
+    in the activation dtype), then ``+ bias`` in that dtype.  Returns
+    (y [B, T, C], the last width-1 inputs)."""
+    width = p["kernel"].shape[0]
+    t = x.shape[1]
+    full = torch.cat([window.to(x.dtype), x], dim=1)   # [B, width-1+T, C]
+    kern = p["kernel"].to(torch.float32)
+    acc = full[:, 0:t].to(torch.float32) * kern[0]
+    for i in range(1, width):
+        acc = acc + full[:, i:i + t].to(torch.float32) * kern[i]
+    y = acc.to(x.dtype) + p["bias"].to(x.dtype)
+    return y, full[:, t:]
+
+
+def conv1d_decode(p: PyTree, window: torch.Tensor, x_t: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-step conv with a rolling window cache.
+
+    window: [B, width-1, C] (the last width-1 inputs); x_t: [B, C].
+    Returns (y_t, new_window)."""
+    y, win = conv1d_prefill(p, window, x_t[:, None, :])
+    return y[:, 0], win
 
 
 # ---------------------------------------------------------------------------

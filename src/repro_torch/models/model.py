@@ -7,7 +7,8 @@
     lg, cache = model.decode_step(params, token, cache, index)
 
 The counterpart of :class:`repro.models.model.Model` for the families the
-port runs (the ``ssm`` serving path).  Params and caches live on the card
+port runs: the serving paths of ``ssm`` (RWKV-6) and ``hybrid`` (RG-LRU +
+window attention, recurrentgemma).  Params and caches live on the card
 unless the caller passes ``device=`` (the tests pass ``"cpu"``; ``"meta"``
 gives shapes and dtypes without memory).  ``use_kernels=False`` runs every
 kernel's plain PyTorch version instead, on any device — the engine's

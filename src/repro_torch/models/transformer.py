@@ -1,14 +1,15 @@
 """Model assembly: blocks per family, the stacked layer layout, logits.
 
-The part of :mod:`repro.models.transformer` the ``ssm`` serving path
-needs.  Params keep the reference's tree: ``embed``, ``final_norm``,
+The part of :mod:`repro.models.transformer` the serving paths of the
+``ssm`` (RWKV-6) and ``hybrid`` (RG-LRU + window attention) families
+need.  Params keep the reference's tree: ``embed``, ``final_norm``,
 ``lm_head`` (untied), ``layers`` — one entry per position of the
 repeating period, each leaf stacked ``[n_periods, ...]`` — and ``rem``,
 the unstacked remainder.  Init takes an explicit ``torch.Generator`` and
 a device; the stacked leaves are drawn in one go (``lead=(n,)``), with the
 reference's distributions and dtypes leaf by leaf.  Block kinds other
-than ``rwkv``, and the training forward, wait for their ROADMAP.md items
-(queue 1 items 6-7).
+than ``rwkv``, ``lru`` and ``window``, and the training forward, wait for
+their ROADMAP.md items (queue 1 items 6-7).
 """
 
 from __future__ import annotations
@@ -17,17 +18,24 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
 
 
+PORTED_KINDS = ("rwkv", "lru", "window")
+
+
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind {kind!r} is not ported yet: the port runs the ssm "
-        f"family ('rwkv'); the others wait for ROADMAP.md queue 1 item 6")
+        f"family ('rwkv') and the hybrid family ('lru', 'window'); the "
+        f"dense, moe, encdec and vlm kinds wait for ROADMAP.md queue 1 "
+        f"item 6")
 
 
 # ---------------------------------------------------------------------------
@@ -36,16 +44,25 @@ def _not_ported(kind: str) -> NotImplementedError:
 
 def init_block(gen, cfg: ModelConfig, kind: str, *, device="cpu",
                lead: tuple[int, ...] = ()) -> PyTree:
-    """kind ∈ {rwkv}; the reference's other kinds raise."""
+    """kind ∈ {rwkv, lru, window}; the reference's other kinds raise."""
     dt = L._dtype(cfg.param_dtype)
     d = cfg.d_model
-    if kind != "rwkv":
+    if kind not in PORTED_KINDS:
         raise _not_ported(kind)
     norm = dict(device=device, lead=lead)
-    return {"ln1": L.init_norm(d, cfg.norm, **norm),
-            "ln2": L.init_norm(d, cfg.norm, **norm),
-            "tok": RW.init_rwkv6(gen, d, dt, **norm),
-            "ch": RW.init_channel_mix(gen, d, cfg.d_ff, dt, **norm)}
+    p = {"ln1": L.init_norm(d, cfg.norm, **norm),
+         "ln2": L.init_norm(d, cfg.norm, **norm)}
+    if kind == "rwkv":
+        p["tok"] = RW.init_rwkv6(gen, d, dt, **norm)
+        p["ch"] = RW.init_channel_mix(gen, d, cfg.d_ff, dt, **norm)
+        return p
+    if kind == "window":
+        p["attn"] = A.init_gqa(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, cfg.qk_norm, dt, **norm)
+    else:
+        p["mixer"] = RG.init_rglru(gen, d, cfg.hybrid, dt, **norm)
+    p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.activation, dt, **norm)
+    return p
 
 
 def _norm(p, x, cfg):

@@ -181,7 +181,8 @@ class ServeEngine:
         each leaf's slot dim: dim 1 of the stacked layer caches
         ``[n_periods, slots, ...]``, dim 0 of the remainder caches.
         Window ``pos`` buffers (int32, ``[slots, W]`` per layer) take -1
-        = invalid, everything else 0."""
+        = invalid, everything else 0 (RWKV state and shifts, RG-LRU
+        state and conv windows, ring keys and values)."""
         idx = torch.as_tensor(slot_ids, dtype=torch.int64,
                               device=self.device)
         for part, dim in (("layers", 1), ("rem", 0)):

@@ -155,3 +155,73 @@ def test_hold_logits_compares_tokens_up_to_the_first_near_tie(smoke):
     # at the f32 check's bound the 0.1 gap is no tie: the flip fails
     with pytest.raises(AssertionError):
         smoke.hold_logits([a], [b], smoke.F32_REL)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid serve phase and the rglru_scan checks
+# ---------------------------------------------------------------------------
+
+def test_serve_hybrid_path_rehearsed_on_the_cpu(smoke):
+    """recurrentgemma's smoke config through the whole phase: prefill and
+    decode kernel vs plain, prefill vs decode, a 40-token prompt past the
+    16-token window, the engine (a 20-token request wraps its ring; two
+    requests land in reused slots), then f32."""
+    from repro_torch.configs.recurrentgemma_9b import SMOKE
+    pre, eng, eng32 = smoke.serve_path(SMOKE, 0, smoke.SERVE_HYBRID_SMOKE,
+                                       device="cpu", expect_kernels=False,
+                                       phase="serve_hybrid")
+    assert pre["phase"] == eng["phase"] == "serve_hybrid"
+    assert pre["kernel"] == "rglru_scan"
+    assert pre["params"] == 251_072
+    # 4 lru layers (one period's two and the remainder's two)
+    assert pre["launches_per_call"] == {"prefill": 4, "decode_step": 4}
+    assert eng["launches_per_tick"] == {"rglru_scan": 4}
+    # on a CPU the wrapper runs the plain version: bitwise equal runs
+    assert pre["kernel_vs_plain"]["logit_err_over_bound"] == 0.0
+    assert pre["long_prefill"]["logit_err_over_bound"] == 0.0
+    assert pre["long_prefill"]["prompt"] == 40
+    assert pre["prefill_vs_decode"]["logit_err_over_bound"] <= 1
+    f32 = pre["f32_check"]
+    assert f32["prefill_vs_decode"]["logit_err_over_bound"] <= 1
+    assert f32["prefill_vs_decode"]["cache_err_over_bound"] <= 1
+    assert f32["long_prefill"]["cache_err_over_bound"] == 0.0
+    assert eng["reused_slot_requests"] == 2
+    assert eng32["fresh_engine_tokens_compared"] \
+        == eng32["generated_tokens"]
+    for rec in (pre, eng, eng32):
+        assert sum(rec["launches"].values()) == 0     # nothing on a CPU
+
+
+def test_serve_launch_check_names_the_models_kernel(smoke):
+    from repro_torch.configs.recurrentgemma_9b import CONFIG as RG
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as RW
+    assert smoke.serve_kernel(RG) == ("rglru_scan", 26)
+    assert smoke.serve_kernel(RW) == ("rwkv6_recurrence", 24)
+    counts = {"rwkv6_recurrence": 0, "rglru_scan": 26 * 3}
+    smoke.check_serve_launches(counts, RG, 3, "three calls")
+    with pytest.raises(AssertionError, match="rglru_scan launched"):
+        smoke.check_serve_launches(counts, RG, 2, "two calls")
+    with pytest.raises(AssertionError, match="rwkv6_recurrence launched"):
+        smoke.check_serve_launches(dict(counts, rwkv6_recurrence=1), RG, 3,
+                                   "a stray launch")
+
+
+def test_rglru_checks_rehearsed_on_the_cpu(smoke):
+    gen = torch.Generator().manual_seed(0)
+    r = smoke.rglru_checks(torch.device("cpu"), gen,
+                           shapes=((2, 1, 64), (None, 30, 4),
+                                   (3, 37, 100)))
+    assert r["cases"] == 11 and r["max_abs_err"] == 0.0
+    assert 0 < r["max_err_over_bound"] <= 1
+
+
+def test_rglru_work_and_bound_at_the_prefill_shape(smoke):
+    """[8, 512, 4096] f32: a and b read, h written (201,326,592 B) plus
+    the state in and out; bytes bound it on an H100 (0.060 ms at 3.35
+    TB/s) far above the 2 flops per step."""
+    nbytes, flops = smoke.rglru_work(8, 512, 4096)
+    assert nbytes == 3 * 8 * 512 * 4096 * 4 + 2 * 8 * 4096 * 4
+    assert flops == 2 * 8 * 512 * 4096
+    assert nbytes / 3.35e12 > flops / 67e12
+    assert 0.0600 < nbytes / 3.35e12 * 1e3 < 0.0602
+

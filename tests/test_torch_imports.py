@@ -22,12 +22,14 @@ def _all_modules() -> list[str]:
 
 def _import_all_in_a_fresh_process(report: str) -> str:
     mods = _all_modules()
-    for m in ("configs.rwkv6_1_6b", "core.compiler", "core.compression",
+    for m in ("configs.recurrentgemma_9b", "configs.rwkv6_1_6b",
+              "core.compiler", "core.compression",
               "core.fused", "core.lookaside", "kernels.chunk_scan",
               "kernels.fused_combine", "kernels.pack_combine",
               "kernels.quant_combine", "kernels.rwkv6_recurrence",
-              "kernels.topk_accum", "models.config", "models.decode",
-              "models.layers", "models.model", "models.rwkv6",
+              "kernels.topk_accum", "models.attention", "models.config",
+              "models.decode", "models.layers", "models.model",
+              "models.rglru", "models.rwkv6",
               "models.transformer", "serve.engine"):
         assert "repro_torch." + m in mods
     code = (

@@ -803,3 +803,25 @@ def test_rwkv6_kernel_matches_plain_on_card(cuda_device, rng, dtype,
         for got_o, got_s in ((o, s), (po, ps)):
             assert bool(((got_o.double() - eo).abs() <= otol).all())
             assert bool(((got_s.double() - es).abs() <= stol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_matches_plain_on_card(cuda_device, dtype):
+    """Decode (T = 1) and prefill-like T from a state written in place,
+    ragged lanes: bit for bit equal to the plain version (both round the
+    product and the sum separately), and within ``rglru_tolerance``."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for t, d in ((1, 4096), (37, 1000)):
+        a = (0.9 + 0.1 * torch.rand(3, t, d, device=cuda_device,
+                                    generator=g)).to(dtype)
+        b = torch.randn(3, t, d, device=cuda_device, generator=g).to(dtype)
+        h0 = torch.randn(3, d, device=cuda_device, generator=g)
+        want = tcs.rglru_plain(a, b, h0)
+        exact, tol = tcs.rglru_tolerance(a, b, h0)
+        before = tcs.rglru_launches
+        got = tcs.rglru_scan(a, b, h0, h_out=h0)
+        assert tcs.rglru_launches == before + 1
+        assert torch.equal(got, want) and torch.equal(h0, got[:, -1])
+        assert bool(((got.double() - exact).abs() <= tol).all())
+

@@ -1,5 +1,6 @@
 """The port's continuous-batching ``ServeEngine`` against the reference's,
-on the rwkv6 smoke config with the reference's seeded params.
+on the rwkv6 and recurrentgemma smoke configs with the reference's seeded
+params.
 
 * No slot reused (slots >= requests, all admitted at the first tick):
   identical greedy completions, heterogeneous prompt and generation
@@ -12,7 +13,17 @@ on the rwkv6 smoke config with the reference's seeded params.
   reference's completion in the reused slot differs from a fresh engine's;
   the port's equals the fresh engine's (and that one equals the
   reference's fresh engine).
+* recurrentgemma (the hybrid family: RG-LRU state, conv windows and
+  window-attention rings) with f32-cast params: the same completions
+  without slot reuse, a ring wrap in the engine included, and the
+  slot-reuse repair; every hybrid cache leaf of an admitted slot reset
+  (ring ``pos`` to -1, the rest to 0).  In bf16 a random-weight model's
+  top-2 logit gaps are of the size of the two frameworks' roundings, so
+  greedy tokens there would compare rounding, not the engine
+  (``test_torch_models.py`` holds the bf16 logits).
 """
+
+import dataclasses
 
 import time
 
@@ -25,7 +36,7 @@ from repro import configs as jconfigs
 from repro.models import Model as JModel
 from repro.obs import metrics as jobs
 from repro.serve import engine as J
-from repro_torch import configs, interop
+from repro_torch import configs, interop, tree
 from repro_torch.models import Model
 from repro_torch.obs import metrics as tobs
 from repro_torch.serve import engine as P
@@ -184,3 +195,83 @@ def test_engine_rejects_what_the_port_does_not_run(served):
                              max_new_tokens=6))
     assert eng.cache["layers"]["pos0_rwkv"]["s"].device == \
         torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family
+# ---------------------------------------------------------------------------
+
+HYB = "recurrentgemma-9b"
+
+
+@pytest.fixture(scope="module")
+def served_hybrid():
+    jm = JModel(jconfigs.get_smoke(HYB))
+    jp = jax.tree.map(lambda p: p.astype(jax.numpy.float32)
+                      if p.dtype == jax.numpy.bfloat16 else p,
+                      jm.init(jax.random.key(0)))
+    return jm, jp, Model(configs.get_smoke(HYB)), \
+        interop.params_from_reference(jp)
+
+
+@pytest.mark.parametrize("slots,shapes", [
+    (3, [(5, 6), (3, 8), (7, 4)]),
+    (5, [(1, 4), (9, 7), (3, 3), (17, 10), (2, 2)]),
+    (2, [(30, 12), (12, 20)]),              # past the 16-token window
+])
+def test_hybrid_completions_equal_the_reference_without_slot_reuse(
+        served_hybrid, rng, slots, shapes):
+    jm, jp, model, tp = served_hybrid
+    reqs = _requests(rng, shapes)
+    jrec, trec = jobs.Recorder(), tobs.Recorder()
+    want, jeng = _run(J, jm, jp, reqs, slots, jrec)
+    got, teng = _run(P, model, tp, reqs, slots, trec)
+    assert got == want
+    assert teng.ticks == jeng.ticks
+    for name in ("serve.ticks", "serve.admitted", "serve.retired"):
+        assert trec.counter(name) == jrec.counter(name), name
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_hybrid_reused_slot_starts_from_a_zero_state(served_hybrid, rng,
+                                                     slots):
+    """The reference's fresh run is a two-slot engine serving the request
+    alone: with one slot and one layer period its reset would hit the
+    stacked caches' period dim and fill the ring's ``pos`` with 0 (R3)."""
+    jm, jp, model, tp = served_hybrid
+    reqs = _requests(rng, [(5, 6)] * (slots + 1))
+    alone = [(0,) + reqs[-1][1:]]
+    fresh_ref, _ = _run(J, jm, jp, alone, 2)
+    fresh_port, _ = _run(P, model, tp, alone, 1)
+    assert fresh_port == fresh_ref
+    ref_all, _ = _run(J, jm, jp, reqs, slots)
+    port_all, _ = _run(P, model, tp, reqs, slots)
+    assert ref_all[-1] != fresh_ref[0]            # the reference's fault
+    assert port_all[-1] == fresh_port[0]          # the port's repair
+    assert port_all[:slots] == ref_all[:slots]    # first-use slots agree
+
+
+def test_hybrid_slot_reset_clears_every_cache_kind():
+    """A stack whose period and remainder both hold window layers: the
+    admitted slot's row of every leaf is reset — ``pos`` to -1 in the
+    stacked ``[n_periods, slots, W]`` and the remainder's ``[slots, W]``,
+    k, v, h and the conv window to 0 — and the other slots keep theirs."""
+    base = configs.get_smoke(HYB)
+    cfg = dataclasses.replace(base, n_layers=5, hybrid=dataclasses.replace(
+        base.hybrid, pattern=("attn", "lru")))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    eng = P.ServeEngine(model, params, slots=3, max_seq=20)
+    assert sorted(eng.cache["rem"]) == ["rem0_window"]
+    for leaf in tree.tree_leaves(eng.cache):
+        leaf.fill_(5)
+    eng._reset_slot_caches([1])
+    for part, dim in (("layers", 1), ("rem", 0)):
+        for name, c in eng.cache[part].items():
+            for key, leaf in c.items():
+                row = leaf.select(dim, 1)
+                want = -1 if key == "pos" else 0
+                assert bool((row == want).all()), (part, name, key)
+                for other in (0, 2):
+                    assert bool((leaf.select(dim, other) == 5).all())
+
