@@ -10,7 +10,9 @@ Phases, one JSON line each:
   2. build      — builds every CUDA kernel from ``src/repro_torch/kernels/
                   csrc`` (one nvcc per source, all at once)
   3. kernels    — each kernel against its plain PyTorch version on the
-                  card (bitwise; bf16 ``mac`` within one bf16 ulp;
+                  card (bitwise, ``fused_hop`` against the ring step it
+                  replaces for every hop of a ring of 8, on one axis and
+                  over the second of two; bf16 ``mac`` within one bf16 ulp;
                   ``topk_accumulate`` with duplicate indices within f32
                   rounding of the lane's sum; ``prefix_sum`` bitwise on
                   integer-valued data, within ``scan_tolerance`` of the
@@ -30,8 +32,10 @@ Phases, one JSON line each:
                   ``use_kernels=False`` (which goes first alternates);
                   bitwise equal to it, within bf16
                   rounding of the ``xla`` backend and of the exact f32
-                  mean; arenas written in place; every hop and every
-                  bucket pack launched its kernel
+                  mean; arenas written in place; every ring hop launched
+                  ``fused_hop`` and every bucket pack ``fused_pack``, as
+                  often as the compiled plan says; a profile of one sync
+                  each way, its rolls and gathers counted
   5. compressed — ``make_engine("acis_compressed", compressor=c)`` for c
                   in int8, int8_hopquant, topk at the same width:
                   ``init_state``, ``init_arenas``, a warm-up sync per
@@ -99,6 +103,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -162,11 +167,13 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_modules() -> dict:
     """Every ported kernel's wrapper module and the name of its launch
-    count there, by kernel name (``chunk_scan`` holds two kernels)."""
+    count there, by kernel name (``fused_combine`` and ``chunk_scan`` hold
+    two kernels each)."""
     from repro_torch.kernels import (chunk_scan, fused_combine, pack_combine,
                                      quant_combine, rwkv6_recurrence,
                                      topk_accum)
     return {"fused_combine": (fused_combine, "launches"),
+            "fused_hop": (fused_combine, "hop_launches"),
             "fused_pack": (pack_combine, "launches"),
             "quant_combine": (quant_combine, "launches"),
             "topk_accumulate": (topk_accum, "launches"),
@@ -257,12 +264,14 @@ def kernel_checks(dev) -> dict:
                     err = _bitwise_err(got, want)
                 r["max_abs_err"] = max(r["max_abs_err"], err)
 
-    # pack: ragged parts, a tail past the parts that must survive, in place
+    # pack: ragged parts, a tail past the parts that must survive, in
+    # place; 130 parts take two launches of the by-value table
+    many = tuple((7 * k) % 61 for k in range(130))
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for op in (None, "add", "max", "min"):
             for rows, sizes_, tail in (((8,), (768, 9216, 9216), 0),
                                        ((8,), (1, 100, 0, 3333), 7),
-                                       ((), (5,), 3)):
+                                       ((), (5,), 3), ((8,), many, 5)):
                 arena = data(rows + (sum(sizes_) + tail,), dtype)
                 if op and dtype != torch.int8 and arena.numel() > 8:
                     arena.view(-1)[2] = float("nan")
@@ -270,10 +279,15 @@ def kernel_checks(dev) -> dict:
                 want = pc.plain(arena.clone(), *parts, op=op)
                 ptr = arena.data_ptr()
                 before = arena[..., sum(sizes_):].clone()
+                n0 = pc.launches
                 got = pc.fused_pack(arena, *parts, op=op)
                 torch.cuda.synchronize()
                 check(got is arena and arena.data_ptr() == ptr,
                       "pack did not write the arena in place")
+                groups = -(-sum(1 for k in sizes_ if k) // pc.MAX_PARTS)
+                check(pc.launches - n0 == groups,
+                      f"a pack of {len(sizes_)} parts made "
+                      f"{pc.launches - n0} launches, not {groups}")
                 check(torch.equal(arena[..., sum(sizes_):], before),
                       "tail lanes changed")
                 r = report["fused_pack"]
@@ -287,11 +301,56 @@ def kernel_checks(dev) -> dict:
         report["fused_pack"]["overflow_raises"] = True
     check(report["fused_pack"].get("overflow_raises", False),
           "an overflowing pack did not raise")
+    report["fused_pack"]["max_parts_per_launch"] = pc.MAX_PARTS
+    report["fused_hop"] = hop_checks(dev, gen, data)
     report["quant_combine"] = quant_checks(dev, gen)
     report["topk_accumulate"] = topk_checks(dev, gen)
     report["prefix_sum"] = prefix_checks(dev, gen)
     report["rwkv6_recurrence"] = wkv_checks(dev, gen)
     report["rglru_scan"] = rglru_checks(dev, gen)
+    return report
+
+
+def hop_checks(dev, gen, data) -> dict:
+    """``fused_hop`` against the ring step it replaces, ``combine(
+    tp.shift(buf, 1), tp.take(xs, (i - 2 - s) % n))``, bit for bit: f32,
+    bf16 and int8, add/max/min (NaN lanes planted for floats), every hop
+    ``s`` of a ring of 8 on ``LocalMesh({"data": 8})`` and over the second
+    axis of ``{"pod": 2, "data": 8}``, at a chunk that takes the scalar
+    lanes (1003) and one that takes the vectors (4096); then every hop of
+    the largest acis-100m ring (bf16 add, chunk 3,072,000)."""
+    from repro_torch.kernels import fused_combine as fc
+    from repro_torch.kernels import ref
+    from repro_torch.mesh import LocalMesh
+
+    report = {"cases": 0, "max_abs_err": 0.0}
+
+    def hold(mesh, buf, xs, op):
+        i, n = mesh.axis_index("data"), mesh.axis_size("data")
+        for s in range(n - 1):
+            got = fc.fused_hop(buf, xs, s, dim=mesh.dim("data"),
+                               rank_ndim=mesh.rank_ndim, op=op)
+            want = ref.COMBINES[op](mesh.shift(buf, "data", 1),
+                                    mesh.take(xs, (i - 2 - s) % n))
+            torch.cuda.synchronize()
+            report["cases"] += 1
+            report["max_abs_err"] = max(report["max_abs_err"],
+                                        _bitwise_err(got, want))
+
+    for axes in ({"data": 8}, {"pod": 2, "data": 8}):
+        mesh = LocalMesh(axes, device=dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for op in ("add", "max", "min"):
+                for chunk in (1003, 4096):
+                    xs = data(mesh.rank_shape + (8, chunk), dtype)
+                    buf = data(mesh.rank_shape + (chunk,), dtype)
+                    if op != "add" and dtype != torch.int8:
+                        xs.view(-1)[5::97] = float("nan")
+                        buf.view(-1)[3::89] = float("nan")
+                    hold(mesh, buf, xs, op)
+    mesh = LocalMesh({"data": 8}, device=dev)
+    xs = data((8, 8, 3_072_000), torch.bfloat16)
+    hold(mesh, xs[:, 0].clone(), xs, "add")
     return report
 
 
@@ -836,9 +895,12 @@ def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
 
 def kernel_timings(dev, peak: float, f32_peak: float, cfg,
                    serve_cfg, hybrid_cfg) -> dict:
-    """Each kernel at the main path's shapes: the largest hop (bf16
-    [8, 3,072,000] add), the Coalesce bucket pack (f32 parts of 768,
-    9216 and 9216 per rank into the [8, 19200] arena), the largest
+    """Each kernel at the main path's shapes: the largest ring hop (one
+    fused bf16 add hop from the [8, 8, 3,072,000] chunked input into the
+    [8, 3,072,000] partial sums, beside the shift + take + add step it
+    replaced; the elementwise form, which no main path runs, at the same
+    [8, 3,072,000] add), the Coalesce bucket pack (f32 parts
+    of 768, 9216 and 9216 per rank into the [8, 19200] arena), the largest
     int8_hopquant hop (the embed leaf's chunk, rank dims folded into
     rows), the top-k accumulate of the embed leaf (k = 1% of its
     24,576,000 lanes into the [8, 24,576,000] f32 accumulator) and the
@@ -855,6 +917,9 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     from repro_torch.kernels import quant_combine as qc
     from repro_torch.kernels import topk_accum as ta
 
+    from repro_torch.kernels import ref
+    from repro_torch.mesh import LocalMesh
+
     gen = torch.Generator(device=dev).manual_seed(99)
     x = torch.randn((8, 3_072_000), device=dev, generator=gen).bfloat16()
     y = torch.randn((8, 3_072_000), device=dev, generator=gen).bfloat16()
@@ -863,10 +928,35 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         "ms": time_ms(lambda: fc.fused_combine(x, y, op="add")),
         "plain_ms": time_ms(lambda: fc.plain(x, y, "add")),
         "library_ms": time_ms(lambda: torch.add(x, y, out=out)),
+        "device_ms_per_launch": per_launch(
+            lambda: fc.fused_combine(x, y, op="add"), "combine_kernel"),
         "bytes": 3 * x.numel() * x.element_size(),
         "shape": [8, 3_072_000], "dtype": "bfloat16", "op": "add",
+        "main_path": False,
     }
     del x, y, out
+    # one hop of the largest acis-100m ring: xs is every rank's input in 8
+    # chunks, buf the partial sums; its plain version is the step the ring
+    # takes without the kernel, the transport's shift and per-rank take,
+    # then the add (no single PyTorch call does the hop)
+    mesh = LocalMesh({"data": 8}, device=dev)
+    i = mesh.axis_index("data")
+    xs = torch.randn((8, 8, 3_072_000), device=dev,
+                     generator=gen).bfloat16()
+    buf = xs[:, 1].clone()
+    hop = {
+        "ms": time_ms(lambda: fc.fused_hop(buf, xs, 0, dim=0, rank_ndim=1)),
+        "plain_ms": time_ms(lambda: ref.combine_add(
+            mesh.shift(buf, "data", 1), mesh.take(xs, (i - 2) % 8))),
+        "library_ms": None,
+        "device_ms_per_launch": per_launch(
+            lambda: fc.fused_hop(buf, xs, 0, dim=0, rank_ndim=1),
+            "hop_kernel"),
+        "bytes": 3 * buf.numel() * buf.element_size(),
+        "unfused_bytes": 7 * buf.numel() * buf.element_size(),
+        "shape": [8, 8, 3_072_000], "dtype": "bfloat16", "op": "add",
+    }
+    del xs, buf
     arena = torch.zeros((8, 19200), device=dev)
     parts = [torch.randn((8, s), device=dev, generator=gen)
              for s in (768, 9216, 9216)]
@@ -874,6 +964,14 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         "ms": time_ms(lambda: pc.fused_pack(arena, *parts)),
         "plain_ms": time_ms(lambda: pc.plain(arena, *parts)),
         "library_ms": time_ms(lambda: torch.cat(parts, dim=-1, out=arena)),
+        "device_ms_per_launch": per_launch(
+            lambda: pc.fused_pack(arena, *parts), "pack_kernel"),
+        "library_device_ms_per_launch": per_launch(
+            lambda: torch.cat(parts, dim=-1, out=arena),
+            "CatArrayBatchedCopy"),
+        "host_us_per_call": host_us(lambda: pc.fused_pack(arena, *parts)),
+        "library_host_us_per_call": host_us(
+            lambda: torch.cat(parts, dim=-1, out=arena)),
         "bytes": 2 * sum(p.numel() for p in parts) * 4,
         "shape": [8, 19200], "dtype": "float32", "op": None,
     }
@@ -924,7 +1022,8 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     }
     del x, x2
     torch.cuda.empty_cache()
-    out = {"fused_combine": comb, "fused_pack": pack, "quant_combine": quant,
+    out = {"fused_combine": comb, "fused_hop": hop, "fused_pack": pack,
+           "quant_combine": quant,
            "topk_accumulate": topk, "prefix_sum": scan,
            "rwkv6_recurrence": wkv_timings(dev, gen, serve_cfg, SERVE),
            "rglru_scan": rglru_timings(dev, gen, hybrid_cfg, SERVE_HYBRID)}
@@ -933,20 +1032,50 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         by_ops = t.get("flops", 0) / f32_peak * 1e3
         t["bound_ms"] = max(by_bytes, by_ops)
         t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
     return out
+
+
+def host_us(call, calls: int = 2000) -> float:
+    """Host wall time per call over ``calls`` back-to-back calls between
+    two device syncs: the host path's cost where it exceeds the device
+    time, as for a pack of a bucket's size."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def per_launch(call, name: str, calls: int = 50):
+    """Device time per launch of the kernel whose name holds ``name``,
+    from the profiler over ``calls`` calls (None if it saw none)."""
+    prof = device_profile(lambda: [call() for _ in range(calls)])
+    per = [x for x in prof.get("top", []) if name in x["name"]]
+    return per[0]["ms"] / per[0]["count"] if per else None
 
 
 # ---------------------------------------------------------------------------
 # phases 4-5: the main paths
 # ---------------------------------------------------------------------------
 
+def pack_parts(st) -> int:
+    """Non-empty parts the arena pack of stage ``st`` writes."""
+    return sum(1 for k in st.ir.nodes[0].op.fn.bucket_sizes if k)
+
+
 def expected_launches(compiled, mesh) -> dict:
     """Each kernel's launches in one sync, read off the compiled plan:
-    n-1 hop combines per ring all-reduce stage, one launch per arena
-    pack, n-1 quant_combines per int8_hopquant EF stage, and per top-k
-    EF stage one accumulate of the rank's own payload, n-1 of the hops'
-    and one for the decompress, and one prefix_sum (every rank's local
-    scan at once) per inclusive-add scan+allgather stage."""
+    n-1 fused hops per bandwidth ring all-reduce or reduce-scatter stage
+    (n-1 elementwise hop combines on a latency ring), one pack launch per
+    ``MAX_PARTS`` parts of an arena pack, n-1 quant_combines per
+    int8_hopquant EF stage, and per top-k EF stage one accumulate of the
+    rank's own payload, n-1 of the hops' and one for the decompress, and
+    one prefix_sum (every rank's local scan at once) per inclusive-add
+    scan+allgather stage."""
+    from repro_torch.kernels import pack_combine as pc
+
     out = dict.fromkeys(kernel_modules(), 0)
     for st in compiled.stages:
         n = mesh.axis_size(st.axis) if st.axis else 1
@@ -955,9 +1084,13 @@ def expected_launches(compiled, mesh) -> dict:
             if scan.monoid.name == "add" and not scan.exclusive:
                 out["prefix_sum"] += 1
         if st.kind in ("allreduce", "batched_allreduce"):
-            out["fused_combine"] += n - 1
+            hop = "fused_hop" if st.schedule == "bandwidth" \
+                else "fused_combine"
+            out[hop] += n - 1
+        if st.kind == "reduce_scatter":
+            out["fused_hop"] += n - 1
         if st.arena_slot is not None:
-            out["fused_pack"] += 1
+            out["fused_pack"] += -(-pack_parts(st) // pc.MAX_PARTS)
         if st.kind in ("ef_allreduce", "delivered"):
             comp = st.ir.nodes[0].op.ef.compressor
             if comp == "int8_hopquant":
@@ -1045,8 +1178,8 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
     launches = read_counts()
     if expect_kernels:
         check_launches(launches, per_sync, steps + 1)
-        check(per_sync["fused_combine"] > 0 and per_sync["fused_pack"] > 0,
-              "the acis plan runs no hop combine or pack")
+        check(per_sync["fused_hop"] > 0 and per_sync["fused_pack"] > 0,
+              "the acis plan runs no fused hop or pack")
 
     # The xla baseline and the f32 mean round each lane once; the ring
     # rounds its bf16 partial sum at each of its n-1 hops, by at most half
@@ -1076,7 +1209,7 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
         worst_mean = max(worst_mean, dm.max().item())
 
     profile = {name: device_profile(lambda e=e, a=a: e.gradient_sync(
-        grads, None, arenas=a, mesh=mesh))
+        grads, None, arenas=a, mesh=mesh), RING_OPS)
         for name, e, a in (("kernels", eng_k, arenas_k),
                            ("plain", eng_p, arenas_p))} if cuda else None
     med_k, med_p = statistics.median(t_k), statistics.median(t_p)
@@ -1088,6 +1221,8 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
         "stage_kinds": compiled.stage_kinds(),
         "waves": compiled.plan.n_waves,
         "arena_shapes": [list(a.shape) for a in arenas_k],
+        "max_pack_parts": max(pack_parts(st) for st in compiled.stages
+                              if st.arena_slot is not None),
         "pack_transient_bytes": compiled.pack_transient_bytes(),
         "launches_per_sync": per_sync, "launches": launches,
         "sync_ms_kernels": t_k, "sync_ms_plain": t_p,
@@ -2101,11 +2236,22 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     return [record, eng, eng32]
 
 
-def device_profile(step) -> dict:
+# device kernels of a ring sync counted by name: PyTorch's rolls and its
+# index kernels (the per-rank gathers and the all-gather's puts), and the
+# hand-written hop and pack
+RING_OPS = {"rolls": "roll_cuda_kernel",
+            "gathers_and_puts": "index_elementwise_kernel",
+            "fused_hop": "hop_kernel", "fused_pack": "pack_kernel",
+            "fused_combine": "::combine_kernel"}
+
+
+def device_profile(step, count: Optional[dict] = None) -> dict:
     """One more sync under ``torch.profiler``: device time by
     kernel name (top 10) and the device's busy share of the window (sum
     of kernel times over the host wall time, profiler overhead
-    included).  A measurement only: a profiler that fails reports why."""
+    included); with ``count`` ({label: name part}), the launches and ms
+    of every kernel whose name holds each part.  A measurement only: a
+    profiler that fails reports why."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2127,7 +2273,13 @@ def device_profile(step) -> dict:
         return {"error": f"{type(exc).__name__}: {exc}"}
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    counted = {label: {"launches": sum(c for k, (_, c) in by_name.items()
+                                       if part in k),
+                       "ms": sum(t for k, (t, _) in by_name.items()
+                                 if part in k) / 1e3}
+               for label, part in (count or {}).items()}
     return {"window_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+            "counted": counted,
             "device_busy_share": busy / wall_us if wall_us else None,
             "kernels": len(by_name),
             "launches": sum(c for _, c in by_name.values()),
@@ -2138,9 +2290,13 @@ def device_profile(step) -> dict:
 # ---------------------------------------------------------------------------
 
 COMPRESSORS = ("int8", "int8_hopquant", "topk")
+# the kernels the main paths run, one per TPU kernel: the fused_combine
+# source's on the paths is its ring-hop form (its elementwise form serves
+# latency rings and Type 2 hooks, which no path here takes; it is checked
+# and timed in the kernels phase all the same)
 SOURCES = {
-    "fused_combine": ("src/repro_torch/kernels/csrc/fused_combine.cu",
-                      "src/repro/kernels/fused_combine.py:70"),
+    "fused_hop": ("src/repro_torch/kernels/csrc/fused_combine.cu",
+                  "src/repro/kernels/fused_combine.py:70"),
     "fused_pack": ("src/repro_torch/kernels/csrc/fused_pack.cu",
                    "src/repro/kernels/pack_combine.py:68"),
     "quant_combine": ("src/repro_torch/kernels/csrc/quant_combine.cu",

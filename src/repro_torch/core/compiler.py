@@ -2507,19 +2507,6 @@ def _use_kernels(ctx: CompileContext) -> bool:
     return bool(getattr(ctx.config, "use_kernels", False))
 
 
-def _hop_combine_kernel(monoid) -> Optional[Callable]:
-    """The registered CUDA combine for a Type 1 monoid, as a ring
-    ``hop_combine(incoming, local)`` hook; None when the monoid has no
-    kernel (the ring then folds with the plain monoid combine)."""
-    if monoid.name not in ("add", "max", "min"):
-        return None
-    sop = switchops.get(monoid.name)
-
-    def hop(incoming, local, _sop=sop):
-        return _sop(incoming, local, use_kernel=True)
-    return hop
-
-
 class Emit:
     """Lower every StageIR to a rank-local callable.
 
@@ -2713,7 +2700,8 @@ class Emit:
         op = g.nodes[-1].op if g.nodes[-1].op.kind == OpKind.REDUCE \
             else g.nodes[0].op           # RS∘AG group: monoid/codec on RS
         lat = g.schedule == "latency"
-        hop = _hop_combine_kernel(op.monoid) if _use_kernels(ctx) else None
+        hop = switchops.hop_kernel(op.monoid.name) if _use_kernels(ctx) \
+            else None
 
         def run(args, ax, _m=op.monoid, _c=op.codec, _l=lat, _h=hop):
             (x,) = args
@@ -2730,7 +2718,8 @@ class Emit:
     @staticmethod
     def _reduce_scatter(g: StageIR, ctx: CompileContext):
         op = g.nodes[0].op
-        hop = _hop_combine_kernel(op.monoid) if _use_kernels(ctx) else None
+        hop = switchops.hop_kernel(op.monoid.name) if _use_kernels(ctx) \
+            else None
 
         def run(args, ax, _m=op.monoid, _c=op.codec, _h=hop):
             (x,) = args

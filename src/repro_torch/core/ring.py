@@ -103,6 +103,13 @@ def ring_reduce_scatter(
     Type 2) including a hand-written kernel — one call per hop covers every
     rank.  Each rank's ``x`` is [n * chunk, ...]; the result is its fully
     reduced chunk ``i`` of shape [chunk, ...].
+
+    A hook that carries a ``fused_hop`` form (the registered Type 1
+    kernels, :func:`repro_torch.core.switchops.hop_kernel`) runs each hop
+    on CUDA tensors as one ``fused_hop(buf, xs, s)`` launch: the
+    neighbour's ``buf`` and the local chunk are read in place, where the
+    loop below first materialises the shift and the gather.  Both compute
+    the same step; CPU tensors take the loop.
     """
     tp = current()
     n = tp.axis_size(axis_name)
@@ -112,6 +119,13 @@ def ring_reduce_scatter(
     i = tp.axis_index(axis_name)
     xs = _split_chunks(x, n)
     buf = tp.take(xs, (i - 1) % n)
+    fused = getattr(hop_combine, "fused_hop", None)
+    if fused is not None and x.is_cuda:
+        xs = xs.contiguous()
+        for s in range(n - 1):
+            buf = fused(buf, xs, s, dim=tp.dim(axis_name),
+                        rank_ndim=tp.rank_ndim)
+        return buf
     for s in range(n - 1):
         incoming = tp.shift(buf, axis_name, 1)
         local = tp.take(xs, (i - 2 - s) % n)

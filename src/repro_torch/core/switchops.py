@@ -11,6 +11,7 @@ CGRA binary into the switch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -76,6 +77,25 @@ register("prefix_sum", _ref("prefix_sum"))   # (x, dim=0)
 register("relu2", lambda x: torch.square(torch.clamp_min(x, 0)))
 register("topk_accumulate", _ref("topk_accumulate"))
 register("pack_combine", _ref("pack_combine"))
+
+
+def hop_kernel(name: str) -> Optional[Callable]:
+    """The registered CUDA combine of the Type 1 monoid ``name`` as a ring
+    ``hop_combine(incoming, local)`` hook, or None when it has no kernel
+    (the ring then folds with the plain monoid combine).  The hook's
+    ``fused_hop`` attribute is the one-launch ring reduce-scatter step
+    (:func:`repro_torch.kernels.fused_combine.fused_hop`), which the ring
+    takes on a one-tensor mesh in place of roll, gather and combine."""
+    if name not in ("add", "max", "min"):
+        return None
+    from repro_torch.kernels import ops as kops
+
+    sop = get(name, load=True)
+
+    def hop(incoming, local, _sop=sop):
+        return _sop(incoming, local, use_kernel=True)
+    hop.fused_hop = functools.partial(kops.ring_hop, op=name)
+    return hop
 
 
 def load_kernels() -> None:

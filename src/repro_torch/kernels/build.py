@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_combine", "fused_pack", "quant_combine", "topk_accum",
@@ -98,3 +100,10 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]["path"]))
         _LIBS[name] = lib
     return lib
+
+
+def stream_of(device: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device index
+    ``device``, for a kernel to launch on (``torch.cuda.current_stream(
+    device).cuda_stream`` without building a Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(device)

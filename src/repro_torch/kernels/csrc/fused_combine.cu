@@ -1,82 +1,263 @@
-// Hop combine: out = combine(x, y) elementwise over flat contiguous
-// operands — the per-hop aggregation of every ring reduce-scatter /
-// all-reduce hop (one launch covers the hop of every rank).
+// Hop combine: out = combine(x, y) elementwise, in two forms.
+//
+//  * acis_fused_combine — over flat contiguous operands (one launch covers
+//    the hop of every rank).
+//  * acis_fused_hop — one step of the ring reduce-scatter of every rank at
+//    once, reading both operands in place from the all-ranks tensors:
+//      out[a, r, b, :] = combine(buf[a, (r - 1) mod n, b, :],
+//                                xs[a, r, b, (r - 2 - s) mod n, :])
+//    with the rank dims viewed as [A, n, B] around the ring's axis.  On one
+//    card every rank's chunk lies in the same memory, so the neighbour's
+//    partial sum and the local chunk are found by index arithmetic: no
+//    roll, no gather and no index tensor before the combine.
 //
 // Replaces the Pallas kernel repro/kernels/fused_combine.py:fused_combine.
 // Bound: device memory, 3 * numel * itemsize bytes (two reads, one write)
-// against a handful of ALU ops per element.  Design: a grid-stride loop of
-// 16-byte vector loads/stores over the aligned body (4 f32, 8 bf16 or 16
-// int8 lanes per thread per step) and a scalar tail; no padding copies and
-// no [rows, 128] reshape as the TPU kernel needs.
+// against a handful of ALU ops per element; the unfused hop (roll, gather,
+// add) moves 7 * numel * itemsize.  Design: each thread keeps `unroll`
+// independent 16-byte loads per operand in flight per step (4 f32, 8 bf16
+// or 16 int8 lanes each; evict-first where a byte is touched once), with a
+// scalar tail.  The elementwise form runs on the grid the card holds
+// resident at once (the occupancy query times the SM count, `waves` 1), so
+// every thread strides over many vectors; the hop form gives each row
+// (a, r, b) of the output its blocks in x and the rows in y, and launches
+// one unrolled step per thread (`waves` 0, no grid-stride loop), which
+// measured faster for it (tools/probe_combine.py).
+//
+// Each form's launch shape can be set at build time, for the probe:
+// ACIS_{COMBINE,HOP}_THREADS per block, ACIS_{COMBINE,HOP}_UNROLL loads per
+// operand in flight, ACIS_{COMBINE,HOP}_WAVES resident grids per launch (0:
+// one unrolled step per thread), and ACIS_COMBINE_STREAM 0 (no cache
+// hints), 1 (the hints above) or 2 (the hop's partial sums evict-first
+// too).
 #include "combine.cuh"
+
+#ifndef ACIS_COMBINE_THREADS
+#define ACIS_COMBINE_THREADS 512
+#endif
+#ifndef ACIS_COMBINE_UNROLL
+#define ACIS_COMBINE_UNROLL 4
+#endif
+#ifndef ACIS_COMBINE_WAVES
+#define ACIS_COMBINE_WAVES 1
+#endif
+#ifndef ACIS_HOP_THREADS
+#define ACIS_HOP_THREADS 256
+#endif
+#ifndef ACIS_HOP_UNROLL
+#define ACIS_HOP_UNROLL 2
+#endif
+#ifndef ACIS_HOP_WAVES
+#define ACIS_HOP_WAVES 0
+#endif
+#ifndef ACIS_COMBINE_STREAM
+#define ACIS_COMBINE_STREAM 1
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;
+struct Shape {
+  int threads, unroll, waves;
+};
+constexpr Shape kCombine{ACIS_COMBINE_THREADS, ACIS_COMBINE_UNROLL, ACIS_COMBINE_WAVES};
+constexpr Shape kHop{ACIS_HOP_THREADS, ACIS_HOP_UNROLL, ACIS_HOP_WAVES};
+constexpr int kStream = ACIS_COMBINE_STREAM;
 
 template <typename T, int OP>
-__global__ void combine_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                               T* __restrict__ out, int64_t n, float alpha, bool vec) {
+__device__ __forceinline__ uint4 combine_vec(uint4 xa, uint4 ya, float alpha) {
   constexpr int V = 16 / sizeof(T);
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t nvec = vec ? n / V : 0;
-  for (int64_t i = tid; i < nvec; i += stride) {
-    uint4 xa = reinterpret_cast<const uint4*>(x)[i];
-    uint4 ya = reinterpret_cast<const uint4*>(y)[i];
-    uint4 oa;
-    const T* xv = reinterpret_cast<const T*>(&xa);
-    const T* yv = reinterpret_cast<const T*>(&ya);
-    T* ov = reinterpret_cast<T*>(&oa);
+  uint4 oa;
+  const T* xv = reinterpret_cast<const T*>(&xa);
+  const T* yv = reinterpret_cast<const T*>(&ya);
+  T* ov = reinterpret_cast<T*>(&oa);
 #pragma unroll
-    for (int k = 0; k < V; ++k) ov[k] = acis::Combine<T, OP>::apply(xv[k], yv[k], alpha);
-    reinterpret_cast<uint4*>(out)[i] = oa;
+  for (int k = 0; k < V; ++k) ov[k] = acis::Combine<T, OP>::apply(xv[k], yv[k], alpha);
+  return oa;
+}
+
+// out[k] = combine(x[k], y[k]) for k in [0, n), by `lanes` threads of which
+// this is `lane`; `vec`: all three pointers are 16-byte aligned.  y is
+// read once, so its vectors load evict-first (__ldcs); ONCE marks x and
+// out as touched once too (the elementwise form).  In a ring hop x is the
+// partial sum the previous hop just wrote and out the one the next hop
+// reads, so they stay cached normally.
+template <typename T, int OP, bool ONCE, int kUnroll>
+__device__ __forceinline__ void combine_run(const T* __restrict__ x, const T* __restrict__ y,
+                                            T* __restrict__ out, int64_t n, float alpha,
+                                            bool vec, int64_t lane, int64_t lanes) {
+  constexpr int V = 16 / sizeof(T);
+  const int64_t nvec = vec ? n / V : 0;
+  const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x);
+  const uint4* __restrict__ yv = reinterpret_cast<const uint4*>(y);
+  uint4* __restrict__ ov = reinterpret_cast<uint4*>(out);
+  int64_t i = lane;
+  for (; i + (kUnroll - 1) * lanes < nvec; i += kUnroll * lanes) {
+    uint4 xa[kUnroll], ya[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      xa[u] = ONCE ? __ldcs(xv + i + u * lanes) : xv[i + u * lanes];
+      ya[u] = kStream ? __ldcs(yv + i + u * lanes) : yv[i + u * lanes];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint4 o = combine_vec<T, OP>(xa[u], ya[u], alpha);
+      if (ONCE) __stcs(ov + i + u * lanes, o); else ov[i + u * lanes] = o;
+    }
   }
-  for (int64_t i = nvec * V + tid; i < n; i += stride)
-    out[i] = acis::Combine<T, OP>::apply(x[i], y[i], alpha);
+  for (; i < nvec; i += lanes) ov[i] = combine_vec<T, OP>(xv[i], yv[i], alpha);
+  for (int64_t k = nvec * V + lane; k < n; k += lanes)
+    out[k] = acis::Combine<T, OP>::apply(x[k], y[k], alpha);
 }
 
 template <typename T, int OP>
-void launch(const void* x, const void* y, void* out, int64_t n, float alpha,
-            cudaStream_t stream) {
+__global__ void __launch_bounds__(kCombine.threads)
+    combine_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out,
+                   int64_t n, float alpha, bool vec) {
+  combine_run<T, OP, kStream != 0, kCombine.unroll>(x, y, out, n, alpha, vec,
+                           (int64_t)blockIdx.x * blockDim.x + threadIdx.x,
+                           (int64_t)gridDim.x * blockDim.x);
+}
+
+// rows = A * n * B output rows of `chunk` elements; row = (a * n + r) * B + b
+template <typename T, int OP>
+__global__ void __launch_bounds__(kHop.threads)
+    hop_kernel(const T* __restrict__ buf, const T* __restrict__ xs, T* __restrict__ out,
+               int64_t rows, int n, int64_t B, int64_t chunk, int s, bool vec) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t lanes = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int64_t b = row % B;
+    const int64_t r = (row / B) % n;
+    const int64_t a = row / (B * n);
+    const int64_t sender = (a * n + (r + n - 1) % n) * B + b;  // its row of buf
+    const int64_t c = (r + 2 * (int64_t)n - 2 - s) % n;       // 0 <= s <= n - 2
+    combine_run<T, OP, kStream == 2, kHop.unroll>(buf + sender * chunk, xs + (row * n + c) * chunk,
+                              out + row * chunk, chunk, 1.0f, vec, lane, lanes);
+  }
+}
+
+// Blocks of `sh.threads` the card holds resident at once for `kernel`,
+// times `sh.waves`: the grid that keeps every SM full, asked once per
+// kernel.
+template <typename K>
+int64_t resident_blocks(K kernel, Shape sh) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, sh.threads, 0);
+  const int64_t blocks = (int64_t)sms * per_sm * sh.waves;
+  return blocks > 0 ? blocks : 1;
+}
+
+// Blocks for a run of `work` vectors: one unrolled step per thread when
+// `sh.waves` is 0, else one vector per thread capped at `cap` blocks.
+int64_t grid_for(int64_t work, Shape sh, int64_t cap) {
+  const int64_t per_block = (int64_t)sh.threads * (sh.waves == 0 ? sh.unroll : 1);
+  int64_t blocks = (work + per_block - 1) / per_block;
+  if (sh.waves != 0 && blocks > cap) blocks = cap;
+  return blocks > 0 ? blocks : 1;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
+
+// threads' worth of work in a run of n elements: vectors plus the tail
+template <typename T>
+int64_t run_work(int64_t n, bool vec) {
   constexpr int V = 16 / sizeof(T);
-  const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
-                     reinterpret_cast<uintptr_t>(out)) % 16) == 0;
-  const int64_t work = vec ? (n / V + n % V) : n;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond ~16 blocks per SM
-  if (blocks < 1) blocks = 1;
-  combine_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  return vec ? n / V + n % V : n;
+}
+
+template <typename T, int OP>
+void launch_combine(const void* x, const void* y, void* out, int64_t n, float alpha,
+                    cudaStream_t stream) {
+  static const int64_t resident = resident_blocks(combine_kernel<T, OP>, kCombine);
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(out);
+  const int64_t blocks = grid_for(run_work<T>(n, vec), kCombine, resident);
+  combine_kernel<T, OP><<<(unsigned)blocks, kCombine.threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(out), n, alpha, vec);
 }
 
+template <typename T, int OP>
+void launch_hop(const void* buf, const void* xs, void* out, int64_t A, int n, int64_t B,
+                int64_t chunk, int s, cudaStream_t stream) {
+  static const int64_t resident = resident_blocks(hop_kernel<T, OP>, kHop);
+  const bool vec = aligned16(buf) && aligned16(xs) && aligned16(out) &&
+                   (chunk * (int64_t)sizeof(T)) % 16 == 0;
+  const int64_t rows = A * n * B;
+  const int64_t gy = rows < 65535 ? rows : 65535;
+  // with waves > 0, the resident grid split over the rows
+  const int64_t gx = grid_for(run_work<T>(chunk, vec), kHop, resident / gy);
+  hop_kernel<T, OP><<<dim3((unsigned)gx, (unsigned)gy), kHop.threads, 0, stream>>>(
+      static_cast<const T*>(buf), static_cast<const T*>(xs), static_cast<T*>(out), rows, n, B,
+      chunk, s, vec);
+}
+
 template <typename T>
-int dispatch_op(int op, const void* x, const void* y, void* out, int64_t n, float alpha,
-                cudaStream_t s) {
+int dispatch_combine(int op, const void* x, const void* y, void* out, int64_t n, float alpha,
+                     cudaStream_t s) {
   switch (op) {
-    case acis::kAdd: launch<T, acis::kAdd>(x, y, out, n, alpha, s); return 0;
-    case acis::kMax: launch<T, acis::kMax>(x, y, out, n, alpha, s); return 0;
-    case acis::kMin: launch<T, acis::kMin>(x, y, out, n, alpha, s); return 0;
-    case acis::kMac: launch<T, acis::kMac>(x, y, out, n, alpha, s); return 0;
+    case acis::kAdd: launch_combine<T, acis::kAdd>(x, y, out, n, alpha, s); return 0;
+    case acis::kMax: launch_combine<T, acis::kMax>(x, y, out, n, alpha, s); return 0;
+    case acis::kMin: launch_combine<T, acis::kMin>(x, y, out, n, alpha, s); return 0;
+    case acis::kMac: launch_combine<T, acis::kMac>(x, y, out, n, alpha, s); return 0;
   }
   return -1;
 }
 
+template <typename T>
+int dispatch_hop(int op, const void* buf, const void* xs, void* out, int64_t A, int n,
+                 int64_t B, int64_t chunk, int step, cudaStream_t s) {
+  switch (op) {
+    case acis::kAdd: launch_hop<T, acis::kAdd>(buf, xs, out, A, n, B, chunk, step, s); return 0;
+    case acis::kMax: launch_hop<T, acis::kMax>(buf, xs, out, A, n, B, chunk, step, s); return 0;
+    case acis::kMin: launch_hop<T, acis::kMin>(buf, xs, out, A, n, B, chunk, step, s); return 0;
+  }
+  return -1;
+}
+
+// Runs `launch` with `device` current, then restores the caller's device.
+template <typename F>
+int on_device(int device, F launch) {
+  int prev = device;
+  cudaGetDevice(&prev);
+  if (prev != device) cudaSetDevice(device);
+  const int rc = launch();
+  const int err = rc != 0 ? rc : (int)cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return err;
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched), or -1 for an
-// op/dtype code the kernel does not implement.
+// Both return cudaGetLastError() after the launch (0 = launched), or -1 for
+// an op/dtype code the kernel does not implement.
 extern "C" int acis_fused_combine(const void* x, const void* y, void* out, int64_t n, int dtype,
-                                  int op, float alpha, void* stream) {
+                                  int op, float alpha, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = -1;
-  switch (dtype) {
-    case acis::kF32: rc = dispatch_op<float>(op, x, y, out, n, alpha, s); break;
-    case acis::kBF16: rc = dispatch_op<__nv_bfloat16>(op, x, y, out, n, alpha, s); break;
-    case acis::kI8:
-      if (op != acis::kMac) rc = dispatch_op<int8_t>(op, x, y, out, n, alpha, s);
-      break;
-  }
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return on_device(device, [&]() {
+    switch (dtype) {
+      case acis::kF32: return dispatch_combine<float>(op, x, y, out, n, alpha, s);
+      case acis::kBF16: return dispatch_combine<__nv_bfloat16>(op, x, y, out, n, alpha, s);
+      case acis::kI8:
+        return op == acis::kMac ? -1 : dispatch_combine<int8_t>(op, x, y, out, n, alpha, s);
+    }
+    return -1;
+  });
+}
+
+// buf: [A, n, B, chunk]; xs: [A, n, B, n, chunk]; out like buf; 0 <= step <= n - 2.
+extern "C" int acis_fused_hop(const void* buf, const void* xs, void* out, int64_t A, int n,
+                              int64_t B, int64_t chunk, int step, int dtype, int op, int device,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 2 || step < 0 || step > n - 2) return -1;
+  return on_device(device, [&]() {
+    switch (dtype) {
+      case acis::kF32: return dispatch_hop<float>(op, buf, xs, out, A, n, B, chunk, step, s);
+      case acis::kBF16:
+        return dispatch_hop<__nv_bfloat16>(op, buf, xs, out, A, n, B, chunk, step, s);
+      case acis::kI8: return dispatch_hop<int8_t>(op, buf, xs, out, A, n, B, chunk, step, s);
+    }
+    return -1;
+  });
 }

@@ -1,53 +1,119 @@
-"""Per-hop reduce combine (the switch aggregation unit) — CUDA kernel.
+"""Per-hop reduce combine (the switch aggregation unit) — CUDA kernels.
 
 Replaces the Pallas kernel ``repro/kernels/fused_combine.py:fused_combine``
 (body ``_combine_kernel``).  The hot inner loop of every ACiS reduction
-schedule is ``combine(incoming, local)`` on a hop-sized message; one
-launch covers the hop of every rank (``[*rank, chunk]``).
+schedule is ``combine(incoming, local)`` on a hop-sized message, in two
+forms here:
 
-Bound on the card: device memory — 3 × numel × itemsize bytes (read x and
-y, write out) against one or two ALU ops per element.  The kernel
-(``csrc/fused_combine.cu``) is one grid-stride pass of 16-byte vector
-loads over the contiguous operands with a scalar tail, so it moves each
-byte once; the TPU kernel's 128-lane padding copies and ``[rows, 128]``
-reshape have no counterpart.
+* :func:`fused_combine` — elementwise over same-shape operands; one launch
+  covers the hop of every rank (``[*rank, chunk]``).
+* :func:`fused_hop` — one whole step of the ring reduce-scatter of every
+  rank: the neighbour's partial sum and the local chunk are read in place
+  from the all-ranks tensors by index arithmetic, so the step's roll and
+  per-rank gather are never materialised.
 
-A CPU tensor goes to the plain version (:mod:`repro_torch.kernels.ref`);
+Bound on the card: device memory — 3 × numel × itemsize bytes (read two
+operands, write out) against one or two ALU ops per element; the unfused
+hop (roll, gather, combine) moves 7 × numel × itemsize.  The kernels
+(``csrc/fused_combine.cu``) keep four independent 16-byte loads per
+operand in flight per thread, on a grid sized from the occupancy query;
+the TPU kernel's 128-lane padding copies and ``[rows, 128]`` reshape have
+no counterpart.
+
+A CPU tensor goes to the plain version (:func:`plain`, :func:`hop_plain`);
 a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 OPS = {"add": 0, "max": 1, "min": 2, "mac": 3}
+HOP_OPS = ("add", "max", "min")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# kernel launches made by fused_combine (the main path's proof of use)
+# kernel launches made by fused_combine and fused_hop (the main path's
+# proof of use)
 launches = 0
+hop_launches = 0
 
 
 def plain(x: torch.Tensor, y: torch.Tensor, op: str = "add",
           alpha: float = 1.0) -> torch.Tensor:
-    """The plain PyTorch version of the kernel."""
+    """The plain PyTorch version of the elementwise kernel."""
     if op == "mac":
         return ref.combine_mac(x, y, alpha)
-    return {"add": ref.combine_add, "max": ref.combine_max,
-            "min": ref.combine_min}[op](x, y)
+    return ref.COMBINES[op](x, y)
+
+
+def hop_plain(buf: torch.Tensor, xs: torch.Tensor, s: int, *, dim: int,
+              rank_ndim: int, op: str = "add") -> torch.Tensor:
+    """The plain PyTorch version of the hop kernel, its formula over the
+    ``[A, n, B]`` view of the rank dims (see :func:`fused_hop`)."""
+    shape = buf.shape
+    n = shape[dim]
+    a, b = math.prod(shape[:dim]), math.prod(shape[dim + 1:rank_ndim])
+    r = torch.arange(n, device=buf.device)
+    incoming = buf.reshape(a, n, b, -1).roll(1, dims=1)
+    local = xs.reshape(a, n, b, n, -1)[:, r, :, (r - 2 - s) % n]
+    return ref.COMBINES[op](incoming, local.movedim(0, 1)).reshape(shape)
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/fused_combine.cu``) with its entry points
+    typed."""
+    lib.acis_fused_combine.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.acis_fused_combine.restype = ctypes.c_int
+    lib.acis_fused_hop.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.acis_fused_hop.restype = ctypes.c_int
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.library("fused_combine")
-    fn = lib.acis_fused_combine
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    """The library, its entry points typed once at load."""
+    global _LIB
+    if _LIB is None:
+        _LIB = typed(build.library("fused_combine"))
+    return _LIB
+
+
+@functools.lru_cache(maxsize=64)
+def _alpha(alpha: float, dtype: torch.dtype) -> float:
+    """``alpha`` rounded to the operands' dtype, as the kernel takes it."""
+    return float(torch.tensor(alpha, dtype=dtype))
+
+
+def _check_pair(x: torch.Tensor, y: torch.Tensor, what: str) -> bool:
+    """True for two CPU tensors (the plain version's case); raises for
+    what the kernel does not take; False for a kernel launch."""
+    if x.dtype != y.dtype:
+        raise TypeError(f"dtype mismatch {x.dtype} vs {y.dtype}")
+    if x.is_cpu and y.is_cpu:
+        return True
+    if not x.is_cuda or y.get_device() != x.get_device():
+        raise ValueError(f"{what} runs on one CUDA device, got "
+                         f"{x.device} and {y.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{what} kernel takes {list(DTYPES)}, got {x.dtype}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError(f"{what} kernel needs contiguous operands")
+    return False
 
 
 def fused_combine(x: torch.Tensor, y: torch.Tensor, *, op: str = "add",
@@ -61,32 +127,60 @@ def fused_combine(x: torch.Tensor, y: torch.Tensor, *, op: str = "add",
     if x.shape != y.shape:
         raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
-    if x.dtype != y.dtype:
-        raise TypeError(f"dtype mismatch {x.dtype} vs {y.dtype}")
-    if x.device.type == "cpu" and y.device.type == "cpu":
+    if _check_pair(x, y, "fused_combine"):
         return plain(x, y, op, alpha)
-    if x.device.type != "cuda" or y.device != x.device:
-        raise ValueError(f"fused_combine runs on one CUDA device, got "
-                         f"{x.device} and {y.device}")
-    if x.dtype not in DTYPES:
-        raise TypeError(f"fused_combine kernel takes {list(DTYPES)}, "
-                        f"got {x.dtype}")
     if op == "mac" and not x.dtype.is_floating_point:
         raise TypeError("mac is defined for float32/bfloat16 only")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("fused_combine kernel needs contiguous operands")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    # alpha enters the kernel already rounded to the operands' dtype
-    a = float(torch.tensor(alpha, dtype=x.dtype)) if op == "mac" else 1.0
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.acis_fused_combine(
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-            DTYPES[x.dtype], OPS[op], a,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    a = _alpha(alpha, x.dtype) if op == "mac" else 1.0
+    rc = _lib().acis_fused_combine(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+        DTYPES[x.dtype], OPS[op], a, x.get_device(),
+        build.stream_of(x.get_device()))
     launches += 1
     if rc != 0:
         raise RuntimeError(f"fused_combine kernel launch failed (code {rc})")
+    return out
+
+
+def fused_hop(buf: torch.Tensor, xs: torch.Tensor, s: int, *, dim: int,
+              rank_ndim: int, op: str = "add") -> torch.Tensor:
+    """Step ``s`` of the ring reduce-scatter over rank dim ``dim``, every
+    rank at once: with the rank dims viewed as ``[A, n, B]``,
+
+        out[a, r, b] = combine(buf[a, (r - 1) % n, b],
+                               xs[a, r, b, (r - 2 - s) % n])
+
+    ``buf`` is ``[*rank, *chunk]`` (each rank's running partial sum),
+    ``xs`` is ``[*rank, n, *chunk]`` (each rank's input in ``n`` ring
+    chunks), ``0 <= s <= n - 2``; ``op`` in {add, max, min}.  It is
+    ``combine(tp.shift(buf, 1), tp.take(xs, (i - 2 - s) % n))`` on a
+    :class:`~repro_torch.mesh.LocalMesh`, in one launch."""
+    global hop_launches
+    if op not in HOP_OPS:
+        raise ValueError(f"unknown hop op {op!r}; expected {list(HOP_OPS)}")
+    if not 0 <= dim < rank_ndim:
+        raise ValueError(f"ring dim {dim} is not one of {rank_ndim} rank dims")
+    n = buf.shape[dim]
+    if xs.shape != buf.shape[:rank_ndim] + (n,) + buf.shape[rank_ndim:]:
+        raise ValueError(f"xs {tuple(xs.shape)} is not buf "
+                         f"{tuple(buf.shape)} split in {n} ring chunks")
+    if not 0 <= s <= n - 2:
+        raise ValueError(f"hop {s} of a ring of {n}")
+    if _check_pair(buf, xs, "fused_hop"):
+        return hop_plain(buf, xs, s, dim=dim, rank_ndim=rank_ndim, op=op)
+    out = torch.empty_like(buf)
+    if out.numel() == 0:
+        return out
+    shape = buf.shape
+    rc = _lib().acis_fused_hop(
+        buf.data_ptr(), xs.data_ptr(), out.data_ptr(),
+        math.prod(shape[:dim]), n, math.prod(shape[dim + 1:rank_ndim]),
+        math.prod(shape[rank_ndim:]), s, DTYPES[buf.dtype], OPS[op],
+        buf.get_device(), build.stream_of(buf.get_device()))
+    hop_launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused_hop kernel launch failed (code {rc})")
     return out

@@ -33,6 +33,10 @@ def combine_mac(acc, x, alpha: float = 1.0):
     return _fc.fused_combine(acc, x, op="mac", alpha=float(alpha))
 
 
+def ring_hop(buf, xs, s: int, *, dim: int, rank_ndim: int, op: str = "add"):
+    return _fc.fused_hop(buf, xs, s, dim=dim, rank_ndim=rank_ndim, op=op)
+
+
 def pack_combine(arena, *parts, op=None):
     return _pc.fused_pack(arena, *parts, op=op)
 

@@ -45,15 +45,12 @@ def combine_mac(acc: torch.Tensor, x: torch.Tensor,
     return acc + torch.tensor(alpha, dtype=acc.dtype) * x
 
 
+COMBINES = {"add": combine_add, "max": combine_max, "min": combine_min}
+
+
 # ---------------------------------------------------------------------------
 # pack_combine — bucket pack (+ optional combine) into a flat arena
 # ---------------------------------------------------------------------------
-
-_PACK_COMBINE = {
-    "add": lambda a, b: a + b,
-    "max": torch.maximum,
-    "min": torch.minimum,
-}
 
 
 def pack_combine(arena: torch.Tensor, *parts: torch.Tensor,
@@ -70,7 +67,7 @@ def pack_combine(arena: torch.Tensor, *parts: torch.Tensor,
         s = p.shape[-1]
         seg = arena[..., off:off + s]
         if op is not None:
-            p = _PACK_COMBINE[op](seg, p)
+            p = COMBINES[op](seg, p)
         seg.copy_(p)
         off += s
     return arena

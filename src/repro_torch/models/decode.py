@@ -99,6 +99,26 @@ def _layers(params: PyTree, cache: PyTree, cfg: ModelConfig):
         yield params["rem"][name], cache["rem"][name], name.split("_", 1)[1]
 
 
+# Cache leaves the reference replaces by the step's activations (the conv
+# window ends with x_t, a token shift is x_t): by jnp's type promotion they
+# take x's dtype after the first step, while rings (written through
+# ``.astype``) and the f32 states keep theirs.
+_FOLLOW_X = {"lru": ("conv",), "rwkv": ("x_tok", "x_ch")}
+
+
+def _follow_activations_(cache: PyTree, dtype: torch.dtype) -> None:
+    """Widen, once, the leaves of :data:`_FOLLOW_X` to the promotion of
+    their dtype and the activations' ``dtype`` (a no-op once they hold
+    it): the port writes them in place, where the reference's update
+    would have promoted them."""
+    for part in ("layers", "rem"):
+        for name, c in cache[part].items():
+            for key in _FOLLOW_X.get(name.split("_", 1)[1], ()):
+                want = torch.promote_types(c[key].dtype, dtype)
+                if c[key].dtype != want:
+                    c[key] = c[key].to(want)
+
+
 def _attn_kw(cfg: ModelConfig) -> dict:
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                 d_head=cfg.head_dim, qk_norm=cfg.qk_norm,
@@ -169,6 +189,7 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
     [B, V] f32, cache), the cache updated in place."""
     period, _, rem = _ported_stack(cfg)
     x = L.embed_lookup(params["embed"], token[:, None])
+    _follow_activations_(cache, x.dtype)
     if "window" in period + rem:           # one copy to the device
         index = torch.as_tensor(index, device=x.device)
     for p, c, kind in _layers(params, cache, cfg):
@@ -192,6 +213,7 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     """
     _ported_stack(cfg)
     x = L.embed_lookup(params["embed"], tokens)
+    _follow_activations_(cache, x.dtype)
     for p, c, kind in _layers(params, cache, cfg):
         x, _ = block_prefill(p, x, c, cfg, kind, use_kernels=use_kernels)
     x = _norm(params["final_norm"], x[:, -1:], cfg)

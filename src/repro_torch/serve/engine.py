@@ -135,10 +135,10 @@ class ServeEngine:
         self.slots = slots
         self.max_seq = max_seq
         self.admission = admission
-        # the cache lives with the params, in their activation dtype
+        # the cache lives with the params, in bf16 whatever their dtype
+        # (the reference's ``model.init_cache(slots, max_seq)``)
         self.device = params["embed"].device
-        self.cache = model.init_cache(slots, max_seq, params["embed"].dtype,
-                                      device=self.device)
+        self.cache = model.init_cache(slots, max_seq, device=self.device)
 
         # host-side slot state
         self.rid = np.full(slots, -1, np.int64)

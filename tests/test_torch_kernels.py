@@ -151,9 +151,113 @@ def test_cpu_combine_takes_the_plain_version_and_launches_nothing(rng):
     assert tfc.launches == before
 
 
+def test_cpu_combine_path_loads_nothing_and_launches_nothing(rng,
+                                                             monkeypatch):
+    """The CPU path returns before the library, its argtypes and the
+    cached alpha: nothing is built, typed or launched, ``mac`` included."""
+    def no_build(name):
+        raise AssertionError(f"the CPU path loaded {name}")
+    monkeypatch.setattr(tfc.build, "library", no_build)
+    monkeypatch.setattr(tfc, "_LIB", None)
+    tfc._alpha.cache_clear()
+    before = (tfc.launches, tfc.hop_launches)
+    x = _torch(_data(rng, 33, "float32"))
+    for op in ("add", "max", "min", "mac"):
+        assert torch.equal(tfc.fused_combine(x, x, op=op, alpha=0.3),
+                           tfc.plain(x, x, op, 0.3))
+    xs = torch.arange(96, dtype=torch.float32).reshape(2, 4, 4, 3)
+    tfc.fused_hop(xs[:, :, 0], xs, 1, dim=1, rank_ndim=2, op="max")
+    assert (tfc.launches, tfc.hop_launches) == before
+    assert tfc._LIB is None and tfc._alpha.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("axes,dim", [((8,), 0), ((2, 4), 1), ((4, 2), 0),
+                                      ((2, 3, 2), 1)])
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_ring_hop_plain_is_the_transport_step(rng, axes, dim, op):
+    """``fused_hop``'s plain version equals the step the ring takes
+    through the transport, ``combine(shift(buf, 1), take(xs, (i - 2 - s)
+    % n))``, for every hop ``s`` and a ring over any rank dim."""
+    from repro_torch.mesh import LocalMesh
+
+    names = [f"a{k}" for k in range(len(axes))]
+    mesh = LocalMesh(dict(zip(names, axes)), device="cpu")
+    n = axes[dim]
+    xs = torch.from_numpy(rng.standard_normal(axes + (n, 5, 3)).astype(
+        np.float32))
+    buf = torch.from_numpy(rng.standard_normal(axes + (5, 3)).astype(
+        np.float32))
+    i = mesh.axis_index(names[dim])
+    for s in range(n - 1):
+        want = tref.COMBINES[op](mesh.shift(buf, names[dim], 1),
+                                 mesh.take(xs, (i - 2 - s) % n))
+        got = tfc.fused_hop(buf, xs, s, dim=dim, rank_ndim=len(axes), op=op)
+        assert_bitwise(_numpy(got), _numpy(want))
+
+
+def test_hop_wrapper_rejects_bad_operands():
+    xs, buf = torch.zeros(8, 8, 4), torch.zeros(8, 4)
+    with pytest.raises(ValueError, match="unknown hop op"):
+        tfc.fused_hop(buf, xs, 0, dim=0, rank_ndim=1, op="mac")
+    with pytest.raises(ValueError, match="ring chunks"):
+        tfc.fused_hop(buf, xs[:, :4], 0, dim=0, rank_ndim=1)
+    with pytest.raises(ValueError, match="hop 7"):
+        tfc.fused_hop(buf, xs, 7, dim=0, rank_ndim=1)
+    with pytest.raises(ValueError, match="rank dims"):
+        tfc.fused_hop(buf, xs, 0, dim=1, rank_ndim=1)
+    with pytest.raises(TypeError, match="dtype"):
+        tfc.fused_hop(buf, xs.double(), 0, dim=0, rank_ndim=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.fused_hop(buf.to("meta"), xs.to("meta"), 0, dim=0, rank_ndim=1)
+
+
 # ---------------------------------------------------------------------------
 # fused_pack
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("n_parts", [1, 3, 96, 97, 250])
+def test_pack_plan_splits_launches_and_covers_every_column_once(
+        rng, itemsize, n_parts):
+    """The launches' by-value tables: parts of size 0 left out, at most
+    MAX_PARTS per launch, every segment at its prefix offset, and the
+    blocks (a part by the tile prefix, then its tile's columns) cover
+    every column of every part exactly once."""
+    sizes = rng.integers(0, 3000, size=n_parts).tolist()
+    sizes[0] = 0 if n_parts > 1 else 5
+    ptrs = [4096 * (k + 1) for k in range(n_parts)]
+    tile = tpc.tile_elems(itemsize)
+    plan = tpc.pack_plan(ptrs, sizes, itemsize)
+    live = [k for k, s in enumerate(sizes) if s]
+    assert len(plan) == -(-len(live) // tpc.MAX_PARTS)
+    covered = np.zeros(sum(sizes) + 7, np.int64)
+    seen = []
+    for src, offset, size, tile0 in plan:
+        assert 1 <= len(src) <= tpc.MAX_PARTS
+        assert len(offset) == len(size) == len(src) == len(tile0) - 1
+        for block in range(tile0[-1]):
+            j = max(k for k in range(len(src)) if tile0[k] <= block)
+            t = block - tile0[j]
+            covered[offset[j] + t * tile:
+                    offset[j] + min(size[j], (t + 1) * tile)] += 1
+        seen += list(zip(src, offset, size))
+    assert seen == [(ptrs[k], sum(sizes[:k]), sizes[k]) for k in live]
+    want = np.zeros_like(covered)
+    want[:sum(sizes)] = 1
+    np.testing.assert_array_equal(covered, want)
+
+
+def test_cpu_pack_loads_nothing_and_launches_nothing(rng, monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"the CPU path loaded {name}")
+    monkeypatch.setattr(tpc.build, "library", no_build)
+    monkeypatch.setattr(tpc, "_LIB", None)
+    before = tpc.launches
+    arena = torch.zeros(8, 300)
+    parts = [torch.ones(8, 2)] * 120        # more parts than one launch
+    assert tpc.fused_pack(arena, *parts) is arena
+    assert float(arena.sum()) == 8 * 240
+    assert tpc.launches == before and tpc._LIB is None
 
 def _pack_case(rng, size, dt, n_parts=3):
     arena = _data(rng, size + 5, dt)           # 5 tail lanes must survive
@@ -729,6 +833,39 @@ def test_pack_kernel_matches_plain_on_card(cuda_device):
     ptr = arena.data_ptr()
     got = tpc.fused_pack(arena, *parts, op="max")
     assert got.data_ptr() == ptr and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype",
+                         [torch.float32, torch.bfloat16, torch.int8])
+def test_pack_kernel_many_parts_matches_plain_on_card(cuda_device, dtype):
+    """More parts than one launch's parameter holds, ragged and offset
+    off the 16-byte grid: one launch per group, bitwise."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sizes = [(7 * k) % 61 for k in range(130)]
+    arena = torch.randn(8, sum(sizes) + 9, device=cuda_device,
+                        generator=g).to(dtype)
+    parts = [torch.randn(8, s, device=cuda_device, generator=g).to(dtype)
+             for s in sizes]
+    want = tpc.plain(arena.clone(), *parts, op="add")
+    before = tpc.launches
+    got = tpc.fused_pack(arena, *parts, op="add")
+    assert tpc.launches == before + 2
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_hop_kernel_matches_plain_on_card(cuda_device, op):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xs = torch.randn(2, 4, 4, 1003, device=cuda_device, generator=g)
+    buf = torch.randn(2, 4, 1003, device=cuda_device, generator=g)
+    for s in range(3):
+        before = tfc.hop_launches
+        got = tfc.fused_hop(buf, xs, s, dim=1, rank_ndim=2, op=op)
+        assert tfc.hop_launches == before + 1
+        assert torch.equal(got, tfc.hop_plain(buf, xs, s, dim=1,
+                                              rank_ndim=2, op=op))
 
 
 @pytest.mark.cuda

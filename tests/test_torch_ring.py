@@ -302,3 +302,98 @@ def test_allreduce_welford_variance(mesh8, rng):
     np.testing.assert_allclose((s / n).numpy(), np.asarray(wv), rtol=1e-6,
                                atol=1e-6)
     np.testing.assert_allclose(m.numpy()[0], data.mean(0), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the fused ring hop: the registered Type 1 kernels' hook carries a
+# ``fused_hop`` form, which the reduce-scatter takes on CUDA tensors; CPU
+# tensors keep the transport loop (shift, take, combine), the fused hop's
+# plain version
+# ---------------------------------------------------------------------------
+
+DM = {"data": 2, "model": 4}
+
+
+def _counted_hop(mono, calls):
+    """The registered kernel hook of ``mono``, recording in ``calls`` the
+    form the ring calls for each hop: ``"step"`` (the hook itself, in the
+    transport loop) or ``"fused"`` (its ``fused_hop`` form)."""
+    from repro_torch.core import switchops
+
+    hop = switchops.hop_kernel(mono)
+
+    def step(incoming, local):
+        calls.append("step")
+        return hop(incoming, local)
+
+    def fused(buf, xs, s, **kw):
+        calls.append("fused")
+        return hop.fused_hop(buf, xs, s, **kw)
+    step.fused_hop = fused
+    return step
+
+
+@pytest.mark.parametrize("schedule", ["ring_reduce_scatter",
+                                      "ring_all_reduce"])
+@pytest.mark.parametrize("mono", MONOIDS)
+def test_fused_hop_plain_version_bitwise_on_one_axis(mesh8, rng, mono,
+                                                     schedule):
+    from repro_torch.kernels import fused_combine as tfc
+
+    x = rng.standard_normal((N, N * 6)).astype(np.float32)
+    want = ref_ranks(lambda v: getattr(jring, schedule)(
+        v, "data", jtypes.TYPE1_MONOIDS[mono]), mesh8, x)
+    calls, before = [], (tfc.launches, tfc.hop_launches)
+    got = port_ranks(lambda v: getattr(tring, schedule)(
+        v, "data", ttypes.TYPE1_MONOIDS[mono],
+        hop_combine=_counted_hop(mono, calls)), x)
+    assert_bitwise(got, want)
+    assert calls == ["step"] * (N - 1)          # the transport loop
+    assert (tfc.launches, tfc.hop_launches) == before  # no launch on the CPU
+
+
+@pytest.mark.parametrize("schedule", ["ring_reduce_scatter",
+                                      "ring_all_reduce"])
+@pytest.mark.parametrize("mono", MONOIDS)
+def test_fused_hop_plain_version_bitwise_over_the_second_axis(
+        mesh_dm, rng, mono, schedule):
+    x = rng.standard_normal((2, 4, 4 * 5, 3)).astype(np.float32)
+    spec = P("data", "model", None, None)
+
+    def ref(xl):
+        return getattr(jring, schedule)(
+            xl[0, 0], "model", jtypes.TYPE1_MONOIDS[mono])[None, None]
+    want = smap(ref, mesh_dm, spec, spec)(jnp.asarray(x))
+    calls = []
+    with LocalMesh(DM, device="cpu"):
+        got = getattr(tring, schedule)(
+            torch.from_numpy(x), "model", ttypes.TYPE1_MONOIDS[mono],
+            hop_combine=_counted_hop(mono, calls))
+    assert_bitwise(got.numpy(), want)
+    assert calls == ["step"] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes,axis", [({"data": 8}, "data"),
+                                       (DM, "model")])
+@pytest.mark.parametrize("mono", MONOIDS)
+def test_fused_hop_ring_matches_the_transport_loop_on_card(rng, mono, axes,
+                                                           axis):
+    """On CUDA tensors the ring takes the fused form once per hop, with
+    the same result bit for bit as the transport loop on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the "
+                    "card (chip_smoke.py checks them there)")
+    shape = tuple(axes.values())
+    x = torch.from_numpy(rng.standard_normal(
+        shape + (axes[axis] * 5, 3)).astype(np.float32))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        calls = []
+        with LocalMesh(axes, device=dev):
+            results[dev] = tring.ring_reduce_scatter(
+                x.to(dev), axis, ttypes.TYPE1_MONOIDS[mono],
+                hop_combine=_counted_hop(mono, calls)).cpu()
+        want = "step" if dev == "cpu" else "fused"
+        assert calls == [want] * (axes[axis] - 1)
+    assert torch.equal(results["cuda"], results["cpu"])

@@ -17,10 +17,12 @@ params.
   window-attention rings) with f32-cast params: the same completions
   without slot reuse, a ring wrap in the engine included, and the
   slot-reuse repair; every hybrid cache leaf of an admitted slot reset
-  (ring ``pos`` to -1, the rest to 0).  In bf16 a random-weight model's
-  top-2 logit gaps are of the size of the two frameworks' roundings, so
-  greedy tokens there would compare rounding, not the engine
-  (``test_torch_models.py`` holds the bf16 logits).
+  (ring ``pos`` to -1, the rest to 0); the engine's caches in the
+  reference's dtypes, leaf by leaf (bf16 rings, ROADMAP.md F1), and one
+  more decode step from the two engines' caches within 2^-14.  In bf16
+  a random-weight model's top-2 logit gaps are of the size of the two
+  frameworks' roundings, so greedy tokens there would compare rounding,
+  not the engine (``test_torch_models.py`` holds the bf16 logits).
 """
 
 import dataclasses
@@ -249,6 +251,55 @@ def test_hybrid_reused_slot_starts_from_a_zero_state(served_hybrid, rng,
     assert ref_all[-1] != fresh_ref[0]            # the reference's fault
     assert port_all[-1] == fresh_port[0]          # the port's repair
     assert port_all[:slots] == ref_all[:slots]    # first-use slots agree
+
+
+def _leaves(cache, prefix=""):
+    """``{path: leaf}`` of a nested cache dict (reference or port)."""
+    if isinstance(cache, dict):
+        out = {}
+        for k in sorted(cache):
+            out.update(_leaves(cache[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: cache}
+
+
+def test_hybrid_engine_caches_follow_the_reference_dtypes(served_hybrid,
+                                                          rng):
+    """F1 (ROADMAP.md §3): on f32 params the engine's caches start in bf16,
+    as the reference's ``init_cache(slots, max_seq)`` does (the RG-LRU
+    state ``h`` is f32 in both), and keep the reference's dtypes leaf by
+    leaf after serving: rings stay bf16, conv windows take the f32
+    activations.  One decode step from the two engines' final caches
+    gives logits within 2^-14 of the largest |logit|; with f32 rings the
+    gap is some 20 times that."""
+    jm, jp, model, tp = served_hybrid
+    jeng = J.ServeEngine(jm, jp, slots=3, max_seq=64)
+    teng = P.ServeEngine(model, tp, slots=3, max_seq=64)
+    for leaves in (_leaves(jeng.cache), _leaves(teng.cache)):
+        for path, leaf in leaves.items():
+            kind = path.rsplit("/", 1)[-1]
+            want = {"h": "float32", "pos": "int32"}.get(kind, "bfloat16")
+            assert str(leaf.dtype).removeprefix("torch.") == want, path
+    reqs = _requests(rng, [(5, 6), (3, 8), (17, 10)])
+    want, jeng = _run(J, jm, jp, reqs, 3)
+    got, teng = _run(P, model, tp, reqs, 3)
+    assert got == want
+    jl, tl = _leaves(jeng.cache), _leaves(teng.cache)
+    assert sorted(jl) == sorted(tl)
+    for path in jl:
+        assert str(tl[path].dtype).removeprefix("torch.") \
+            == str(jl[path].dtype), path
+    for path in ("/layers/pos2_window/k", "/layers/pos2_window/v"):
+        assert tl[path].dtype == torch.bfloat16, path
+    tok = np.array([7, 100, 300], np.int32)
+    idx = np.minimum(teng.pos, 63).astype(np.int32)
+    ref, _ = jm.decode_step(jp, jax.numpy.asarray(tok), jeng.cache,
+                            jax.numpy.asarray(idx))
+    port, _ = model.decode_step(tp, torch.from_numpy(tok), teng.cache,
+                                torch.from_numpy(idx))
+    ref = np.asarray(ref, np.float32)
+    gap = np.abs(port.numpy() - ref).max()
+    assert gap <= 2.0 ** -14 * np.abs(ref).max(), gap
 
 
 def test_hybrid_slot_reset_clears_every_cache_kind():
