@@ -476,6 +476,32 @@ def topk_checks(dev, gen) -> dict:
                        "tolerance": "d*2^-23*(|dense|+sum|vals|) per lane"}
     r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
     r["cases"] += 1
+    # a payload over a row's whole range: duplicates far apart in the
+    # accumulator (and next to each other), out-of-range indices among
+    # them, k not a multiple of 4
+    rows, size, k = 4, 3_000_000, 40_003
+    dense, vals = randn(rows, size), randn(rows, k)
+    idx = torch.randint(0, size, (rows, k), device=dev, generator=gen,
+                        dtype=torch.int32)
+    idx[:, 1::97] = idx[:, 0:1]                          # one lane, many adds
+    idx[:, 2::101] = torch.tensor([-1, size, 1 << 30, -(1 << 31)],
+                                  device=dev, dtype=torch.int32)[:, None]
+    keep = (idx >= 0) & (idx < size)
+    want = ta.plain(dense.clone(), idx, vals)
+    absum = ta.plain(dense.abs(), idx, vals.abs())
+    mult = max(int(torch.bincount(row[m].long()).max())
+               for row, m in zip(idx, keep))
+    got = ta.topk_accumulate_(dense, idx, vals)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    check(bool((err <= mult * 2.0 ** -23 * absum).all()),
+          f"spread duplicates differ by {err.max().item()} beyond f32 "
+          "rounding")
+    r["spread"] = {"shape": [rows, size], "k": k, "max_adds_per_lane": mult,
+                   "dropped": int((~keep).sum()),
+                   "max_abs_err": err.max().item()}
+    r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
+    r["cases"] += 1
     dense = torch.zeros(10, device=dev)
     before = ta.launches
     out = sparse_accumulate(dense, torch.tensor([1, 2], device=dev,
@@ -625,10 +651,14 @@ def wkv_inputs(dev, gen, b: int, t: int, h: int, k: int, v: int,
 
 
 # (batch, T, heads, K, V): the serve phase's prefill and decode, then the
-# reference sweep (tests/test_kernels.py) and a ragged case
+# reference sweep (tests/test_kernels.py), a ragged case, K and V off the
+# kernel's lane split (K 40 pads to 64 over 8 lanes of 8 rows; V 24 and 56
+# end inside a block's 64 columns; T 77 and 9 end inside a 16-token stage
+# and a 4-token step) and a decode at V < 64 with the state in place
 WKV_SHAPES = ((8, 512, 32, 64, 64), (8, 1, 32, 64, 64), (1, 16, 1, 8, 8),
               (1, 64, 2, 16, 16), (1, 100, 4, 32, 32), (1, 130, 2, 64, 64),
-              (1, 200, 1, 8, 8), (2, 37, 3, 64, 8))
+              (1, 200, 1, 8, 8), (2, 37, 3, 64, 8), (1, 77, 3, 40, 24),
+              (2, 9, 2, 64, 56), (4, 1, 8, 64, 40))
 
 
 def wkv_checks(dev, gen, shapes=WKV_SHAPES) -> dict:
@@ -644,6 +674,11 @@ def wkv_checks(dev, gen, shapes=WKV_SHAPES) -> dict:
     r = {"cases": 0, "max_abs_err": 0.0, "max_err_over_bound": 0.0,
          "plain_max_err_over_bound": 0.0}
     for b, t, h, k, v in shapes:
+        if torch.device(dev).type == "cuda":
+            check(rk.built_launch_shape(k, v) == rk.launch_shape(k, v),
+                  f"rwkv6_recurrence K={k} V={v}: the build's launch shape "
+                  f"{rk.built_launch_shape(k, v)} is not the wrapper's "
+                  f"{rk.launch_shape(k, v)}")
         for dtype in (torch.float32, torch.bfloat16):
             for with_s0 in (False, True):
                 for kv_bf16 in (False, True):
@@ -693,6 +728,7 @@ def wkv_checks(dev, gen, shapes=WKV_SHAPES) -> dict:
                 continue
             raise AssertionError("rwkv6_recurrence took operands it does "
                                  "not support")
+    r["launch_shape"] = rk.launch_shape(64, 64)
     r["tolerance"] = ("wkv_tolerance: state E_t = |w_t| E_{t-1} + "
                       "3*2^-24*A_t (A the |.| recurrence), output "
                       "sum|r|E + (K+3)*2^-24*sum|r|(A + |u kv|) + its "
@@ -999,12 +1035,18 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     flat_idx = (idx.long() + torch.arange(8, device=dev)[:, None] * size
                 ).view(-1)
     flat_vals = vals.view(-1)
+    # the card moves 32-byte sectors: each distinct sector the payload
+    # touches is read and written back (64 bytes), beside the payload
+    sectors = sum(torch.unique(row.long() // 8).numel() for row in idx)
     topk = {
         "ms": time_ms(lambda: ta.topk_accumulate_(dense, idx, vals)),
         "plain_ms": time_ms(lambda: ta.plain(dense, idx, vals)),
         "library_ms": time_ms(lambda: dense.view(-1).index_add_(
             0, flat_idx, flat_vals)),
         "bytes": idx.numel() * (4 + 4) + idx.numel() * 4 * 2,
+        "sectors": sectors,
+        "sector_bound_ms": (idx.numel() * (4 + 4) + 64 * sectors) / peak
+        * 1e3,
         "shape": [8, size], "k": k, "dtype": "float32",
     }
     del dense, idx, vals, flat_idx, flat_vals
@@ -2405,7 +2447,9 @@ def main() -> int:
             "max_abs_err": checks[k]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **({"sector_bound_ms": t["sector_bound_ms"]}
+               if "sector_bound_ms" in t else {})})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

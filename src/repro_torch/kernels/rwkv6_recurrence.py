@@ -22,18 +22,23 @@ Bound on the card: at the prefill shape (``[8, 512, 32, 64]`` bf16 in the
 model's layout) operations — about 8 f32 flops per (k, v) per token —
 over the H100's f32 rate, above the bytes over its memory rate; decode
 (T = 1) moves the f32 state in and out, so bytes bound it there.  The
-kernel (``csrc/rwkv6_recurrence.cu``) runs one block of 64 threads per
-(batch, head); thread j keeps state column ``S[:, j]`` in registers and
-steps over T, with r, k, w and v of 8 tokens staged in double-buffered
-shared memory.  K and V up to 64.
+kernel (``csrc/rwkv6_recurrence.cu``) splits each (batch, head)'s state
+over its threads by value column and by key row (:func:`launch_shape`:
+at K = V = 64, one block of 256 threads per (batch, head); 8 lanes share
+2 columns, 8 rows each in registers), and steps over T with r, k, w and v
+of 16 tokens copied into a ring of 3 shared-memory stages by
+``cp.async``; each lane's partial sums of o go to shared memory and are
+summed over the 8 lanes once per chunk.  K and V up to 64.
 
 Numbers: r, k, v in float32 or bfloat16 (one dtype), w float32 (a bf16 or
 f16 w is widened, never narrowed: the decay near 1 needs f32), u, s0 and
 the arithmetic f32.  ``kv_bf16`` rounds ``k ⊗ v`` to bf16 before use, as
 the reference's ``rwkv6_decode`` does by forming it from bf16 operands;
 the default is the TPU kernel's exact f32 product.  The kernel sums over k
-in its own order with fused multiply-adds, so it agrees with the plain
-version to f32 rounding: :func:`wkv_tolerance` states the bound.
+in its own order (two partial sums per lane over its rows, then a
+pairwise tree over the lanes of a column) with fused multiply-adds, so it
+agrees with the plain version to f32 rounding: :func:`wkv_tolerance`
+states the bound, which holds for any order.
 
 A CPU tensor goes to the plain version (:mod:`repro_torch.kernels.ref`);
 a CUDA tensor launches the kernel or raises.
@@ -49,8 +54,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-MAX_K = MAX_V = 64               # csrc/rwkv6_recurrence.cu: kThreads
+MAX_K = MAX_V = 64               # csrc/rwkv6_recurrence.cu: kMaxK, kMaxV
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/rwkv6_recurrence.cu's default launch shape (the ACIS_WKV_* macros)
+GROUPS, VCOLS, COLS_PER_THREAD, CHUNK, STAGES, UNROLL = 8, 64, 2, 16, 3, 4
+SHAPE_KEYS = ("kp", "groups", "rows", "vcols", "cpt", "threads", "blocks",
+              "chunk", "stages", "unroll")
 
 # kernel launches made by rwkv6_recurrence (the main path's proof of use)
 launches = 0
@@ -101,14 +110,74 @@ def _bht_strides(x: torch.Tensor) -> tuple[int, int, int]:
     return (dims[-1][1] if dims else 0, x.stride(-3), x.stride(-2))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("rwkv6_recurrence")
-    fn = lib.acis_rwkv6_recurrence
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def launch_shape(k: int, v: int, *, groups: int = GROUPS,
+                 vcols: int = VCOLS, cpt: int = COLS_PER_THREAD) -> dict:
+    """The kernel's launch shape for K = ``k`` and V = ``v``, as
+    ``acis_rwkv6_launch_shape`` reports it: K padded to 16, 32 or 64;
+    ``groups`` lanes share a value column (fewer where the padded K has
+    fewer than 4 rows a lane), each with ``rows`` rows of it; ``cpt``
+    consecutive columns a thread, ``vcols`` a block; ``blocks`` per
+    (batch, head) along V."""
+    kp = 16 if k <= 16 else 32 if k <= 32 else 64
+    g = min(groups, kp // 4)
+    return {"kp": kp, "groups": g, "rows": kp // g, "vcols": vcols,
+            "cpt": cpt, "threads": vcols // cpt * g,
+            "blocks": -(-v // vcols), "chunk": CHUNK, "stages": STAGES,
+            "unroll": UNROLL}
+
+
+def lanes(k: int, v: int, **shape) -> list[list[list[tuple[int, int]]]]:
+    """``[block][thread]`` -> the (row, column) lanes of one (batch,
+    head)'s state that thread holds, as the kernel assigns them: lane g of
+    a group of ``groups`` consecutive lanes holds rows ``4 (g + groups m)
+    + q`` (q < 4) of columns ``cpt · cs + c`` (c < cpt) of its block's
+    ``vcols``, where ``cs = 32 / groups · warp + lane / groups``.  Rows at
+    or past K and columns at or past V are padding, left out."""
+    sh = launch_shape(k, v, **shape)
+    g_, cpt = sh["groups"], sh["cpt"]
+    out = []
+    for blk in range(sh["blocks"]):
+        threads = []
+        for tid in range(sh["threads"]):
+            lane, g = tid % 32, tid % 32 % g_
+            cs = tid // 32 * (32 // g_) + lane // g_
+            cols = [blk * sh["vcols"] + cs * cpt + c for c in range(cpt)]
+            rows = [4 * (g + g_ * m) + q for m in range(sh["rows"] // 4)
+                    for q in range(4)]
+            threads.append([(i, c) for c in cols for i in rows
+                            if i < k and c < v])
+        out.append(threads)
+    return out
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/rwkv6_recurrence.cu``) with its entry
+    points typed."""
+    lib.acis_rwkv6_recurrence.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int64] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.acis_rwkv6_recurrence.restype = ctypes.c_int
+    lib.acis_rwkv6_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
+    lib.acis_rwkv6_launch_shape.restype = None
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = typed(build.library("rwkv6_recurrence"))
+    return _LIB
+
+
+def built_launch_shape(k: int, v: int, lib=None) -> dict:
+    """:func:`launch_shape` as the built library reports it (card only)."""
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    (lib or _lib()).acis_rwkv6_launch_shape(k, v, out)
+    return dict(zip(SHAPE_KEYS, out))
 
 
 def rwkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,14 +233,12 @@ def rwkv6_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, s
     strides = (ctypes.c_int64 * 15)(*(
         st for x in (r, k, v, w, o) for st in _bht_strides(x)))
-    lib = _lib()
-    with torch.cuda.device(r.device):
-        rc = lib.acis_rwkv6_recurrence(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), None if s0 is None else s0.data_ptr(),
-            s.data_ptr(), o.data_ptr(), b, h, t, kk, vv, strides,
-            DTYPES[r.dtype], int(bool(kv_bf16)),
-            torch.cuda.current_stream(r.device).cuda_stream)
+    dev = r.get_device()
+    rc = _lib().acis_rwkv6_recurrence(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if s0 is None else s0.data_ptr(), s.data_ptr(), o.data_ptr(),
+        b, h, t, kk, vv, strides, DTYPES[r.dtype], int(bool(kv_bf16)), dev,
+        build.stream_of(dev))
     launches += 1
     if rc != 0:
         raise RuntimeError(f"rwkv6_recurrence kernel launch failed "

@@ -16,9 +16,21 @@ reference exposes is :func:`repro_torch.core.compression.sparse_accumulate`,
 which clones first.
 
 Bound on the card: device memory — ``rows·k·(4 + 4)`` bytes of payload
-read plus ``rows·k·4`` read and written in ``dense``.  The kernel
-(``csrc/topk_accum.cu``) is one ``atomicAdd`` per payload entry; the TPU
-kernel's one-hot MXU matmul is a TPU workaround and is not carried over.
+read plus ``rows·k·4`` read and written in ``dense`` by the measurement
+rule; the card moves 32-byte sectors, so at 1% density nearly every entry
+costs a sector read and written back (``chip_smoke.py``'s
+``sector_bound_ms``).  The kernel (``csrc/topk_accum.cu``) is one
+reduction (``atomicAdd``, result unused) per payload entry on a 2-D grid
+of row tiles × rows; the TPU kernel's one-hot MXU matmul is a TPU
+workaround and is not carried over.
+
+**One pass.** ``tools/probe_topk.py`` measured what limits the kernel at
+the embed leaf: the random read-modify-write of the accumulator's
+sectors.  A payload sorted by index (the best any address order gives) is
+about 1.1x faster, and a form that first bins the payload by address
+window (a counting sort, ``tools/topk_candidates.cu``) is slower, so the
+kernel scatters the payload in the order it comes: one launch a call.
+
 Out-of-range indices (negative, or ``>= size``) are dropped, as the
 one-hot product drops them; the plain version drops them too.  With
 indices distinct within a row (one top-k selection) each lane gets one
@@ -36,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -69,13 +82,23 @@ def plain(dense: torch.Tensor, idx: torch.Tensor,
     return ref.topk_accumulate(dense, idx, vals)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("topk_accum")
-    fn = lib.acis_topk_accumulate
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/topk_accum.cu``) with its entry point
+    typed."""
+    lib.acis_topk_accumulate.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    lib.acis_topk_accumulate.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = typed(build.library("topk_accum"))
+    return _LIB
 
 
 def topk_accumulate_(dense: torch.Tensor, idx: torch.Tensor,
@@ -100,12 +123,11 @@ def topk_accumulate_(dense: torch.Tensor, idx: torch.Tensor,
         raise ValueError("topk_accumulate kernel needs contiguous payloads")
     if idx.numel() == 0:
         return dense
-    lib = _lib()
-    with torch.cuda.device(dense.device):
-        rc = lib.acis_topk_accumulate(
-            dense.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-            math.prod(dense.shape[:-1]), dense.shape[-1], idx.shape[-1],
-            torch.cuda.current_stream(dense.device).cuda_stream)
+    dev = dense.get_device()
+    rc = _lib().acis_topk_accumulate(
+        dense.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+        math.prod(dense.shape[:-1]), dense.shape[-1], idx.shape[-1], dev,
+        build.stream_of(dev))
     launches += 1
     if rc != 0:
         raise RuntimeError(f"topk_accumulate kernel launch failed (code {rc})")

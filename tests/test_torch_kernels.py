@@ -458,6 +458,31 @@ def test_topk_accumulate_drops_out_of_range_indices(rng):
                    dense[[0, 1, 2, 3, 4, 6, 38]])
 
 
+def test_topk_accumulate_spread_duplicates_and_out_of_range(rng):
+    """A payload over a row's whole range, as chip_smoke.py's card check
+    draws it at size: duplicates far apart and out-of-range indices among
+    them, k not a multiple of 4.  Dropped lanes agree bit for bit; the rest
+    to f32 rounding of each lane's d adds, d·2^-23·(|dense| + Σ|vals|)."""
+    size, k = 5000, 403
+    dense = rng.standard_normal(size).astype(np.float32)
+    idx = rng.integers(0, size, k).astype(np.int32)
+    idx[1::37] = idx[0]
+    idx[2::41] = np.array([-1, size, 1 << 30, -(1 << 31)] * 3,
+                          np.int32)[:len(idx[2::41])]
+    vals = rng.standard_normal(k).astype(np.float32)
+    want = np.asarray(jta.topk_accumulate(
+        *map(jnp.asarray, (dense, idx, vals)), interpret=True))
+    got = tta.topk_accumulate_(*map(torch.from_numpy,
+                                    (dense.copy(), idx, vals))).numpy()
+    keep = (idx >= 0) & (idx < size)
+    mult = np.bincount(idx[keep], minlength=size)
+    absum = np.abs(dense).copy()
+    np.add.at(absum, idx[keep], np.abs(vals[keep]))
+    assert np.all(np.abs(got - want) <= mult * 2.0 ** -23 * absum)
+    untouched = mult == 0
+    assert_bitwise(got[untouched], dense[untouched])
+
+
 def test_topk_accumulate_rows_in_place(rng):
     """Rank dims fold into rows: row r adds into dense[r], in place."""
     dense = rng.standard_normal((4, 2, 70)).astype(np.float32)
@@ -899,6 +924,21 @@ def test_topk_accumulate_kernel_matches_plain_on_card(cuda_device):
     tta.topk_accumulate_(dense, idx, vals)
     assert tta.launches == before + 1
     assert torch.equal(dense, want)               # distinct: bitwise
+    # spread duplicates, out-of-range indices, k not a multiple of 4
+    idx = torch.randint(0, 100_000, (8, 1003), device=cuda_device,
+                        generator=g, dtype=torch.int32)
+    idx[:, 1::97] = idx[:, :1]
+    idx[:, 2::101] = -1
+    idx[:, 3::101] = 100_000
+    vals = torch.randn(8, 1003, device=cuda_device, generator=g)
+    want = tta.plain(dense.clone(), idx, vals)
+    absum = tta.plain(dense.abs(), idx, vals.abs())
+    keep = (idx >= 0) & (idx < 100_000)
+    mult = max(int(torch.bincount(row[m].long()).max())
+               for row, m in zip(idx, keep))
+    tta.topk_accumulate_(dense, idx, vals)
+    assert tta.launches == before + 2
+    assert bool(((dense - want).abs() <= mult * 2.0 ** -23 * absum).all())
 
 
 @pytest.mark.cuda
@@ -923,10 +963,13 @@ def test_prefix_sum_kernel_matches_plain_on_card(cuda_device, shape, dim):
 def test_rwkv6_kernel_matches_plain_on_card(cuda_device, rng, dtype,
                                             kv_bf16):
     """The model's layout (strided views) at decode (T = 1, state in
-    place) and prefill-like T: within ``wkv_tolerance`` of the float64
-    recurrence, as the plain version is."""
-    for t in (1, 37):
-        args = [a.to(cuda_device) for a in _wkv_args(rng, 2, t, 4, 64, 64)]
+    place) and prefill-like T, and K and V off the kernel's lane split:
+    within ``wkv_tolerance`` of the float64 recurrence, as the plain
+    version is; the build's launch shape is the wrapper's."""
+    for t, k_, v_ in ((1, 64, 64), (37, 64, 64), (77, 40, 24), (9, 64, 56),
+                      (1, 64, 40)):
+        assert trw.built_launch_shape(k_, v_) == trw.launch_shape(k_, v_)
+        args = [a.to(cuda_device) for a in _wkv_args(rng, 2, t, 4, k_, v_)]
         args[:3] = [a.to(dtype) for a in args[:3]]
         r, k, v, w, u, s0 = args
         eo, es, otol, stol = trw.wkv_tolerance(r, k, v, w, u, s0,

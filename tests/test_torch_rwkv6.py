@@ -167,6 +167,90 @@ def test_empty_sequence_returns_the_initial_state():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's lane split and summation order (the kernel itself runs
+# only on the card; chip_smoke.py holds it to wkv_tolerance there)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [{}, {"groups": 4, "cpt": 1},
+                                   {"groups": 16, "cpt": 4}, {"vcols": 32}],
+                         ids=["shipped", "g4_c1", "g16_c4", "v32"])
+@pytest.mark.parametrize("k,v", [(64, 64), (40, 24), (64, 56), (8, 8),
+                                 (16, 16), (32, 32), (1, 1), (17, 64)])
+def test_wkv_launch_shape_covers_every_state_lane_once(k, v, shape):
+    """Whole warps, groups that divide a warp, 4-row loads, and every
+    (row, column) of a (batch, head)'s state held by exactly one thread."""
+    sh = trk.launch_shape(k, v, **shape)
+    assert sh["threads"] % 32 == 0 and 32 % sh["groups"] == 0
+    assert sh["rows"] % 4 == 0 and sh["kp"] == sh["groups"] * sh["rows"]
+    assert sh["kp"] >= k and sh["blocks"] * sh["vcols"] >= v
+    held = [lane for blk in trk.lanes(k, v, **shape) for th in blk
+            for lane in th]
+    assert sorted(held) == [(i, j) for i in range(k) for j in range(v)]
+
+
+def _fma(a, b, c):
+    """a·b + c rounded to f32 once from float64 (a·b of f32 values is exact
+    there; the float64 sum rounds first, a double rounding a fused
+    multiply-add does not make, well inside the bound)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _kernel_order(r, k, v, w, u, s0, *, kv_bf16):
+    """The recurrence in f32 in ``csrc/rwkv6_recurrence.cu``'s order, with
+    its lane split (:func:`trk.launch_shape`): K padded with zero rows; lane
+    g of a column holds rows 4 (g + G m) + q and sums its terms into two
+    partial sums (even and odd q, rows in order), one fused multiply-add a
+    row; the G lanes' sums of a column are added in a pairwise tree."""
+    K, V = r.shape[-1], v.shape[-1]
+    sh = trk.launch_shape(K, V)
+    G, kp, M = sh["groups"], sh["kp"], sh["rows"] // 4
+    padk = [(0, 0)] * (r.ndim - 1) + [(0, kp - K)]
+    r, k, w = (np.pad(x, padk) for x in (r, k, w))
+    u = np.pad(u, [(0, 0), (0, kp - K)])
+    S = np.zeros(r.shape[:-2] + (kp, V), np.float32)
+    S[..., :K, :] = s0
+    os = []
+    for t in range(r.shape[-2]):
+        kv = (k[..., t, :, None] * v[..., t, None, :]).astype(np.float32)
+        if kv_bf16:
+            kv = kv.astype(ml_dtypes.bfloat16).astype(np.float32)
+        acc = [np.zeros(r.shape[:-2] + (G, V), np.float32) for _ in range(2)]
+        for m in range(M):
+            for q in range(4):
+                i = 4 * (np.arange(G) + G * m) + q
+                tt = _fma(u[:, i, None], kv[..., i, :], S[..., i, :])
+                acc[q & 1] = _fma(r[..., t, i, None], tt, acc[q & 1])
+                S[..., i, :] = _fma(w[..., t, i, None], S[..., i, :],
+                                    kv[..., i, :])
+        part = acc[0] + acc[1]
+        d = 1
+        while d < G:
+            part[..., ::2 * d, :] = part[..., ::2 * d, :] + part[..., d::2 * d, :]
+            d *= 2
+        os.append(part[..., 0, :])
+    return np.stack(os, -2), S[..., :K, :]
+
+
+@pytest.mark.parametrize("kv_bf16", [False, True])
+@pytest.mark.parametrize("h,t,k,v", SWEEP + [(1, 200, 8, 8), (3, 77, 40, 24),
+                                             (2, 9, 64, 56), (8, 1, 64, 40)])
+def test_kernel_summation_order_within_wkv_tolerance(rng, h, t, k, v,
+                                                     kv_bf16):
+    """The kernel's order (split over k by lane, then the tree over lanes),
+    emulated in f32 from a state, stays within ``wkv_tolerance`` of the
+    float64 recurrence over the reference sweep and the lane split's edges
+    (K and V off the split, a decode at V < 64)."""
+    r, kk, vv, w = _inputs(rng, (h,), t, k, v)
+    u = (rng.standard_normal((h, k)) * 0.1).astype(np.float32)
+    s0 = rng.standard_normal((h, k, v)).astype(np.float32)
+    o, s = _kernel_order(r, kk, vv, w, u, s0, kv_bf16=kv_bf16)
+    eo, es, otol, stol = trk.wkv_tolerance(*_t(r, kk, vv, w, u, s0),
+                                           kv_bf16=kv_bf16)
+    _within(o, eo, otol, "o")
+    _within(s, es, stol, "S")
+
+
+# ---------------------------------------------------------------------------
 # the serving block: rwkv6_decode / rwkv6_prefill vs the reference's decode
 # ---------------------------------------------------------------------------
 
