@@ -16,7 +16,11 @@ Phases, one JSON line each:
                   ``topk_accumulate`` with duplicate indices within f32
                   rounding of the lane's sum; ``prefix_sum`` bitwise on
                   integer-valued data, within ``scan_tolerance`` of the
-                  exact sum on random data; ``rwkv6_recurrence`` within
+                  exact sum on random data, its run-to-run differences
+                  reported; ``quant_combine`` and its ring-hop form
+                  ``quant_hop`` bitwise, the hop for every hop of a ring of
+                  8 on one axis and over the second of two, exact rows and
+                  a NaN row included; ``rwkv6_recurrence`` within
                   ``wkv_tolerance`` of the float64 recurrence, as its
                   plain version is; ``rglru_scan`` bitwise, and both
                   within ``rglru_tolerance``), then timed at the main
@@ -43,8 +47,9 @@ Phases, one JSON line each:
                   in turns with ``use_kernels=False`` as above; outputs and
                   residuals bitwise equal to it, every rank holding the
                   same totals, the EF identity over the 3 steps, and
-                  ``quant_combine`` / ``topk_accumulate`` launched as
-                  often as the compiled program says
+                  ``quant_hop`` / ``topk_accumulate`` launched as
+                  often as the compiled program says; a profile of one
+                  sync each way, its rolls and gathers counted
   6. fused      — the Type 3/4 programs through ``make_engine("acis").
                   compile`` on ``LocalMesh({"data": 8})``, one line each:
                   Fig. 5's scan + gather at 4 MiB per rank (1-D and
@@ -167,8 +172,8 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_modules() -> dict:
     """Every ported kernel's wrapper module and the name of its launch
-    count there, by kernel name (``fused_combine`` and ``chunk_scan`` hold
-    two kernels each)."""
+    count there, by kernel name (``fused_combine``, ``quant_combine`` and
+    ``chunk_scan`` hold two kernels each)."""
     from repro_torch.kernels import (chunk_scan, fused_combine, pack_combine,
                                      quant_combine, rwkv6_recurrence,
                                      topk_accum)
@@ -176,6 +181,7 @@ def kernel_modules() -> dict:
             "fused_hop": (fused_combine, "hop_launches"),
             "fused_pack": (pack_combine, "launches"),
             "quant_combine": (quant_combine, "launches"),
+            "quant_hop": (quant_combine, "hop_launches"),
             "topk_accumulate": (topk_accum, "launches"),
             "prefix_sum": (chunk_scan, "launches"),
             "rwkv6_recurrence": (rwkv6_recurrence, "launches"),
@@ -304,6 +310,7 @@ def kernel_checks(dev) -> dict:
     report["fused_pack"]["max_parts_per_launch"] = pc.MAX_PARTS
     report["fused_hop"] = hop_checks(dev, gen, data)
     report["quant_combine"] = quant_checks(dev, gen)
+    report["quant_hop"] = quant_hop_checks(dev, gen)
     report["topk_accumulate"] = topk_checks(dev, gen)
     report["prefix_sum"] = prefix_checks(dev, gen)
     report["rwkv6_recurrence"] = wkv_checks(dev, gen)
@@ -421,6 +428,83 @@ def quant_checks(dev, gen) -> dict:
     r["nan_row"] = {"scale": s[3].item(), "kernel_q_zero": True,
                     "plain_q_equal": bool(torch.equal(q[3], wq[3]))}
     r["cases"] += 1
+    return r
+
+
+def quant_hop_checks(dev, gen, big_rows: int = 12_000) -> dict:
+    """``quant_hop`` against its plain version (``quant_hop_plain``), bit
+    for bit, and against the ring step it replaces, ``quant_combine(
+    tp.shift(buf, 1), tp.take(xs, (i - 2 - s) % n))``: every hop ``s`` of
+    a ring of 8 on ``LocalMesh({"data": 8})`` and over the second axis of
+    ``{"pod": 2, "data": 8}``, at ragged row counts (1, 7, 1003) of random
+    rows; then the six exact rows of :func:`quant_cases` in every rank's
+    partial sum and chunk (the .5 ties, a zero row, zero scales, ±127,
+    unequal scales), once more with a NaN scale in row 3 (its lanes held
+    to 0, the plain version's compared elsewhere); then every hop of the
+    largest int8_hopquant ring (``big_rows`` rows a chunk)."""
+    from repro_torch.kernels import quant_combine as qc
+    from repro_torch.mesh import LocalMesh
+
+    r = {"cases": 0, "max_abs_err": 0.0}
+
+    def rnd(shape):
+        return (torch.randint(-127, 128, shape + (256,), device=dev,
+                              generator=gen, dtype=torch.int8),
+                torch.rand(shape, device=dev, generator=gen) * 2)
+
+    def hold(mesh, buf, xs, nan_row=None):
+        ax = "data"
+        i, n = mesh.axis_index(ax), mesh.axis_size(ax)
+        for s in range(n - 1):
+            kw = dict(dim=mesh.dim(ax), rank_ndim=mesh.rank_ndim)
+            q, sc = qc.quant_hop(*buf, *xs, s, **kw)
+            wq, ws = qc.hop_plain(*buf, *xs, s, **kw)
+            torch.cuda.synchronize()
+            if nan_row is None:
+                r["max_abs_err"] = max(r["max_abs_err"], _bitwise_err(q, wq),
+                                       _bitwise_err(sc, ws))
+                tq, ts = qc.plain(mesh.shift(buf[0], ax, 1),
+                                  mesh.shift(buf[1], ax, 1),
+                                  mesh.take(xs[0], (i - 2 - s) % n),
+                                  mesh.take(xs[1], (i - 2 - s) % n))
+                _bitwise_err(q, tq)
+                _bitwise_err(sc, ts)
+            else:
+                check(bool((sc[..., nan_row] == 1.0).all()
+                           and (ws[..., nan_row] == 1.0).all()),
+                      "a NaN row must get scale 1.0")
+                check(not q[..., nan_row, :].any(),
+                      "the NaN row's lanes must be written as 0")
+                keep = torch.arange(q.shape[-2], device=dev) != nan_row
+                _bitwise_err(q[..., keep, :], wq[..., keep, :])
+                _bitwise_err(sc, ws)
+            r["cases"] += 1
+        return q, sc
+
+    _, (qa, sa, qb, sb) = quant_cases(dev, gen)
+    for axes in ({"data": 8}, {"pod": 2, "data": 8}):
+        mesh = LocalMesh(axes, device=dev)
+        for rows in (1, 7, 1003):
+            hold(mesh, rnd(mesh.rank_shape + (rows,)),
+                 rnd(mesh.rank_shape + (8, rows)))
+        buf = (qa.expand(mesh.rank_shape + qa.shape).contiguous(),
+               sa.expand(mesh.rank_shape + sa.shape).contiguous())
+        xs = (qb.expand(mesh.rank_shape + (8,) + qb.shape).contiguous(),
+              sb.expand(mesh.rank_shape + (8,) + sb.shape).contiguous())
+        q, sc = hold(mesh, buf, xs)
+        check(q[..., 0, 1:7].eq(torch.tensor(
+            [0, 2, 2, 0, -2, -2], dtype=torch.int8, device=dev)).all().item(),
+            "the .5 ties did not round half to even")
+        check(bool((sc[..., 1:3] == 1.0).all() and not q[..., 1:3, :].any()),
+              "a zero row must get scale 1.0 and q 0")
+        check(bool((q[..., 3, :] == 127).all() and (q[..., 4, :] == -127)
+                   .all()), "saturated rows must hold ±127")
+        nan_buf = (buf[0], buf[1].clone())
+        nan_buf[1][..., 3] = float("nan")
+        hold(mesh, nan_buf, xs, nan_row=3)
+    mesh = LocalMesh({"data": 8}, device=dev)
+    hold(mesh, rnd((8, big_rows)), rnd((8, 8, big_rows)))
+    r["nan_row"] = {"scale": 1.0, "kernel_q_zero": True}
     return r
 
 
@@ -570,11 +654,14 @@ def prefix_checks(dev, gen) -> dict:
     exact sum, kernel and plain version alike, so within twice it of each
     other.  bf16: a bounded walk bitwise; random data within the bf16
     bound of the exact sum (the plain version's difference is reported,
-    not held: its bf16 accumulation is PyTorch's own)."""
+    not held: its bf16 accumulation is PyTorch's own).  The look-back
+    makes a float scan's last bits depend on which tiles had published:
+    the elements that differ between two runs on one random [8, 2^20]
+    input are counted, not held."""
     from repro_torch.kernels import chunk_scan as cs
 
     r = {"cases": 0, "max_abs_err": 0.0, "max_err_over_bound": 0.0}
-    f32 = [((8, 1 << 20), 1), ((8, 16384, 64), 1), ((8, 3 * 4096 + 123), 1),
+    f32 = [((8, 1 << 20), 1), ((8, 16384, 64), 1), ((8, 3 * 8192 + 123), 1),
            ((3, 1000, 5), 1), ((4, 3000, 7), 1), ((8, 1, 64), 1),
            ((5, 1), 1), ((100003,), 0)]
     for shape, dim in f32:
@@ -597,8 +684,12 @@ def prefix_checks(dev, gen) -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], diff.max().item())
         r["max_err_over_bound"] = max(r["max_err_over_bound"], ratio)
         r["cases"] += 2
+        if shape == (8, 1 << 20):
+            again = cs.prefix_sum(x, dim)
+            torch.cuda.synchronize()
+            r["run_to_run_differing_elements"] = int((again != got).sum())
     r["bf16_plain_max_abs_diff"] = r["bf16_err_over_bound"] = 0.0
-    for shape, dim in (((8, 3 * 4096 + 123), 1), ((8, 16384, 64), 1)):
+    for shape, dim in (((8, 3 * 8192 + 123), 1), ((8, 16384, 64), 1)):
         x = bounded_walk(shape, dim, dev, gen)
         got, want = cs.prefix_sum(x, dim), cs.plain(x, dim)
         torch.cuda.synchronize()
@@ -938,7 +1029,9 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     [8, 3,072,000] add), the Coalesce bucket pack (f32 parts
     of 768, 9216 and 9216 per rank into the [8, 19200] arena), the largest
     int8_hopquant hop (the embed leaf's chunk, rank dims folded into
-    rows), the top-k accumulate of the embed leaf (k = 1% of its
+    rows; its ring-hop form from the [8, 8, blocks, 256] chunked input
+    beside the shift + take + quant_combine step it replaces), the top-k
+    accumulate of the embed leaf (k = 1% of its
     24,576,000 lanes into the [8, 24,576,000] f32 accumulator) and the
     local scan of fig5_scan ([8, 2^20] f32 along dim 1; fig5_scan_2d's
     [8, 16384, 64] beside it), the serve phase's WKV
@@ -1022,10 +1115,43 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         "ms": time_ms(lambda: qc.quant_combine(qa, sa, qb, sb)),
         "plain_ms": time_ms(lambda: qc.plain(qa, sa, qb, sb)),
         "library_ms": None,       # no single PyTorch call computes it
+        "device_ms_per_launch": per_launch(
+            lambda: qc.quant_combine(qa, sa, qb, sb),
+            "quant_combine_kernel"),
         "bytes": ranks * blocks * 3 * (256 + 4),
         "shape": [ranks, blocks, 256], "dtype": "int8+float32",
+        "main_path": False,
     }
     del qa, qb, sa, sb
+    # the same hop as the ring takes it: xs is every rank's payload and
+    # scales in 8 chunks, buf the partial sums; beside it the unfused step
+    # (the transport's shift and per-rank take of payload and scales, then
+    # the elementwise kernel) and the hop's plain version
+    qx = torch.randint(-127, 128, (ranks, 8, blocks, 256), device=dev,
+                       generator=gen, dtype=torch.int8)
+    sx = torch.rand((ranks, 8, blocks), device=dev, generator=gen)
+    qbuf, sbuf = qx[:, 1].clone(), sx[:, 1].clone()
+
+    def fused():
+        return qc.quant_hop(qbuf, sbuf, qx, sx, 0, dim=0, rank_ndim=1)
+
+    def unfused():
+        c = (i - 2) % 8
+        return qc.quant_combine(mesh.shift(qbuf, "data", 1),
+                                mesh.shift(sbuf, "data", 1),
+                                mesh.take(qx, c), mesh.take(sx, c))
+    qhop = {
+        "ms": time_ms(fused),
+        "plain_ms": time_ms(lambda: qc.hop_plain(qbuf, sbuf, qx, sx, 0,
+                                                 dim=0, rank_ndim=1)),
+        "unfused_ms": time_ms(unfused),
+        "library_ms": None,       # no single PyTorch call computes it
+        "device_ms_per_launch": per_launch(fused, "quant_hop_kernel"),
+        "bytes": ranks * blocks * 3 * (256 + 4),
+        "unfused_bytes": ranks * blocks * 7 * (256 + 4),
+        "shape": [ranks, 8, blocks, 256], "dtype": "int8+float32",
+    }
+    del qx, sx, qbuf, sbuf
     size = max(math.prod(shape) for _, shape, _ in grad_leaf_specs(cfg))
     k = int(size * 0.01)
     dense = torch.zeros((8, size), device=dev)
@@ -1056,16 +1182,20 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         "ms": time_ms(lambda: cs.prefix_sum(x, 1)),
         "plain_ms": time_ms(lambda: cs.plain(x, 1)),
         "library_ms": time_ms(lambda: torch.cumsum(x, dim=1)),
+        "device_ms_per_launch": per_launch(lambda: cs.prefix_sum(x, 1),
+                                           "scan_kernel"),
         "bytes": 2 * x.numel() * x.element_size(),
         "shape": [8, 1 << 20], "dim": 1, "dtype": "float32",
         "ms_2d": time_ms(lambda: cs.prefix_sum(x2, 1)),
         "library_ms_2d": time_ms(lambda: torch.cumsum(x2, dim=1)),
+        "device_ms_per_launch_2d": per_launch(
+            lambda: cs.prefix_sum(x2, 1), "scan_kernel"),
         "shape_2d": [8, 16384, 64],
     }
     del x, x2
     torch.cuda.empty_cache()
     out = {"fused_combine": comb, "fused_hop": hop, "fused_pack": pack,
-           "quant_combine": quant,
+           "quant_combine": quant, "quant_hop": qhop,
            "topk_accumulate": topk, "prefix_sum": scan,
            "rwkv6_recurrence": wkv_timings(dev, gen, serve_cfg, SERVE),
            "rglru_scan": rglru_timings(dev, gen, hybrid_cfg, SERVE_HYBRID)}
@@ -1111,7 +1241,7 @@ def expected_launches(compiled, mesh) -> dict:
     """Each kernel's launches in one sync, read off the compiled plan:
     n-1 fused hops per bandwidth ring all-reduce or reduce-scatter stage
     (n-1 elementwise hop combines on a latency ring), one pack launch per
-    ``MAX_PARTS`` parts of an arena pack, n-1 quant_combines per
+    ``MAX_PARTS`` parts of an arena pack, n-1 quant hops per
     int8_hopquant EF stage, and per top-k EF stage one accumulate of the
     rank's own payload, n-1 of the hops' and one for the decompress, and
     one prefix_sum (every rank's local scan at once) per inclusive-add
@@ -1136,7 +1266,7 @@ def expected_launches(compiled, mesh) -> dict:
         if st.kind in ("ef_allreduce", "delivered"):
             comp = st.ir.nodes[0].op.ef.compressor
             if comp == "int8_hopquant":
-                out["quant_combine"] += n - 1
+                out["quant_hop"] += n - 1
             elif comp == "topk":
                 out["topk_accumulate"] += n + 1
     return out
@@ -1404,7 +1534,7 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
     launches = read_counts()
     if expect_kernels:
         check_launches(launches, per_sync, steps + 1)
-        kernel = {"int8_hopquant": "quant_combine",
+        kernel = {"int8_hopquant": "quant_hop",
                   "topk": "topk_accumulate"}.get(compressor)
         check(kernel is None or per_sync[kernel] > 0,
               f"the {compressor} plan runs no {kernel}")
@@ -1421,8 +1551,8 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
         worst_err = max(worst_err, err.item())
 
     profile = {name: device_profile(lambda e=e, s=s, a=a: sync_once(
-        e, g, s, a)) for name, e, s, a in (("kernels", eng_k, st_k, ar_k),
-                                          ("plain", eng_p, st_p, ar_p))} \
+        e, g, s, a), RING_OPS) for name, e, s, a in (
+            ("kernels", eng_k, st_k, ar_k), ("plain", eng_p, st_p, ar_p))} \
         if cuda else None
     med_k, med_p = statistics.median(t_k), statistics.median(t_p)
     return {
@@ -1574,14 +1704,20 @@ class FusedRun:
 
         def after(compiled, ok):
             # every rank's copy, from the rank-local program (one more
-            # launch, after the counts were read)
+            # launch, after the counts were read): the ranks alike bit for
+            # bit, the rerun within the stated bound (the look-back's
+            # carries may round otherwise than in the last call: its
+            # differing elements are counted, not held)
             with self.mesh:
                 (ranks,) = compiled(x.reshape((n,) + tuple(local)))
             self.sync()
             for r in range(n):
-                check(torch.equal(ranks[r], ok),
+                check(torch.equal(ranks[r], ranks[0]),
                       f"{name}: rank {r} holds another scan")
-            return {"ranks_identical": True}
+            return {"ranks_identical": True,
+                    "rerun_err_over_bound": scan_err(ranks[0], exact, tol,
+                                                     f"{name} rerun"),
+                    "rerun_differing_elements": int((ranks[0] != ok).sum())}
 
         rec = self.pair(name, lambda v: acis.all_gather(acis.scan(
             acis.all_gather(v))), P("data"), P(None), (ints,), (x,),
@@ -2280,11 +2416,13 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
 
 # device kernels of a ring sync counted by name: PyTorch's rolls and its
 # index kernels (the per-rank gathers and the all-gather's puts), and the
-# hand-written hop and pack
+# hand-written hops, combines and pack
 RING_OPS = {"rolls": "roll_cuda_kernel",
             "gathers_and_puts": "index_elementwise_kernel",
-            "fused_hop": "hop_kernel", "fused_pack": "pack_kernel",
-            "fused_combine": "::combine_kernel"}
+            "fused_hop": "::hop_kernel", "fused_pack": "pack_kernel",
+            "fused_combine": "::combine_kernel",
+            "quant_hop": "quant_hop_kernel",
+            "quant_combine": "quant_combine_kernel"}
 
 
 def device_profile(step, count: Optional[dict] = None) -> dict:
@@ -2332,17 +2470,18 @@ def device_profile(step, count: Optional[dict] = None) -> dict:
 # ---------------------------------------------------------------------------
 
 COMPRESSORS = ("int8", "int8_hopquant", "topk")
-# the kernels the main paths run, one per TPU kernel: the fused_combine
-# source's on the paths is its ring-hop form (its elementwise form serves
-# latency rings and Type 2 hooks, which no path here takes; it is checked
-# and timed in the kernels phase all the same)
+# the kernels the main paths run, one per TPU kernel: the fused_combine and
+# quant_combine sources' on the paths are their ring-hop forms (the
+# elementwise forms serve latency rings, Type 2 hooks and the codec's
+# combine outside a ring, which no path here takes; they are checked and
+# timed in the kernels phase all the same)
 SOURCES = {
     "fused_hop": ("src/repro_torch/kernels/csrc/fused_combine.cu",
                   "src/repro/kernels/fused_combine.py:70"),
     "fused_pack": ("src/repro_torch/kernels/csrc/fused_pack.cu",
                    "src/repro/kernels/pack_combine.py:68"),
-    "quant_combine": ("src/repro_torch/kernels/csrc/quant_combine.cu",
-                      "src/repro/kernels/quant_combine.py:55"),
+    "quant_hop": ("src/repro_torch/kernels/csrc/quant_combine.cu",
+                  "src/repro/kernels/quant_combine.py:55"),
     "topk_accumulate": ("src/repro_torch/kernels/csrc/topk_accum.cu",
                         "src/repro/kernels/topk_accum.py:47"),
     "prefix_sum": ("src/repro_torch/kernels/csrc/prefix_sum.cu",

@@ -109,6 +109,14 @@ def _tree_all_reduce_encoded(enc: PyTree, axis_name: str,
     decodes the *identical* result after the all-gather even under a lossy
     combine.  Requires all leaves to share their local leading ("block")
     dimension.
+
+    A combine that carries a ``fused_hop`` form (the int8 codec's under
+    ``use_kernels``, :func:`repro_torch.core.wire.int8_codec`) runs each
+    reduce-scatter hop on CUDA leaves as one ``fused_hop(buf, xs, s)``
+    launch that reads the neighbour's ``buf`` and the local chunk in
+    place, as :func:`repro_torch.core.ring.ring_reduce_scatter` does; CPU
+    leaves take the shift + take + combine loop, which computes the same
+    step.
     """
     tp = current()
     n = tp.axis_size(axis_name)
@@ -136,9 +144,16 @@ def _tree_all_reduce_encoded(enc: PyTree, axis_name: str,
         return tree.tree_map(lambda l: tp.take(l, idx), chunked)
 
     buf = chunk_at((i - 1) % n)
-    for s in range(n - 1):
-        incoming = ring.shift_tree(buf, axis_name, 1)
-        buf = combine(incoming, chunk_at((i - 2 - s) % n))
+    fused = getattr(combine, "fused_hop", None)
+    if fused is not None and all(leaf.is_cuda
+                                 for leaf in tree.tree_leaves(chunked)):
+        chunked = tree.tree_map(torch.Tensor.contiguous, chunked)
+        for s in range(n - 1):
+            buf = fused(buf, chunked, s, dim=tp.dim(axis_name), rank_ndim=d)
+    else:
+        for s in range(n - 1):
+            incoming = ring.shift_tree(buf, axis_name, 1)
+            buf = combine(incoming, chunk_at((i - 2 - s) % n))
     gathered = tree.tree_map(lambda l: ring.ring_all_gather(l, axis_name),
                              buf)
     return tree.tree_map(lambda l: l.narrow(d, 0, nblocks), gathered)

@@ -123,14 +123,22 @@ def int8_codec(block: int = QBLOCK, *,
     (:mod:`repro_torch.kernels.quant_combine`, 256-lane blocks): it
     launches the CUDA kernel on CUDA payloads — one launch per ring hop,
     every rank's chunk at once — and runs the kernel's plain version on
-    CPU ones.  Without it the combine is that plain version everywhere:
-    dequant both, add in f32, requant with a fresh per-block absmax
-    scale.
+    CPU ones; its ``fused_hop`` attribute is the one-launch ring
+    reduce-scatter step (:func:`~repro_torch.kernels.quant_combine.
+    quant_hop`), which the encoded ring takes on CUDA payloads in place of
+    roll, gather and combine.  Without it the combine is that plain
+    version everywhere: dequant both, add in f32, requant with a fresh
+    per-block absmax scale.
     """
     fn = _qc.quant_combine if use_kernels else _qc.plain
 
     def combine(incoming, local):
         return fn(*incoming, *local)
+
+    if use_kernels:
+        def fused_hop(buf, xs, s, *, dim, rank_ndim):
+            return _qc.quant_hop(*buf, *xs, s, dim=dim, rank_ndim=rank_ndim)
+        combine.fused_hop = fused_hop
 
     shape_box = {}
 

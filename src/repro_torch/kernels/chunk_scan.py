@@ -12,18 +12,26 @@ dims after it lanes — so one launch scans the local block of every rank.
 the hybrid family's serving path.
 
 Bound on the card: device memory — ``x`` read once and the result written
-once.  The kernel (``csrc/prefix_sum.cu``) is reduce-then-scan over tiles
-of about 4,096 elements (tile totals, a scan of the totals per column,
-then each tile scanned again with its carry-in): it reads ``x`` twice and
-writes once, with 16-byte loads where a thread's rows are contiguous
-(``D == 1``).  The TPU kernel's sequential 256-row grid with a VMEM carry
-has no counterpart: blocks on the card run in parallel.
+once.  The kernel (``csrc/prefix_sum.cu``) is a single-pass chained scan
+with decoupled look-back, one launch: each block takes a tile of about
+8,192 elements from an atomic counter, reads it once, publishes its
+total, adds its predecessors' published totals back to the first
+inclusive prefix for its carry-in, and writes the tile once, with
+16-byte loads, a warp's 512 contiguous bytes at a time, where the
+scanned dim is the last (``D == 1``).  The
+status words and the counter live in one scratch tensor the wrapper
+zeroes (:func:`scratch_words`).  The TPU kernel's sequential 256-row
+grid with a VMEM carry has no counterpart: blocks on the card run in
+parallel.
 
 Numbers: float32 and bfloat16, accumulated in f32, each output rounded
 once to ``x``'s dtype; other dtypes raise.  The summation order is the
-kernel's own, so it equals the plain version (``torch.cumsum``) bit for
-bit only where every partial sum is exact (integer-valued f32 data below
-2^24), and within rounding elsewhere.
+kernel's own, and a tile's carry-in sums its predecessors' totals back to
+whichever inclusive prefix had been published when it looked, so the
+last bits of a float result may differ between two runs on the same
+input.  It equals the plain version (``torch.cumsum``) bit for bit only
+where every partial sum is exact (integer-valued f32 data below 2^24),
+and is within rounding elsewhere.
 
 A CPU tensor goes to the plain version (:mod:`repro_torch.kernels.ref`);
 a CUDA tensor launches the kernel or raises.
@@ -39,7 +47,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-THREADS, ROWS = 256, 16          # csrc/prefix_sum.cu: kThreads, kRows
+THREADS, ROWS = 256, 32          # csrc/prefix_sum.cu: kThreads, kRows
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches made by prefix_sum (the main path's proof of use)
@@ -49,12 +57,24 @@ launches = 0
 def layout(shape, dim: int) -> tuple[int, int, int, int, int]:
     """``(B, T, D, lanes per block, tiles)`` of the kernel's launch for a
     tensor of ``shape`` scanned along ``dim``: a block covers up to 32
-    lanes and ``(256 / lanes) * 16`` rows (4,096 elements)."""
+    lanes and ``(256 / lanes) * 32`` rows (8,192 elements)."""
     b = math.prod(shape[:dim])
     t = shape[dim]
     d = math.prod(shape[dim + 1:])
     lb = min(32, 1 << max(d - 1, 0).bit_length())
     return b, t, d, lb, max(1, -(-t // (THREADS // lb * ROWS)))
+
+
+def scratch_words(shape, dim: int) -> int:
+    """8-byte words of the kernel's zeroed scratch for a tensor of
+    ``shape`` scanned along ``dim``: one status word per lane of every
+    tile of every chain (a ``b`` and a block's run of lanes), then the
+    tile counter; none when a chain is one tile (no look-back)."""
+    return _words(*layout(shape, dim))
+
+
+def _words(b: int, t: int, d: int, lb: int, tiles: int) -> int:
+    return b * -(-d // lb) * tiles * lb + 1 if tiles > 1 else 0
 
 
 def _dim(x: torch.Tensor, dim: int) -> int:
@@ -70,22 +90,34 @@ def plain(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return ref.prefix_sum(x, dim=_dim(x, dim))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("prefix_sum")
-    fn = lib.acis_prefix_sum
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 \
-        + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/prefix_sum.cu``) with its entry point
+    typed."""
+    lib.acis_prefix_sum.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+    lib.acis_prefix_sum.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    """The library, its entry point typed once at load."""
+    global _LIB
+    if _LIB is None:
+        _LIB = typed(build.library("prefix_sum"))
+    return _LIB
 
 
 def prefix_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Inclusive prefix sum of ``x`` along ``dim``, in ``x``'s dtype."""
     global launches
     dim = _dim(x, dim)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return plain(x, dim)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"prefix_sum runs on a CUDA device, got {x.device}")
     if x.dtype not in DTYPES:
         raise TypeError(f"prefix_sum kernel takes float32 or bfloat16, got "
@@ -95,15 +127,15 @@ def prefix_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    b, t, d, lb, tiles = layout(tuple(x.shape), dim)
-    carry = torch.empty((b * d * tiles if tiles > 1 else 0,),
-                        dtype=torch.float32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.acis_prefix_sum(
-            x.data_ptr(), out.data_ptr(), carry.data_ptr() if tiles > 1
-            else None, b, t, d, lb, tiles, DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    b, t, d, lb, tiles = lay = layout(tuple(x.shape), dim)
+    words = _words(*lay)
+    status = torch.zeros((words,), dtype=torch.int64, device=x.device) \
+        if words else None
+    dev = x.get_device()
+    rc = _lib().acis_prefix_sum(
+        x.data_ptr(), out.data_ptr(),
+        None if status is None else status.data_ptr(), b, t, d, lb, tiles,
+        DTYPES[x.dtype], dev, build.stream_of(dev))
     launches += 1
     if rc != 0:
         raise RuntimeError(f"prefix_sum kernel launch failed (code {rc})")

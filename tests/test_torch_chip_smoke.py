@@ -52,7 +52,9 @@ def test_fused_path_rehearsed_on_the_cpu(smoke):
     # one prefix_sum per Fig. 5 call by the plan; none launched on a CPU
     for name in ("fig5_scan", "fig5_scan_2d"):
         assert by[name]["launches_per_call"]["prefix_sum"] == 1
-        assert by[name]["checks"]["after"] == {"ranks_identical": True}
+        after = by[name]["checks"]["after"]
+        assert after["ranks_identical"] and after["rerun_err_over_bound"] <= 1
+        assert after["rerun_differing_elements"] == 0   # cumsum: one order
         assert by[name]["checks"]["step2"]["kernels_err_over_bound"] <= 1
     for r in recs:
         assert r["launches"]["prefix_sum"] == 0
@@ -69,17 +71,63 @@ def test_prefix_checks_rehearsed_on_the_cpu(smoke, monkeypatch):
     assert 0 < r["max_err_over_bound"] <= 1
 
 
+def test_quant_hop_checks_rehearsed_on_the_cpu(smoke, monkeypatch):
+    """The kernels phase's quant_hop checks at a small largest hop: every
+    hop of the 8-ring on one axis and over the second of two, random,
+    exact and NaN rows (7 hops x (3 random + exact + NaN) x 2 meshes + 7
+    at the largest hop)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    gen = torch.Generator().manual_seed(0)
+    r = smoke.quant_hop_checks(torch.device("cpu"), gen, big_rows=40)
+    assert r["cases"] == 7 * 5 * 2 + 7 and r["max_abs_err"] == 0.0
+
+
+def test_int8_hopquant_sync_counts_quant_hops(smoke):
+    """What the compressed phase holds its launch counts to: n - 1
+    ``quant_hop`` launches per int8_hopquant EF stage (the encoded ring's
+    fused hops), and no elementwise ``quant_combine``."""
+    from repro_torch import core as acis
+    from repro_torch.configs.acis_100m import SMOKE, grad_leaf_specs
+
+    mesh = LocalMesh({"data": 8}, device="meta")
+    eng = acis.make_engine("acis_compressed", compressor="int8_hopquant")
+    eng.init_arenas({k: torch.empty((8,) + s, dtype=dt, device="meta")
+                     for k, s, dt in grad_leaf_specs(SMOKE)}, mesh=mesh)
+    compiled = eng.last_sync_program()
+    per_sync = smoke.expected_launches(compiled, mesh)
+    ef = sum(st.kind == "ef_allreduce" for st in compiled.stages)
+    assert ef > 0 and per_sync["quant_hop"] == 7 * ef
+    assert per_sync["quant_combine"] == per_sync["fused_hop"] == 0
+    from repro_torch.kernels import quant_combine
+    assert smoke.kernel_modules()["quant_hop"] == (quant_combine,
+                                                   "hop_launches")
+    assert "quant_hop" in smoke.SOURCES and "quant_hop" in smoke.RING_OPS
+
+
+def test_compressed_path_rehearsed_on_the_cpu(smoke):
+    """The int8_hopquant phase at the smoke config: kernel and plain syncs
+    bitwise equal, every rank the same totals, the EF identity within its
+    bound; nothing launched on a CPU."""
+    from repro_torch.configs.acis_100m import SMOKE
+    rec = smoke.compressed_path(LocalMesh({"data": 8}, device="cpu"), SMOKE,
+                                0, "int8_hopquant", expect_kernels=False)
+    assert rec["bitwise_equal_to_plain"] and rec["max_rank_diff"] == 0.0
+    assert rec["ef_identity_err_over_bound"] <= 1
+    assert rec["launches_per_sync"]["quant_hop"] > 0
+    assert sum(rec["launches"].values()) == 0
+
+
 @pytest.mark.parametrize("shape", [(8, 3 * 4096 + 123), (2, 1000, 64)])
 def test_scan_bound_catches_a_dropped_tile_carry(smoke, shape):
     """A scan that loses one tile's total from the carries of the tiles
     after it fails the stated bound; the plain cumsum meets it.  Tiles
-    are the kernel's: 4,096 rows of one lane, or 128 rows of 32 lanes."""
+    are the kernel's: 8,192 rows of one lane, or 256 rows of 32 lanes."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     exact, tol = smoke.scan_tolerance(x, 1)
     assert smoke.scan_err(torch.cumsum(x, 1), exact, tol, "cumsum") <= 1
     _, _, _, lb, tiles = chunk_scan.layout(shape, 1)
-    rows = 256 // lb * 16
+    rows = 256 // lb * chunk_scan.ROWS
     assert tiles > 1
     total = x[:, :rows].sum(1, keepdim=True)     # tile 0 of each column
     if x.dim() == 3:

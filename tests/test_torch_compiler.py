@@ -135,7 +135,7 @@ def test_full_width_compressed_sync_structure_matches_reference(compressor):
     as the reference.  Coalesce buckets the blockwise compressors' three
     f32 norm-scale leaves into one EF bucket (one arena pack) and leaves
     top-k unbucketed; what ``chip_smoke.py`` checks its launch counts
-    against: one quant_combine per hop of every int8_hopquant stage, and
+    against: one quant_hop per hop of every int8_hopquant stage, and
     per top-k stage one accumulate of the rank's own payload, one per hop
     and one for the decompress."""
     shapes = Model(JCONFIG).param_shapes()

@@ -414,6 +414,74 @@ def test_cpu_quant_combine_takes_the_plain_version(rng):
     assert tqc.launches == before
 
 
+def _hop_operands(qa, sa, qb, sb, rank_shape, n):
+    """Every rank's partial sum holds (qa, sa) and every chunk (qb, sb)."""
+    def rep(t, extra):
+        return torch.from_numpy(t).expand(rank_shape + extra + t.shape) \
+            .contiguous()
+    return rep(qa, ()), rep(sa, ()), rep(qb, (n,)), rep(sb, (n,))
+
+
+@pytest.mark.parametrize("rank_shape,dim", [((8,), 0), ((2, 4), 1)])
+def test_quant_hop_plain_matches_pallas_on_exact_rows(rng, rank_shape, dim):
+    """With the exact rows of :func:`quant_cases` in every rank's partial
+    sum and chunk, each output row of every hop is the reference kernel's
+    combine of those rows, bit for bit."""
+    qa, sa, qb, sb = quant_cases(rng)
+    wq, ws = jqc.quant_combine(*map(jnp.asarray, (qa, sa, qb, sb)),
+                               interpret=True)
+    n = rank_shape[dim]
+    ops = _hop_operands(qa, sa, qb, sb, rank_shape, n)
+    for s in range(n - 1):
+        q, sc = tqc.hop_plain(*ops, s, dim=dim, rank_ndim=len(rank_shape))
+        assert tuple(q.shape) == rank_shape + (6, 256)
+        for r in np.ndindex(*rank_shape):
+            assert_bitwise(q[r].numpy(), np.asarray(wq))
+            assert_bitwise(sc[r].numpy(), np.asarray(ws))
+
+
+def test_quant_hop_wrapper_rejects_bad_operands():
+    q_buf, s_buf = torch.zeros(8, 3, 256, dtype=torch.int8), torch.ones(8, 3)
+    q_xs = torch.zeros(8, 8, 3, 256, dtype=torch.int8)
+    s_xs = torch.ones(8, 8, 3)
+    with pytest.raises(ValueError, match="rank dims"):
+        tqc.quant_hop(q_buf, s_buf, q_xs, s_xs, 0, dim=1, rank_ndim=1)
+    with pytest.raises(ValueError, match="buf must be"):
+        tqc.quant_hop(q_buf[..., :128], s_buf, q_xs, s_xs, 0, dim=0,
+                      rank_ndim=1)
+    with pytest.raises(ValueError, match="ring chunks"):
+        tqc.quant_hop(q_buf, s_buf, q_xs[:, :4], s_xs[:, :4], 0, dim=0,
+                      rank_ndim=1)
+    with pytest.raises(ValueError, match="hop 7"):
+        tqc.quant_hop(q_buf, s_buf, q_xs, s_xs, 7, dim=0, rank_ndim=1)
+    with pytest.raises(TypeError, match="int8 payloads"):
+        tqc.quant_hop(q_buf.float(), s_buf, q_xs, s_xs, 0, dim=0,
+                      rank_ndim=1)
+    with pytest.raises(TypeError, match="float32 scales"):
+        tqc.quant_hop(q_buf, s_buf, q_xs, s_xs.double(), 0, dim=0,
+                      rank_ndim=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tqc.quant_hop(*(t.to("meta") for t in (q_buf, s_buf, q_xs, s_xs)),
+                      0, dim=0, rank_ndim=1)
+
+
+def test_cpu_quant_kernels_load_nothing_and_launch_nothing(rng,
+                                                           monkeypatch):
+    """Both forms on CPU tensors run their plain versions: no library is
+    built or loaded and neither count moves."""
+    def no_build(name):
+        raise AssertionError(f"a CPU call loaded the {name} library")
+    monkeypatch.setattr(tqc.build, "library", no_build)
+    monkeypatch.setattr(tqc, "_LIB", None)
+    before = (tqc.launches, tqc.hop_launches)
+    qa, sa, qb, sb = quant_cases(rng)
+    tqc.quant_combine(*map(torch.from_numpy, (qa, sa, qb, sb)))
+    ops = _hop_operands(qa, sa, qb, sb, (8,), 8)
+    tqc.quant_hop(*ops, 3, dim=0, rank_ndim=1)
+    assert (tqc.launches, tqc.hop_launches) == before
+    assert tqc._LIB is None
+
+
 # ---------------------------------------------------------------------------
 # topk_accumulate
 # ---------------------------------------------------------------------------
@@ -659,18 +727,39 @@ def test_prefix_sum_wrapper_on_cpu_runs_the_plain_version(rng):
 
 
 @pytest.mark.parametrize("shape,dim,want", [
-    ((8, 1 << 20), 1, (8, 1 << 20, 1, 1, 256)),        # fig5_scan: 2,048 blocks
-    ((8, 16384, 64), 1, (8, 16384, 64, 32, 128)),      # fig5_scan_2d: 2,048
-    ((8, 12411), 1, (8, 12411, 1, 1, 4)),              # ragged T
-    ((1000, 5), 0, (1, 1000, 5, 8, 2)),
+    ((8, 1 << 20), 1, (8, 1 << 20, 1, 1, 128)),        # fig5_scan: 1,024 blocks
+    ((8, 16384, 64), 1, (8, 16384, 64, 32, 64)),       # fig5_scan_2d: 2,048
+    ((8, 12411), 1, (8, 12411, 1, 1, 2)),              # ragged T
+    ((1000, 5), 0, (1, 1000, 5, 8, 1)),
     ((8, 1, 64), 1, (8, 1, 64, 32, 1)),                # T = 1: one pass
 ])
 def test_prefix_sum_launch_layout(shape, dim, want):
-    """Tiles of 4,096 elements: a block takes up to 32 lanes and
-    (256 / lanes) · 16 rows."""
+    """Tiles of 8,192 elements: a block takes up to 32 lanes and
+    (256 / lanes) · 32 rows."""
     b, t, d, lb, tiles = tcs.layout(shape, dim)
     assert (b, t, d, lb, tiles) == want
-    assert tiles * (256 // lb) * 16 >= t > (tiles - 1) * (256 // lb) * 16
+    rows = (256 // lb) * tcs.ROWS
+    assert tcs.ROWS == 32 and tiles * rows >= t > (tiles - 1) * rows
+
+
+@pytest.mark.parametrize("shape,dim,words", [
+    ((8, 1 << 20), 1, 8 * 128 + 1),             # fig5_scan: 8 chains of 128
+    ((8, 16384, 64), 1, 16 * 64 * 32 + 1),      # fig5_scan_2d: 16 of 64
+    ((8, 12411), 1, 8 * 2 + 1),                 # ragged T
+    ((3000, 5), 0, 3 * 8 + 1),                  # 5 lanes in a block of 8
+    ((3, 300, 40), 1, 3 * 2 * 2 * 32 + 1),      # 40 lanes: 2 lane tiles
+    ((8, 1, 64), 1, 0),                         # one tile: no look-back
+    ((8, 8192), 1, 0),
+])
+def test_prefix_sum_scratch_layout(shape, dim, words):
+    """The look-back's zeroed scratch: one 8-byte status word per lane of
+    every tile of every chain (a batch row and a block's run of lanes),
+    then the tile counter; nothing when every chain is one tile."""
+    b, _, d, lb, tiles = tcs.layout(shape, dim)
+    assert tcs.scratch_words(shape, dim) == words
+    assert (words == 0) == (tiles == 1)
+    if words:
+        assert words - 1 == b * -(-d // lb) * tiles * lb
 
 
 def test_registry_prefix_sum_kernel_and_plain_agree_on_cpu(rng):
@@ -912,6 +1001,34 @@ def test_quant_combine_kernel_matches_plain_on_card(cuda_device, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rank_shape,dim,rows", [((8,), 0, 1003),
+                                                 ((2, 8), 1, 7)])
+def test_quant_hop_kernel_matches_plain_on_card(cuda_device, rng,
+                                                rank_shape, dim, rows):
+    """Every hop of the ring on random rows, then on the exact rows (.5
+    ties, zero rows, saturation): bitwise, one launch a hop."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n = rank_shape[dim]
+    rand = [torch.randint(-127, 128, rank_shape + (rows, 256),
+                          device=cuda_device, generator=g, dtype=torch.int8),
+            torch.rand(rank_shape + (rows,), device=cuda_device, generator=g),
+            torch.randint(-127, 128, rank_shape + (n, rows, 256),
+                          device=cuda_device, generator=g, dtype=torch.int8),
+            torch.rand(rank_shape + (n, rows), device=cuda_device,
+                       generator=g)]
+    exact = [t.to(cuda_device) for t in _hop_operands(
+        *quant_cases(rng), rank_shape, n)]
+    for ops in (rand, exact):
+        for s in range(n - 1):
+            before = tqc.hop_launches
+            q, sc = tqc.quant_hop(*ops, s, dim=dim, rank_ndim=len(rank_shape))
+            assert tqc.hop_launches == before + 1
+            wq, ws = tqc.hop_plain(*ops, s, dim=dim,
+                                   rank_ndim=len(rank_shape))
+            assert torch.equal(q, wq) and torch.equal(sc, ws)
+
+
+@pytest.mark.cuda
 def test_topk_accumulate_kernel_matches_plain_on_card(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     dense = torch.randn(8, 100_000, device=cuda_device, generator=g)
@@ -955,6 +1072,25 @@ def test_prefix_sum_kernel_matches_plain_on_card(cuda_device, shape, dim):
     got = tcs.prefix_sum(x, dim=dim)
     assert tcs.launches == before + 1
     assert torch.equal(got, tcs.plain(x, dim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1 << 20), (8, 16384, 64)])
+def test_prefix_sum_kernel_random_within_rounding_on_card(cuda_device,
+                                                          shape):
+    """Random data over many tiles, through the look-back: each output
+    within the f32 rounding of any summation order, i·2^-24·Σ|x|, of the
+    exact sum, in one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, device=cuda_device, generator=g)
+    before = tcs.launches
+    got = tcs.prefix_sum(x, dim=1)
+    assert tcs.launches == before + 1
+    exact = torch.cumsum(x.double(), 1)
+    i = torch.arange(1, shape[1] + 1, device=cuda_device,
+                     dtype=torch.float64).reshape((-1,) + (1,) * (x.dim() - 2))
+    bound = i * 2.0 ** -24 * torch.cumsum(x.double().abs(), 1)
+    assert bool(((got.double() - exact).abs() <= bound).all())
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ fold order, so the results must be bitwise equal; the few comparisons
 that are not bitwise state why.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -22,6 +23,7 @@ from repro.core import types as jtypes
 from repro_torch.core import collectives as tcoll
 from repro_torch.core import ring as tring
 from repro_torch.core import types as ttypes
+from repro_torch.kernels import quant_combine as tqc
 from repro_torch.mesh import LocalMesh
 
 # ``repro.core.wire`` is shadowed by the traced ``wire`` op on the package
@@ -394,6 +396,139 @@ def test_fused_hop_ring_matches_the_transport_loop_on_card(rng, mono, axes,
             results[dev] = tring.ring_reduce_scatter(
                 x.to(dev), axis, ttypes.TYPE1_MONOIDS[mono],
                 hop_combine=_counted_hop(mono, calls)).cpu()
+        want = "step" if dev == "cpu" else "fused"
+        assert calls == [want] * (axes[axis] - 1)
+    assert torch.equal(results["cuda"], results["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the fused encoded hop: under use_kernels the int8 codec's combine carries
+# a ``fused_hop`` form (``quant_combine.quant_hop``), which the encoded
+# RS∘AG walk takes on CUDA leaves; CPU leaves keep the transport loop
+# (shift, take, quant_combine), whose step the hop's plain version computes
+# ---------------------------------------------------------------------------
+
+PD = {"pod": 2, "data": 4}
+
+
+def _quant_inputs(rng, rank_shape, n, rows):
+    """Random int8 payloads and f32 scales of every rank's partial sum
+    (``[*rank, rows, 256]``) and input chunks (``[*rank, n, rows,
+    256]``), with .5 ties planted: each buf row peaks at 127 with scale
+    0.5, each chunk row at 127 with scale 0.5, and lanes 1-6 sum to ±0.5,
+    ±1.5, ±2.5 in half the rows."""
+    def q(shape):
+        return rng.integers(-127, 128, shape + (256,)).astype(np.int8)
+
+    q_buf, q_xs = q(rank_shape + (rows,)), q(rank_shape + (n, rows))
+    s_buf = rng.uniform(0.1, 2, rank_shape + (rows,)).astype(np.float32)
+    s_xs = rng.uniform(0.1, 2, rank_shape + (n, rows)).astype(np.float32)
+    tie = slice(0, rows, 2)
+    for qq, ss in ((q_buf, s_buf), (q_xs, s_xs)):
+        qq[..., tie, :] = np.clip(qq[..., tie, :], -60, 60)
+        qq[..., tie, 0] = 127
+        ss[..., tie] = 0.5
+    q_buf[..., tie, 1:7] = [1, 2, 3, -1, -2, -3]
+    q_xs[..., tie, 1:7] = [0, 1, 2, 0, -1, -2]
+    return [torch.from_numpy(a) for a in (q_buf, s_buf, q_xs, s_xs)]
+
+
+@pytest.mark.parametrize("axes,axis", [({"data": N}, "data"), (PD, "data")])
+@pytest.mark.parametrize("rows", [1, 6])
+def test_quant_hop_plain_is_the_transport_step(rng, axes, axis, rows):
+    """``quant_hop``'s plain version (and the wrapper on CPU tensors, which
+    runs it) equals the step the encoded ring takes through the transport,
+    ``quant_combine(shift(buf, 1), take(xs, (i - 2 - s) % n))``, bit for
+    bit at every hop ``s``, on one axis and over the second of two."""
+    mesh = LocalMesh(axes, device="cpu")
+    n, i = axes[axis], mesh.axis_index(axis)
+    q_buf, s_buf, q_xs, s_xs = _quant_inputs(rng, mesh.rank_shape, n, rows)
+    before = (tqc.launches, tqc.hop_launches)
+    kw = dict(dim=mesh.dim(axis), rank_ndim=mesh.rank_ndim)
+    for s in range(n - 1):
+        c = (i - 2 - s) % n
+        want = tqc.quant_combine(mesh.shift(q_buf, axis, 1),
+                                 mesh.shift(s_buf, axis, 1),
+                                 mesh.take(q_xs, c), mesh.take(s_xs, c))
+        for got in (tqc.hop_plain(q_buf, s_buf, q_xs, s_xs, s, **kw),
+                    tqc.quant_hop(q_buf, s_buf, q_xs, s_xs, s, **kw)):
+            assert_bitwise(got[0].numpy(), want[0].numpy())
+            assert_bitwise(got[1].numpy(), want[1].numpy())
+    assert (tqc.launches, tqc.hop_launches) == before   # CPU: no launch
+
+
+def _counted_codec(calls):
+    """The kernels' int8 codec, recording in ``calls`` the form the
+    encoded ring calls for each hop: ``"step"`` (the combine, in the
+    transport loop) or ``"fused"`` (its ``fused_hop`` form)."""
+    codec = twire.int8_codec(use_kernels=True)
+    comb = codec.combine_encoded
+
+    def step(incoming, local):
+        calls.append("step")
+        return comb(incoming, local)
+
+    def fused(buf, xs, s, **kw):
+        calls.append("fused")
+        return comb.fused_hop(buf, xs, s, **kw)
+    step.fused_hop = fused
+    return dataclasses.replace(codec, combine_encoded=step)
+
+
+def test_int8_codec_kernels_walk_the_transport_loop_on_cpu(mesh8, rng):
+    """The kernels' int8 codec on CPU tensors: one combine per hop in the
+    transport loop, nothing launched, bitwise equal to the plain codec and
+    as close to the reference as the plain codec is (one int8 step: XLA
+    contracts ``q*s + q*s``)."""
+    x = rng.standard_normal((N, 700)).astype(np.float32)
+    want = ref_ranks(lambda v: jcoll.all_reduce(
+        v, "data", codec=jwire.int8_codec()), mesh8, x)
+    calls, before = [], (tqc.launches, tqc.hop_launches)
+    got = port_ranks(lambda v: tcoll.all_reduce(
+        v, "data", codec=_counted_codec(calls)), x)
+    plain = port_ranks(lambda v: tcoll.all_reduce(
+        v, "data", codec=twire.int8_codec()), x)
+    assert calls == ["step"] * (N - 1)
+    assert (tqc.launches, tqc.hop_launches) == before
+    assert_bitwise(got, plain)
+    step = np.abs(x.sum(0)).max() / 127.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1.01 * step)
+
+
+def test_int8_codec_kernels_over_the_second_axis_on_cpu(rng):
+    """Over the second axis of ``{"pod": 2, "data": 4}`` each pod's walk
+    is the one-axis walk of its 4 ranks, bit for bit."""
+    x = rng.standard_normal((2, 4, 600)).astype(np.float32)
+    calls = []
+    with LocalMesh(PD, device="cpu"):
+        got = tcoll.all_reduce(torch.from_numpy(x), "data",
+                               codec=_counted_codec(calls))
+    assert calls == ["step"] * 3
+    for p in range(2):
+        with LocalMesh({"data": 4}, device="cpu"):
+            want = tcoll.all_reduce(torch.from_numpy(x[p]), "data",
+                                    codec=twire.int8_codec())
+        assert_bitwise(got[p].numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes,axis", [({"data": N}, "data"), (PD, "data")])
+def test_int8_codec_fused_hop_matches_the_transport_loop_on_card(rng, axes,
+                                                                 axis):
+    """On CUDA leaves the encoded ring takes the fused form once per hop,
+    with the same result bit for bit as the transport loop on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the "
+                    "card (chip_smoke.py checks them there)")
+    shape = tuple(axes.values())
+    x = torch.from_numpy(rng.standard_normal(shape + (3000,)).astype(
+        np.float32))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        calls = []
+        with LocalMesh(axes, device=dev):
+            results[dev] = tcoll.all_reduce(
+                x.to(dev), axis, codec=_counted_codec(calls)).cpu()
         want = "step" if dev == "cpu" else "fused"
         assert calls == [want] * (axes[axis] - 1)
     assert torch.equal(results["cuda"], results["cpu"])

@@ -103,6 +103,29 @@ def test_int8_codec_round_trip_keeps_shape_and_dtype(rng):
     assert tc.name == jc.name
 
 
+def test_int8_codec_kernels_carry_the_fused_hop(rng):
+    """Under ``use_kernels`` the codec's combine carries the one-launch
+    ring step ``fused_hop`` (the ``quant_hop`` kernel), which the encoded
+    ring takes on CUDA leaves; without it there is no such form.  On CPU
+    tensors the hop is its plain version: the combine of the neighbour's
+    partial sum and the local chunk."""
+    from repro_torch.kernels import quant_combine as tqc
+
+    assert not hasattr(twire.int8_codec().combine_encoded, "fused_hop")
+    comb = twire.int8_codec(use_kernels=True).combine_encoded
+    assert callable(comb.fused_hop)
+    q = torch.from_numpy(rng.integers(-127, 128, (8, 8, 3, 256)).astype(
+        np.int8))
+    s = torch.from_numpy(rng.uniform(0.1, 2, (8, 8, 3)).astype(np.float32))
+    buf = (q[:, 1].clone(), s[:, 1].clone())
+    got = comb.fused_hop(buf, (q, s), 2, dim=0, rank_ndim=1)
+    want = tqc.hop_plain(*buf, q, s, 2, dim=0, rank_ndim=1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # rank 3 combines rank 2's partial sum with its chunk (3 - 2 - 2) % 8
+    one = comb((buf[0][2], buf[1][2]), (q[3, 7], s[3, 7]))
+    assert torch.equal(got[0][3], one[0]) and torch.equal(got[1][3], one[1])
+
+
 @pytest.mark.parametrize("name", ["bf16", "fp8"])
 def test_cast_codecs_match_reference(rng, name):
     """In-range values: both round to nearest even in the wire dtype."""
