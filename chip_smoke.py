@@ -12,7 +12,8 @@ Phases, one JSON line each:
   3. kernels    — each kernel against its plain PyTorch version on the
                   card (bitwise, ``fused_hop`` against the ring step it
                   replaces for every hop of a ring of 8, on one axis and
-                  over the second of two; bf16 ``mac`` within one bf16 ulp;
+                  over the second of two, and of both rings of pod 2 x
+                  data 4 (``HOP_VIEWS``); bf16 ``mac`` within one bf16 ulp;
                   ``topk_accumulate`` with duplicate indices within f32
                   rounding of the lane's sum; ``prefix_sum`` bitwise on
                   integer-valued data, within ``scan_tolerance`` of the
@@ -20,7 +21,8 @@ Phases, one JSON line each:
                   reported; ``quant_combine`` and its ring-hop form
                   ``quant_hop`` bitwise, the hop for every hop of a ring of
                   8 on one axis and over the second of two, exact rows and
-                  a NaN row included; ``rwkv6_recurrence`` within
+                  a NaN row included, and of both rings of pod 2 x data 4;
+                  ``rwkv6_recurrence`` within
                   ``wkv_tolerance`` of the float64 recurrence, as its
                   plain version is; ``rglru_scan`` bitwise, and both
                   within ``rglru_tolerance``), then timed at the main
@@ -63,7 +65,25 @@ Phases, one JSON line each:
                   or float64 result within its stated bound, and
                   ``prefix_sum`` launched as often as the programs say
                   (``fused_path``)
-  7. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
+  7. hierarchical — the same acis-100m gradients on ``LocalMesh({"pod":
+                  2, "data": 4})``: ``acis_hierarchical`` as the acis
+                  phase (reduce-scatter over data, all-reduce over pod,
+                  all-gather; ``fused_hop`` on both axes), plus one
+                  sync with ``overlap_dispatch=False`` bitwise equal to
+                  the overlapped one (whose multi-axis waves run on a
+                  CUDA stream per axis) and the mean within twice the
+                  ring bound of the flat ``acis`` sync on ``{"data":
+                  8}``; ``acis_hierarchical_compressed`` with each
+                  compressor as the compressed phase; then F2's program,
+                  ``reduce(axis="auto")`` through the compressed engine's
+                  ``compile`` with the int8 codec on the pod hop
+                  (``quant_hop``), kernels against plain bitwise and
+                  within the int8 bound of the exact sum
+                  (``hierarchical_path``).  Each record carries the
+                  compile ms (PlaceCGRA included) and the cost model's
+                  ``program_time`` for the paper's switch, which is not a
+                  time on the card
+  8. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
                   2048, 32 heads of 64, d_ff 7168, vocab 65,536) on seeded
                   random bf16 weights made on the card: ``Model.prefill``
                   of 8 prompts of 512 tokens and 32 greedy
@@ -77,7 +97,7 @@ Phases, one JSON line each:
                   ``F32_REL`` (``serve_path``); ``rwkv6_recurrence``
                   launched once per layer per prefill call, decode step
                   and engine tick
-  8. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
+  9. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
                   12 x (lru, lru, window) + (lru, lru); d_model 4096, 16
                   query heads and 1 KV head of 256, lru_width 4096, conv
                   width 4, window 2048, d_ff 12288 GeGLU, vocab 256,000)
@@ -318,43 +338,52 @@ def kernel_checks(dev) -> dict:
     return report
 
 
+HOP_VIEWS = (({"data": 8}, "data"), ({"pod": 2, "data": 8}, "data"),
+             ({"pod": 2, "data": 4}, "data"), ({"pod": 2, "data": 4}, "pod"))
+
+
 def hop_checks(dev, gen, data) -> dict:
     """``fused_hop`` against the ring step it replaces, ``combine(
     tp.shift(buf, 1), tp.take(xs, (i - 2 - s) % n))``, bit for bit: f32,
     bf16 and int8, add/max/min (NaN lanes planted for floats), every hop
     ``s`` of a ring of 8 on ``LocalMesh({"data": 8})`` and over the second
-    axis of ``{"pod": 2, "data": 8}``, at a chunk that takes the scalar
-    lanes (1003) and one that takes the vectors (4096); then every hop of
-    the largest acis-100m ring (bf16 add, chunk 3,072,000)."""
+    axis of ``{"pod": 2, "data": 8}``, and of both rings of the
+    hierarchical mesh ``{"pod": 2, "data": 4}``, at a chunk that takes the
+    scalar lanes (1003) and one that takes the vectors (4096); then every
+    hop of the largest acis-100m ring (bf16 add, chunk 3,072,000)."""
     from repro_torch.kernels import fused_combine as fc
     from repro_torch.kernels import ref
     from repro_torch.mesh import LocalMesh
 
     report = {"cases": 0, "max_abs_err": 0.0}
 
-    def hold(mesh, buf, xs, op):
-        i, n = mesh.axis_index("data"), mesh.axis_size("data")
+    def hold(mesh, buf, xs, op, ax="data"):
+        i, n = mesh.axis_index(ax), mesh.axis_size(ax)
         for s in range(n - 1):
-            got = fc.fused_hop(buf, xs, s, dim=mesh.dim("data"),
+            got = fc.fused_hop(buf, xs, s, dim=mesh.dim(ax),
                                rank_ndim=mesh.rank_ndim, op=op)
-            want = ref.COMBINES[op](mesh.shift(buf, "data", 1),
+            want = ref.COMBINES[op](mesh.shift(buf, ax, 1),
                                     mesh.take(xs, (i - 2 - s) % n))
             torch.cuda.synchronize()
             report["cases"] += 1
             report["max_abs_err"] = max(report["max_abs_err"],
                                         _bitwise_err(got, want))
 
-    for axes in ({"data": 8}, {"pod": 2, "data": 8}):
+    # the flat ring, the second axis of two, and the hierarchical views:
+    # data of pod 2 x data 4 ([A, n, B] = [2, 4, chunk]) and pod ([1, 2,
+    # 4 x chunk])
+    for axes, ax in HOP_VIEWS:
         mesh = LocalMesh(axes, device=dev)
+        n = mesh.axis_size(ax)
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
             for op in ("add", "max", "min"):
                 for chunk in (1003, 4096):
-                    xs = data(mesh.rank_shape + (8, chunk), dtype)
+                    xs = data(mesh.rank_shape + (n, chunk), dtype)
                     buf = data(mesh.rank_shape + (chunk,), dtype)
                     if op != "add" and dtype != torch.int8:
                         xs.view(-1)[5::97] = float("nan")
                         buf.view(-1)[3::89] = float("nan")
-                    hold(mesh, buf, xs, op)
+                    hold(mesh, buf, xs, op, ax)
     mesh = LocalMesh({"data": 8}, device=dev)
     xs = data((8, 8, 3_072_000), torch.bfloat16)
     hold(mesh, xs[:, 0].clone(), xs, "add")
@@ -440,8 +469,9 @@ def quant_hop_checks(dev, gen, big_rows: int = 12_000) -> dict:
     rows; then the six exact rows of :func:`quant_cases` in every rank's
     partial sum and chunk (the .5 ties, a zero row, zero scales, ±127,
     unequal scales), once more with a NaN scale in row 3 (its lanes held
-    to 0, the plain version's compared elsewhere); then every hop of the
-    largest int8_hopquant ring (``big_rows`` rows a chunk)."""
+    to 0, the plain version's compared elsewhere); every hop of both rings
+    of ``{"pod": 2, "data": 4}`` at the same random row counts; then every
+    hop of the largest int8_hopquant ring (``big_rows`` rows a chunk)."""
     from repro_torch.kernels import quant_combine as qc
     from repro_torch.mesh import LocalMesh
 
@@ -452,8 +482,7 @@ def quant_hop_checks(dev, gen, big_rows: int = 12_000) -> dict:
                               generator=gen, dtype=torch.int8),
                 torch.rand(shape, device=dev, generator=gen) * 2)
 
-    def hold(mesh, buf, xs, nan_row=None):
-        ax = "data"
+    def hold(mesh, buf, xs, nan_row=None, ax="data"):
         i, n = mesh.axis_index(ax), mesh.axis_size(ax)
         for s in range(n - 1):
             kw = dict(dim=mesh.dim(ax), rank_ndim=mesh.rank_ndim)
@@ -502,6 +531,12 @@ def quant_hop_checks(dev, gen, big_rows: int = 12_000) -> dict:
         nan_buf = (buf[0], buf[1].clone())
         nan_buf[1][..., 3] = float("nan")
         hold(mesh, nan_buf, xs, nan_row=3)
+    for axes, ax in HOP_VIEWS[2:]:          # the hierarchical mesh's rings
+        mesh = LocalMesh(axes, device=dev)
+        n = mesh.axis_size(ax)
+        for rows in (1, 7, 1003):
+            hold(mesh, rnd(mesh.rank_shape + (rows,)),
+                 rnd(mesh.rank_shape + (n, rows)), ax=ax)
     mesh = LocalMesh({"data": 8}, device=dev)
     hold(mesh, rnd((8, big_rows)), rnd((8, 8, big_rows)))
     r["nan_row"] = {"scale": 1.0, "kernel_q_zero": True}
@@ -1240,7 +1275,8 @@ def pack_parts(st) -> int:
 def expected_launches(compiled, mesh) -> dict:
     """Each kernel's launches in one sync, read off the compiled plan:
     n-1 fused hops per bandwidth ring all-reduce or reduce-scatter stage
-    (n-1 elementwise hop combines on a latency ring), one pack launch per
+    over an axis of n ranks (n-1 elementwise hop combines on a latency
+    ring, n-1 quant hops on an int8-coded one), one pack launch per
     ``MAX_PARTS`` parts of an arena pack, n-1 quant hops per
     int8_hopquant EF stage, and per top-k EF stage one accumulate of the
     rank's own payload, n-1 of the hops' and one for the decompress, and
@@ -1256,9 +1292,13 @@ def expected_launches(compiled, mesh) -> dict:
             if scan.monoid.name == "add" and not scan.exclusive:
                 out["prefix_sum"] += 1
         if st.kind in ("allreduce", "batched_allreduce"):
-            hop = "fused_hop" if st.schedule == "bandwidth" \
-                else "fused_combine"
-            out[hop] += n - 1
+            codec = st.ir.nodes[-1].op.codec
+            if codec.combine_encoded is not None:
+                out["quant_hop"] += n - 1         # the int8 wire's ring
+            else:
+                hop = "fused_hop" if st.schedule == "bandwidth" \
+                    else "fused_combine"
+                out[hop] += n - 1
         if st.kind == "reduce_scatter":
             out["fused_hop"] += n - 1
         if st.arena_slot is not None:
@@ -1290,8 +1330,15 @@ def in_turns(step: int, run_k, run_p) -> tuple:
 
 
 def main_path(mesh, cfg, seed: int, *, steps: int = 3,
-              expect_kernels: bool = True) -> dict:
-    """The acis path: warm-up, then kernel and plain syncs in turns."""
+              expect_kernels: bool = True, backend: str = "acis") -> dict:
+    """The acis path: warm-up, then kernel and plain syncs in turns.
+
+    On a two-axis mesh (``backend="acis_hierarchical"``, the
+    hierarchical phase) it also holds overlapped dispatch (a stream per
+    mesh axis) bitwise to serial dispatch, and the hierarchical mean to
+    the flat ``acis`` sync of the same gradients on ``LocalMesh({"data":
+    8})`` within twice the ring's rounding bound (each is within it of
+    the exact mean; the fold orders differ)."""
     from repro_torch import core as acis
     from repro_torch.configs.acis_100m import grad_leaf_specs
 
@@ -1302,9 +1349,9 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
     specs = grad_leaf_specs(cfg)
     grads = {k: torch.randn(mesh.rank_shape + shape, device=dev,
                             generator=gen).to(dt) for k, shape, dt in specs}
-    n_params = sum(v[0].numel() for v in grads.values())
-    local_bytes = sum(v[0].numel() * v.element_size()
-                      for v in grads.values())
+    n_params = sum(math.prod(shape) for _, shape, _ in specs)
+    local_bytes = sum(math.prod(shape) * v.element_size()
+                      for (_, shape, _), v in zip(specs, grads.values()))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
@@ -1321,13 +1368,16 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
               "arena data_ptr changed across a sync")
         return out, dt
 
-    eng_k = acis.make_engine("acis")
+    outer = "pod" if "pod" in mesh.axis_names else None
+    eng_k = acis.make_engine(backend, outer_axis=outer)
     check(eng_k.config.use_kernels, "use_kernels is off by default")
+    t0 = time.perf_counter()
     arenas_k = eng_k.init_arenas(grads, mesh=mesh)
+    compile_ms = (time.perf_counter() - t0) * 1e3
     check(arenas_k is not None, "the sync program has no bucket arena")
     compiled = eng_k.last_sync_program()
     per_sync = expected_launches(compiled, mesh)
-    eng_p = acis.make_engine("acis", use_kernels=False)
+    eng_p = acis.make_engine(backend, outer_axis=outer, use_kernels=False)
     arenas_p = eng_p.init_arenas(grads, mesh=mesh)
 
     # the counts cover exactly the main path's syncs: one untimed round
@@ -1354,31 +1404,40 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
               "the acis plan runs no fused hop or pack")
 
     # The xla baseline and the f32 mean round each lane once; the ring
-    # rounds its bf16 partial sum at each of its n-1 hops, by at most half
-    # an ulp (2^-8 relative) of that partial sum, which is bounded by the
-    # lane's sum of |g|.  After the mean a lane may differ by
-    # (n-1)/2 * 2^-7 * sum|g| / n, plus one ulp of the result.
-    out_x, _ = acis.make_engine("xla").gradient_sync(grads, None, mesh=mesh)
-    n = mesh.axis_size("data")
+    # rounds its bf16 partial sum at each of its n-1 hops (over both axes
+    # on two, 3 + 1 for pod 2 x data 4), by at most half an ulp (2^-8
+    # relative) of that partial sum, which is bounded by the lane's sum
+    # of |g|.  After the mean a lane may differ by (n-1)/2 * 2^-7 * sum|g|
+    # / n, plus one ulp of the result.
+    out_x, _ = acis.make_engine("xla", outer_axis=outer).gradient_sync(
+        grads, None, mesh=mesh)
+    n = mesh.n_ranks
+    nd = mesh.rank_ndim
+    bounds = {}
     worst_x = worst_mean = 0.0
     for k in grads:
         o = out_k[k]
         check(tuple(o.shape) == tuple(grads[k].shape) and
               o.dtype == grads[k].dtype, f"{k}: wrong shape/dtype")
         check(bool(torch.isfinite(o).all()), f"{k}: non-finite output")
-        mean = grads[k].float().mean(0)
+        g = grads[k].flatten(0, nd - 1)
+        mean = g.float().mean(0)
         eps = 2.0 ** -7 if o.dtype == torch.bfloat16 else 2.0 ** -23
-        bound = (n - 1) / 2 * eps * grads[k].abs().float().sum(0) / n \
+        bound = bounds[k] = (n - 1) / 2 * eps * g.abs().float().sum(0) / n \
             + eps * mean.abs()
         dx = (o.float() - out_x[k].float()).abs()
-        dm = (o[0].float() - mean).abs()
+        dm = (o.flatten(0, nd - 1)[0].float() - mean).abs()
         check(bool((dx <= bound + eps * out_x[k].float().abs()).all()),
-              f"{k}: acis and xla differ beyond the ring's rounding")
+              f"{k}: {backend} and xla differ beyond the ring's rounding")
         check(bool((dm <= bound).all()),
-              f"{k}: acis and the exact mean differ beyond the ring's "
+              f"{k}: {backend} and the exact mean differ beyond the ring's "
               "rounding")
         worst_x = max(worst_x, dx.max().item())
         worst_mean = max(worst_mean, dm.max().item())
+    extra = {}
+    if outer is not None:
+        extra = hierarchical_checks(mesh, grads, out_k, eng_k, arenas_k,
+                                    compiled, bounds, sync_once, steps)
 
     profile = {name: device_profile(lambda e=e, a=a: e.gradient_sync(
         grads, None, arenas=a, mesh=mesh), RING_OPS)
@@ -1386,7 +1445,9 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
                            ("plain", eng_p, arenas_p))} if cuda else None
     med_k, med_p = statistics.median(t_k), statistics.median(t_p)
     return {
-        "phase": "acis", "model": cfg.name, "ranks": n,
+        "phase": "acis" if outer is None else "hierarchical",
+        "backend": backend, "mesh": dict(mesh.axes),
+        "model": cfg.name, "ranks": n,
         "leaves": len(specs), "params_per_rank": n_params,
         "bytes_per_rank": local_bytes, "steps": steps,
         "stages": len(compiled.stages),
@@ -1406,12 +1467,82 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
         "bitwise_equal_to_plain": True,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if cuda else None),
+        "compile_ms": compile_ms,
+        "cost_model_program_time_s": compiled.program_time(),
+        "cost_model": COST_MODEL_NOTE,
+        **extra,
         "profile": profile,
     }
 
 
+COST_MODEL_NOTE = ("netmodel.program_time of the compiled plan: the cost "
+                   "model's time for the paper's Table II switch "
+                   "(PAPER_CGRA placements), not a time on this card")
+
+
+def hierarchical_checks(mesh, grads, out_k, eng_k, arenas_k, compiled,
+                        bounds, sync_once, steps: int) -> dict:
+    """The hierarchical phase's own checks, after the timed syncs (their
+    launches are not counted): the multi-axis waves ran on one stream per
+    mesh axis; serial-dispatch syncs (``overlap_dispatch=False``, kernels
+    on) bitwise equal to the overlapped ones, ``steps`` of each timed in
+    turns after a warm-up, and one of each profiled; the flat ``acis``
+    sync of the same gradients on ``LocalMesh({"data": n_ranks})`` within
+    twice the ring bound of the hierarchical mean."""
+    from repro_torch import core as acis
+    from repro_torch.mesh import LocalMesh
+
+    cuda = mesh.device.type == "cuda"
+    multi = sum(1 for groups in compiled.plan.dispatch_groups()
+                if sum(1 for ax, _ in groups if ax) > 1)
+    streams = sorted(ax for _, ax in compiled.plan.streams)
+    if cuda:
+        check(multi == 0 or streams == sorted(mesh.axis_names),
+              f"{multi} multi-axis waves ran on streams {streams}")
+    eng_s = acis.make_engine(eng_k.config.backend, outer_axis="pod",
+                             overlap_dispatch=False)
+    arenas_s = eng_s.init_arenas(grads, mesh=mesh)
+    sync_once(eng_s, arenas_s)                          # warm-up
+    t_o, t_s = [], []
+    for step in range(steps):
+        (out_o, dt_o), (out_s, dt_s) = in_turns(
+            step, lambda: sync_once(eng_k, arenas_k),
+            lambda: sync_once(eng_s, arenas_s))
+        for k in grads:
+            check(torch.equal(out_s[k], out_k[k])
+                  and torch.equal(out_o[k], out_k[k]),
+                  f"{k}: serial dispatch differs from overlapped")
+        t_o.append(dt_o)
+        t_s.append(dt_s)
+    profile = {name: device_profile(lambda e=e, a=a: e.gradient_sync(
+        grads, None, arenas=a, mesh=mesh), RING_OPS)
+        for name, e, a in (("overlapped", eng_k, arenas_k),
+                           ("serial", eng_s, arenas_s))} if cuda else None
+    flat = LocalMesh({"data": mesh.n_ranks}, device=mesh.device)
+    nd = mesh.rank_ndim
+    g_flat = {k: v.flatten(0, nd - 1) for k, v in grads.items()}
+    out_f, _ = acis.make_engine("acis").gradient_sync(g_flat, None,
+                                                      mesh=flat)
+    worst = 0.0
+    for k in grads:
+        d = (out_k[k].flatten(0, nd - 1).float() - out_f[k].float()).abs()
+        check(bool((d <= 2 * bounds[k]).all()),
+              f"{k}: hierarchical and flat acis differ beyond twice the "
+              "ring's rounding")
+        worst = max(worst, d.max().item())
+    return {"multi_axis_waves": multi, "streams": streams,
+            "overlapped_ms": t_o, "serial_ms": t_s,
+            "median_overlapped_ms": statistics.median(t_o),
+            "median_serial_ms": statistics.median(t_s),
+            "dispatch_profile": profile,
+            "serial_bitwise_equal_to_overlapped": True,
+            "max_abs_diff_vs_flat_acis": worst,
+            "flat_bound": "2 x ((n-1)/2 * eps * sum|g| / n + eps * |mean|)"}
+
+
 def compressed_path(mesh, cfg, seed: int, compressor: str, *,
-                    steps: int = 3, expect_kernels: bool = True) -> dict:
+                    steps: int = 3, expect_kernels: bool = True,
+                    backend: str = "acis_compressed") -> dict:
     """The acis_compressed path for one compressor: warm-up, then 3 steps
     with the EF residual threaded, kernel and plain syncs in turns.
 
@@ -1431,7 +1562,9 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
     cuda = dev.type == "cuda"
     sync_dev = torch.cuda.synchronize if cuda else (lambda: None)
     specs = grad_leaf_specs(cfg)
-    n = mesh.axis_size("data")
+    n, d_ring = mesh.n_ranks, mesh.axis_size("data")
+    nd = mesh.rank_ndim
+    outer = "pod" if "pod" in mesh.axis_names else None
 
     def grads_at(step):
         gen = torch.Generator(device=dev).manual_seed(seed * 1000 + step + 1)
@@ -1442,12 +1575,15 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    eng_k = acis.make_engine("acis_compressed", compressor=compressor)
+    eng_k = acis.make_engine(backend, compressor=compressor,
+                             outer_axis=outer)
     check(eng_k.config.use_kernels, "use_kernels is off by default")
-    eng_p = acis.make_engine("acis_compressed", compressor=compressor,
-                             use_kernels=False)
+    eng_p = acis.make_engine(backend, compressor=compressor,
+                             outer_axis=outer, use_kernels=False)
     g = grads_at(0)
+    t0 = time.perf_counter()
     ar_k = eng_k.init_arenas(g, mesh=mesh)
+    compile_ms = (time.perf_counter() - t0) * 1e3
     ar_p = eng_p.init_arenas(g, mesh=mesh)
     compiled = eng_k.last_sync_program()
     per_sync = expected_launches(compiled, mesh)
@@ -1473,9 +1609,9 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
         check(st_k[k].shape == v.shape and st_k[k].dtype == torch.float32
               and not st_k[k].any(), f"{k}: init_state is not f32 zeros")
     res_bytes = sum(v.numel() * v.element_size() for v in st_k.values())
-    cum_true = {k: torch.zeros(v.shape[1:], device=dev)
+    cum_true = {k: torch.zeros(v.shape[nd:], device=dev)
                 for k, v in g.items()}
-    cum_got = {k: torch.zeros(v.shape[1:], device=dev)
+    cum_got = {k: torch.zeros(v.shape[nd:], device=dev)
                for k, v in g.items()}
     tol = dict.fromkeys(g, 0.0)
     t_k, t_p = [], []
@@ -1489,7 +1625,8 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
         terms = {}
         for k in g:
             eps = 2.0 ** -8 if g[k].dtype == torch.bfloat16 else 2.0 ** -23
-            m = (g[k].float().abs() + st_k[k].abs()).sum(0).max().item()
+            m = (g[k].float().abs() + st_k[k].abs()).flatten(0, nd - 1) \
+                .sum(0).max().item()
             terms[k] = (eps, m, eps * (g[k].abs().max().item()
                                        + 2 * st_k[k].abs().max().item())
                         + 2.0 ** -23 * m)
@@ -1516,7 +1653,8 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
             # every rank holds the same totals: the RS∘AG rings bit for
             # bit; the sparse ring adds in a rank-relative order, so its
             # ranks agree within one rounding of the output and of the sum
-            dr = (o.float() - o[0:1].float()).abs().max().item()
+            of = o.flatten(0, nd - 1)
+            dr = (of.float() - of[0:1].float()).abs().max().item()
             worst_rank = max(worst_rank, dr)
             if compressor == "topk":
                 check(dr <= eps * omax + 2.0 ** -23 * m,
@@ -1525,10 +1663,10 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
                 check(dr == 0.0, f"{compressor} {k}: ranks differ by {dr}")
             term += 2 * eps * omax
             if compressor == "int8_hopquant":
-                term += (n - 1) / 2 * m / 127 / n
+                term += n / d_ring * (d_ring - 1) / 2 * m / 127 / n
             tol[k] += term
-            cum_true[k] += g[k].float().mean(0)
-            cum_got[k] += o[0].float()
+            cum_true[k] += g[k].float().flatten(0, nd - 1).mean(0)
+            cum_got[k] += of[0].float()
         st_k, st_p = new_k, new_p
         del out_k, out_p, new_k, new_p
     launches = read_counts()
@@ -1541,7 +1679,8 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
 
     worst_ratio = worst_err = 0.0
     for k in g:
-        err = ((cum_true[k] - cum_got[k]) - st_k[k].mean(0)).abs().max()
+        err = ((cum_true[k] - cum_got[k])
+               - st_k[k].flatten(0, nd - 1).mean(0)).abs().max()
         slack = 2.0 ** -22 * (cum_true[k].abs().max()
                               + cum_got[k].abs().max()).item()
         ratio = err.item() / (tol[k] + slack)
@@ -1556,9 +1695,12 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
         if cuda else None
     med_k, med_p = statistics.median(t_k), statistics.median(t_p)
     return {
-        "phase": "compressed", "compressor": compressor, "model": cfg.name,
+        "phase": "compressed" if outer is None else "hierarchical",
+        "backend": backend, "mesh": dict(mesh.axes),
+        "compressor": compressor, "model": cfg.name,
         "ranks": n, "leaves": len(specs),
-        "params_per_rank": sum(v[0].numel() for v in g.values()),
+        "params_per_rank": sum(v.flatten(0, nd - 1)[0].numel()
+                               for v in g.values()),
         "residual_bytes": res_bytes, "steps": steps,
         "stages": len(compiled.stages),
         "stage_kinds": compiled.stage_kinds(),
@@ -1573,8 +1715,134 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
         "ef_identity_err_over_bound": worst_ratio,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if cuda else None),
+        "compile_ms": compile_ms,
+        "cost_model_program_time_s": compiled.program_time(),
+        "cost_model": COST_MODEL_NOTE,
         "profile": profile,
     }
+
+
+# F2's program on the card: f32 per rank (16 MiB; its reduce-scatter
+# chunks are whole 256-lane int8 blocks)
+F2_LOCAL = 1 << 22
+
+
+def f2_path(mesh, seed: int, local: int, *, steps: int = 3,
+            expect_kernels: bool = True) -> dict:
+    """F2's program: ``engine.compile`` of ``reduce(v, axis="auto")`` on
+    ``acis_hierarchical_compressed`` over pod x data, the config's int8
+    codec on the pod all-reduce.  One untimed call, then ``steps`` calls
+    in turns with ``use_kernels=False``, bitwise equal, every rank the
+    same total; the reduce-scatter hops launched ``fused_hop`` and the
+    pod hop ``quant_hop`` as the plan says.  Held to the exact sum: the
+    data ring's f32 adds, each pod's encode and the pod combine's requant
+    move a lane by at most half a scale step each, a step being a block's
+    largest |partial sum| / 127, so by at most ``1.01·T/127 +
+    2^-20·S`` with ``T`` the sum over the pods of the lane's 256-lane
+    block's largest per-pod sum of |x|, and ``S`` the lane's sum of |x|."""
+    from repro_torch import core as acis
+    from repro_torch.mesh import P
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    n, pods = mesh.n_ranks, mesh.axis_size("pod")
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    x = torch.randn((n * local,), device=dev, generator=gen)
+    spec = P(("pod", "data"))
+    avals = (acis.TensorSpec((local,), torch.float32),)
+
+    def prog(v):
+        return acis.reduce(v, axis="auto")
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    eng_k = acis.make_engine("acis_hierarchical_compressed",
+                             outer_axis="pod")
+    eng_p = acis.make_engine("acis_hierarchical_compressed",
+                             outer_axis="pod", use_kernels=False)
+    t0 = time.perf_counter()
+    fk = eng_k.compile(prog, mesh, spec, spec, in_avals=avals)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    fp = eng_p.compile(prog, mesh, spec, spec, in_avals=avals)
+    codecs = [[nd.op.codec.name for nd in st.ir.nodes]
+              for st in fk.compiled.stages]
+    check(fk.stages == fp.stages == ["map", "reduce_scatter", "allreduce",
+                                     "allgather", "map"]
+          and fk.axes[2] == "pod" and codecs[2] == ["int8_b256"],
+          f"F2 program compiled to {fk.stages} {fk.axes} {codecs}")
+    per_call = expected_launches(fk.compiled, mesh)
+    sync_dev = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def timed(fn):
+        sync_dev()
+        t = time.perf_counter()
+        out = fn(x)
+        sync_dev()
+        return out, (time.perf_counter() - t) * 1e3
+
+    reset_counts()
+    t_k, t_p = [], []
+    for step in range(-1, steps):
+        (ok, dk), (op, dp) = in_turns(step, lambda: timed(fk),
+                                      lambda: timed(fp))
+        _bitwise_err(ok, op)
+        if step >= 0:
+            t_k.append(dk)
+            t_p.append(dp)
+    launches = read_counts()
+    if expect_kernels:
+        check_launches(launches, per_call, steps + 1)
+        check(per_call["quant_hop"] > 0 and per_call["fused_hop"] > 0,
+              "F2's plan runs no quant_hop or fused_hop")
+    ranks = ok.view(n, local)
+    check(bool((ranks == ranks[0:1]).all()), "F2: ranks hold other totals")
+    a = x.view(pods, n // pods, local).double().abs()
+    blk = a.sum(1).view(pods, -1, 256).amax(-1).sum(0)       # T per block
+    bound = 1.01 * blk.repeat_interleave(256) / 127 \
+        + 2.0 ** -20 * a.sum((0, 1))
+    err = (ranks[0].double() - x.view(n, local).double().sum(0)).abs()
+    check(bool((err <= bound).all()),
+          f"F2: {err.max().item()} off the exact sum, beyond the int8 "
+          "bound")
+    return {
+        "phase": "hierarchical", "program": "f2_compressed_reduce",
+        "backend": "acis_hierarchical_compressed", "mesh": dict(mesh.axes),
+        "local": local, "stages": fk.stages, "axes": fk.axes,
+        "codecs": codecs, "launches_per_call": per_call,
+        "launches": launches, "ms_kernels": t_k, "ms_plain": t_p,
+        "median_ms_kernels": statistics.median(t_k),
+        "median_ms_plain": statistics.median(t_p),
+        "bitwise_equal_to_plain": True,
+        "max_abs_err_vs_exact": err.max().item(),
+        "max_err_over_bound": (err / bound).max().item(),
+        "compile_ms": compile_ms,
+        "cost_model_program_time_s": fk.compiled.program_time(),
+        "cost_model": COST_MODEL_NOTE,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                 if cuda else None),
+        "profile": device_profile(lambda: fk(x), RING_OPS) if cuda
+        else None}
+
+
+def hierarchical_path(mesh, cfg, seed: int, *, steps: int = 3,
+                      expect_kernels: bool = True,
+                      f2_local: int = F2_LOCAL) -> list[dict]:
+    """The hierarchical phase on ``LocalMesh({"pod": 2, "data": 4})``:
+    ``acis_hierarchical`` (:func:`main_path`, with its stream, serial and
+    flat checks), ``acis_hierarchical_compressed`` with each compressor
+    (:func:`compressed_path`), then F2's program (:func:`f2_path`)."""
+    recs = [main_path(mesh, cfg, seed, steps=steps,
+                      expect_kernels=expect_kernels,
+                      backend="acis_hierarchical")]
+    for comp in COMPRESSORS:
+        recs.append(compressed_path(
+            mesh, cfg, seed, comp, steps=steps,
+            expect_kernels=expect_kernels,
+            backend="acis_hierarchical_compressed"))
+    recs.append(f2_path(mesh, seed, f2_local, steps=steps,
+                        expect_kernels=expect_kernels))
+    return recs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2566,6 +2834,11 @@ def main() -> int:
         paths.append(rec)
         emit(rec)
     del mesh
+    for rec in hierarchical_path(LocalMesh({"pod": 2, "data": 4},
+                                           device="cuda"),
+                                 CONFIG, args.seed):
+        paths.append(rec)
+        emit(rec)
     for rec in serve_path(RWKV6, args.seed, SERVE):
         paths.append(rec)
         emit(rec)

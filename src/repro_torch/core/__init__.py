@@ -13,10 +13,11 @@ Layering (each module mirrors its :mod:`repro.core` counterpart):
   program     DAG IR (DagProgram) + the SwitchProgram chain shim
   tracing     traced frontend: programs as plain Python functions
   compiler    Legalize → LowerTopology → Coalesce → FuseHops →
-              SelectSchedule → Emit
+              SelectSchedule → PlaceCGRA → Emit
   executor    ExecutionPlan: dependency edges + concurrent waves
   netmodel    analytic network emulator (a copy of the reference's)
   api         CollectiveEngine: compile(...) and gradient_sync(...)
+  topology    hierarchical (pod x data) all-reduce over engine.compile
 
 Usually imported as ``acis``::
 

@@ -13,11 +13,12 @@ transport runs.  Ported so far:
                           ``int8_hopquant`` or ``topk``): the residuals
                           from :meth:`CollectiveEngine.init_state` are
                           threaded through every sync
-
-The hierarchical backends (``acis_hierarchical``,
-``acis_hierarchical_compressed``) need the multi-axis mesh and raise
-``NotImplementedError`` until that slice lands (ROADMAP.md, queue 1
-item 3).
+  * ``acis_hierarchical`` (+ ``_compressed``) — pod-aware two-level sync
+                          on a two-axis mesh (``outer_axis="pod"``):
+                          LowerTopology turns the ``axis="auto"`` reduce
+                          into RS(inner) → AR(outer) → AG(inner), and a
+                          compressed engine's ``codec`` rides the thin
+                          outer hop of any plain reduce it compiles
 
 :meth:`CollectiveEngine.compile` is the one entry point for any other
 switch program, the Type 3/4 ones included: a traced program compiles
@@ -34,8 +35,8 @@ inside ``with mesh:`` (a :class:`~repro_torch.mesh.LocalMesh`, or pass
 ``reduce(axis="auto")`` and an elementwise mean, with an error-feedback
 target/residual around it on ``acis_compressed`` — compiled once per
 pytree structure through Legalize → LowerTopology → Coalesce → FuseHops
-→ SelectSchedule → Emit.  Its Coalesce bucket packs write into
-persistent **arenas** in place: :meth:`CollectiveEngine.init_arenas`
+→ SelectSchedule → PlaceCGRA → Emit.  Its Coalesce bucket packs write
+into persistent **arenas** in place: :meth:`CollectiveEngine.init_arenas`
 allocates them once, and every :meth:`~CollectiveEngine.gradient_sync`
 hands back the same tensors.
 """
@@ -59,9 +60,6 @@ PyTree = Any
 
 BACKENDS = ("xla", "acis", "acis_compressed", "acis_hierarchical",
             "acis_hierarchical_compressed")
-PORTED_BACKENDS = ("xla", "acis", "acis_compressed")
-_WAITS = ("the multi-axis LocalMesh with the hierarchical backends "
-          "(ROADMAP.md, queue 1 item 3)")
 
 
 def _use_kernels_default() -> bool:
@@ -79,10 +77,12 @@ def live_axis_sizes(axes) -> dict:
 @dataclasses.dataclass(frozen=True)
 class CollectiveConfig:
     """The reference's config fields that change what the ported path
-    computes or compiles; the CGRA device and the tuning DB come with
-    their slices."""
+    computes or compiles; the tuning DB comes with its slice."""
 
     backend: str = "xla"
+    # wire codec a compressed engine puts on the thin outer hop of a
+    # plain reduce: int8 | bf16 | fp8 (repro_torch.core.wire.resolve_codec)
+    codec: str = "int8"
     # compressor for error-feedback sync: int8 | int8_hopquant | topk
     compressor: str = "int8"
     topk_ratio: float = 0.01
@@ -93,6 +93,15 @@ class CollectiveConfig:
     # model's crossover for the axis traversed
     # (repro_torch.core.netmodel.bucket_bytes); 0 = disable bucketing.
     bucket_bytes: Optional[int] = None
+    # switch CGRA the PlaceCGRA pass maps stage bodies onto; None = the
+    # paper's Table II device (repro_torch.cgra.device.PAPER_CGRA)
+    cgra_device: Optional[Any] = None
+    # overlapped wave dispatch (repro_torch.core.executor.execute): on
+    # CUDA tensors the per-axis dispatch groups of a wave that spans
+    # several axes run on their own stream, one per mesh axis.  False =
+    # strict stage order on the caller's stream (kept for A/B
+    # measurement).
+    overlap_dispatch: bool = True
     # hoist a bucket's shared elementwise epilogue (the gradient mean)
     # to one bucket-sized op; False keeps per-leaf epilogues.
     epilogue_hoist: bool = True
@@ -116,13 +125,16 @@ class CollectiveConfig:
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"backend {self.backend!r} not in {BACKENDS}")
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {self.backend!r} waits for {_WAITS}")
 
     def cache_key(self) -> tuple:
-        """Every config field a compiled program's structure depends on."""
-        return dataclasses.astuple(self)
+        """Every config field a compiled program's structure depends on
+        (the reference's key, plus the CGRA device the placements were
+        made for)."""
+        return (self.backend, self.codec, self.compressor,
+                self.topk_ratio, self.latency_optimal_below,
+                self.bucket_bytes, self.cgra_device, self.overlap_dispatch,
+                self.epilogue_hoist, self.use_kernels,
+                self.batch_rings, self.batch_rings_bytes)
 
 
 class CollectiveEngine:
@@ -141,6 +153,14 @@ class CollectiveEngine:
     @property
     def compressed(self) -> bool:
         return "compressed" in self.config.backend
+
+    @property
+    def hierarchical(self) -> bool:
+        return "hierarchical" in self.config.backend
+
+    @property
+    def base_backend(self) -> str:
+        return "xla" if self.config.backend == "xla" else "acis"
 
     def init_state(self, grads_like: PyTree) -> Optional[PyTree]:
         """Look-aside state (Type 3): error-feedback residuals, or None.
@@ -349,6 +369,26 @@ class CollectiveEngine:
         :class:`~repro_torch.core.compiler.CompiledProgram`, or None
         before the first sync."""
         return self._last_sync
+
+    # -- generic ops (Type 1, rank-local over one axis) ----------------------
+
+    def all_reduce(self, x, axis_name=None, monoid=ADD):
+        return collectives.all_reduce(
+            x, axis_name or self.inner_axis, monoid,
+            backend=self.base_backend)
+
+    def all_gather(self, x, axis_name=None):
+        return collectives.all_gather(
+            x, axis_name or self.inner_axis, backend=self.base_backend)
+
+    def reduce_scatter(self, x, axis_name=None, monoid=ADD):
+        return collectives.reduce_scatter(
+            x, axis_name or self.inner_axis, monoid,
+            backend=self.base_backend)
+
+    def all_to_all(self, x, axis_name=None):
+        return collectives.all_to_all(
+            x, axis_name or self.inner_axis, backend=self.base_backend)
 
     # -- switch-program compilation (the one entry point) --------------------
 

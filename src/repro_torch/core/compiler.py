@@ -19,15 +19,17 @@ schedules, axes, waves and bucket layout:
   5. :class:`SelectSchedule` — latency- vs bandwidth-optimal ring per
      all-reduce stage from the per-rank payload and the
      :mod:`repro_torch.core.netmodel` cost model.
-  6. :class:`Emit`       — lower every stage to a rank-local callable run
+  6. :class:`PlaceCGRA`  — map every stage's compute body onto the switch
+     CGRA (:mod:`repro_torch.cgra.mapper`, ``make_fx`` graphs): a
+     placement, a route-through or an explicit host fallback, which the
+     cost model (:meth:`CompiledProgram.program_time`, the model columns
+     of :meth:`CompiledProgram.explain`) prices.  It changes nothing that
+     Emit emits.
+  7. :class:`Emit`       — lower every stage to a rank-local callable run
      eagerly over the active mesh, following an explicit
      :class:`~repro_torch.core.executor.ExecutionPlan`.
 
-The reference's PlaceCGRA pass (CGRA placement of stage bodies) is not
-ported yet: every ``placement`` is None, and the cost-model views that
-need placements (:meth:`CompiledProgram.program_time`, the model columns
-of :meth:`CompiledProgram.explain`) raise ``NotImplementedError``.  Every
-stage kind lowers and runs, the Type 4 fused stages through
+Every stage kind lowers and runs, the Type 4 fused stages through
 :mod:`repro_torch.core.fused`.
 
 Rank dims: a compiled program runs on rank-stacked tensors
@@ -55,15 +57,12 @@ from repro_torch.core.program import (AUTO_AXIS, COLLECTIVE_KINDS, DagNode,
                                       SwitchProgram)
 from repro_torch.core.tracing import trace
 from repro_torch.core.types import TensorSpec
-from repro_torch.core.wire import IDENTITY, resolve_codec
+from repro_torch.core.wire import IDENTITY, resolve_codec, with_kernels
 from repro_torch.mesh import LocalMesh, PartitionSpec, ambient, current
 from repro_torch.obs import metrics as _obs
 
 PyTree = Any
 ProgramLike = Union[DagProgram, SwitchProgram, Callable]
-
-# where the part that is not ported yet will come from
-_WAITS_MAPPER = ("PlaceCGRA + cgra/mapper.py (ROADMAP.md, queue 1 item 1)")
 
 
 def _dtype_name(dtype) -> str:
@@ -229,9 +228,10 @@ class StageIR:
 class Stage:
     """One emitted in-network stage: ``run(args, axis_name) -> outputs``.
 
-    ``placement`` is the CGRA mapping of the stage's compute body (None
-    until the mapper is ported); ``ir`` is the pre-emission
-    :class:`StageIR` the stage was lowered from.
+    ``placement`` is the CGRA mapping of the stage's compute body (a
+    :class:`~repro_torch.cgra.device.Placement` or an explicit
+    :class:`~repro_torch.cgra.device.HostFallback`); ``ir`` is the
+    pre-emission :class:`StageIR` the stage was lowered from.
     """
 
     kind: str
@@ -267,6 +267,12 @@ class CompiledProgram:
     Calling the program always returns a **tuple**, one entry per program
     output — single-output programs return a 1-tuple, not a bare array.
 
+    ``overlap`` selects the dispatch mode (see
+    :func:`repro_torch.core.executor.execute`): overlapped wave dispatch,
+    one CUDA stream per mesh axis, by default; strict stage order on the
+    caller's stream when False (``CollectiveConfig.overlap_dispatch`` at
+    compile time).
+
     The program's Coalesce bucket packs may additionally write into
     persistent **arenas**: call :meth:`make_arenas` once and pass the
     buffers to every call (``outs, arenas = prog(*xs, arenas=arenas)``);
@@ -278,6 +284,7 @@ class CompiledProgram:
     source: DagProgram
     topology: Optional[Topology] = None
     plan: Optional[executor.ExecutionPlan] = None
+    overlap: bool = True
 
     def __post_init__(self):
         if self.plan is None:
@@ -346,15 +353,14 @@ class CompiledProgram:
         which wire codec, and where the compute body landed (CGRA
         placement or explicit host fallback).
 
-        With ``trace`` (a recording whose ``stages`` list of records
-        carries ``stage`` and ``duration``), the reference adds measured-vs-model columns; the model needs CGRA
-        placements, so here that raises ``NotImplementedError`` until the
-        mapper is ported.
+        With ``trace`` (anything with a ``stages`` list of records
+        carrying ``stage`` and ``duration``, or such a list itself), three
+        more columns compare the recording against the analytic model —
+        measured µs, model µs and their ratio — and a footer summarizes
+        the mispredict ratio over the priced stages.  Without a recording
+        the footer says so explicitly instead of silently omitting the
+        columns.
         """
-        if trace is not None:
-            raise NotImplementedError(
-                "explain(trace=...) prices stages with the cost model, "
-                f"which needs CGRA placements: waits for {_WAITS_MAPPER}")
         if trace is not None and not hasattr(trace, "stages") \
                 and hasattr(trace, "trace"):
             trace = trace.trace        # a RunReport: unwrap its trace
@@ -430,16 +436,18 @@ class CompiledProgram:
                 "stage indices don't match this plan")
         else:
             lines.append(
-                "  (no recording attached; measured-vs-model columns "
-                "need the cost model's CGRA placements)")
+                "  (no recording attached — pass trace= a list of stage "
+                "spans (execute's instrument=) to add measured-vs-model "
+                "columns)")
         return "\n".join(lines)
 
     def program_time(self, topology: Optional[Topology] = None) -> float:
-        """Analytic wall time of the whole plan (the reference's
-        :func:`repro.core.netmodel.program_time`).  It prices MAP-carrying
-        stages from their CGRA placement, so it waits for the mapper."""
-        raise NotImplementedError(
-            f"program_time needs CGRA placements: waits for {_WAITS_MAPPER}")
+        """Analytic wall time of the whole plan (critical path with
+        per-tier overlap) — :func:`repro_torch.core.netmodel.program_time`
+        against this program's compile topology: the cost model's figure
+        for the paper's switch, not a time on any device."""
+        topo = topology if topology is not None else self.topology
+        return netmodel.program_time(self.plan, topo)
 
     def axes(self) -> list[str]:
         """Distinct communication axes, in first-use order."""
@@ -485,6 +493,7 @@ class CompiledProgram:
                         "program (make_arenas / engine.init_arenas with "
                         "matching grad dtypes)")
         return executor.execute(self.plan, xs, arenas=arenas,
+                                overlapped=self.overlap,
                                 instrument=instrument)
 
 
@@ -2500,11 +2509,45 @@ class SelectSchedule:
 
 
 # ---------------------------------------------------------------------------
-# Pass 6: Emit
+# Pass 6: PlaceCGRA — map stage compute bodies onto the switch grid
+# ---------------------------------------------------------------------------
+
+class PlaceCGRA:
+    """Attach a CGRA placement (or explicit host fallback) to every stage.
+
+    Runs after SelectSchedule: the ring choice is made, the payloads are
+    known, and this pass decides whether the in-switch rate the model
+    assumed is *earned* — re-costing the stage with the placement-derived
+    throughput (or the PCIe + MPI host detour) in the stage desc.  The
+    work lives in :mod:`repro_torch.cgra.mapper`; the import is deferred
+    so neither module needs the other at import time.
+    """
+
+    name = "place_cgra"
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def run(self, groups: list, ctx: "CompileContext") -> list:
+        from repro_torch.cgra import mapper
+
+        return mapper.place_groups(groups, ctx, self.device)
+
+
+# ---------------------------------------------------------------------------
+# Pass 7: Emit
 # ---------------------------------------------------------------------------
 
 def _use_kernels(ctx: CompileContext) -> bool:
     return bool(getattr(ctx.config, "use_kernels", False))
+
+
+def _wire_codec(codec, ctx: CompileContext):
+    """The codec an all-reduce stage runs: with kernels on, the int8
+    codec's encoded combine is the ``quant_combine`` kernel (one
+    ``quant_hop`` launch per reduce-scatter hop on the card), as the
+    ``int8_hopquant`` compressor's is."""
+    return with_kernels(codec) if _use_kernels(ctx) else codec
 
 
 class Emit:
@@ -2594,7 +2637,8 @@ class Emit:
         mp, red = g.nodes[0].op, g.nodes[1].op
         lat = g.schedule == "latency"
 
-        def run(args, ax, _f=mp.fn, _m=red.monoid, _c=red.codec, _l=lat):
+        def run(args, ax, _f=mp.fn, _m=red.monoid,
+                _c=_wire_codec(red.codec, ctx), _l=lat):
             (x,) = args
             return (collectives.all_reduce(_f(x), ax, _m, codec=_c,
                                            latency_optimal=_l),)
@@ -2703,7 +2747,8 @@ class Emit:
         hop = switchops.hop_kernel(op.monoid.name) if _use_kernels(ctx) \
             else None
 
-        def run(args, ax, _m=op.monoid, _c=op.codec, _l=lat, _h=hop):
+        def run(args, ax, _m=op.monoid, _c=_wire_codec(op.codec, ctx),
+                _l=lat, _h=hop):
             (x,) = args
             return (collectives.all_reduce(x, ax, _m, codec=_c,
                                            latency_optimal=_l,
@@ -2765,7 +2810,7 @@ class Emit:
 # ---------------------------------------------------------------------------
 
 DEFAULT_PIPELINE = (Legalize(), LowerTopology(), Coalesce(), FuseHops(),
-                    SelectSchedule(), Emit())
+                    SelectSchedule(), PlaceCGRA(), Emit())
 
 
 def run_pipeline(dag: DagProgram, ctx: CompileContext,
@@ -2805,7 +2850,9 @@ def compile_rank_local(
                          config=config, in_avals=in_avals,
                          topology=topology)
     stages, final_dag = run_pipeline(dag, ctx, pipeline)
-    out = CompiledProgram(stages, final_dag, topology=ctx.topology)
+    out = CompiledProgram(stages, final_dag, topology=ctx.topology,
+                          overlap=getattr(config, "overlap_dispatch",
+                                          True))
     rec = _obs.RECORDER
     if rec.enabled:
         rec.count("compile.programs")
@@ -2820,49 +2867,6 @@ def compile_rank_local(
         for grp in out.plan.waves:
             rec.observe("plan.wave_width", float(len(grp)))
     return out
-
-
-def _to_ranks(x: torch.Tensor, spec, mesh: LocalMesh) -> torch.Tensor:
-    """A global tensor → the rank-stacked tensor ``shard_map`` would hand
-    the ranks under ``spec``: ``P("data")`` splits the leading dim over
-    the ``data`` ranks (``[G, ...]`` → ``[data, G/data, ...]``), ``P(None)``
-    / ``P()`` replicates.  One axis per spec in this slice."""
-    x = torch.as_tensor(x, device=mesh.device)
-    axis = _spec_axis(spec)
-    if axis is None:
-        return x.expand(mesh.rank_shape + tuple(x.shape)).contiguous()
-    d, n = mesh.dim(axis), mesh.axis_size(axis)
-    if x.shape[0] % n:
-        raise ValueError(f"leading dim {x.shape[0]} not divisible by the "
-                         f"{n} ranks of axis {axis!r}")
-    y = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
-    y = y.reshape(tuple(n if j == d else 1 for j in range(mesh.rank_ndim))
-                  + tuple(y.shape[1:]))
-    return y.expand(mesh.rank_shape + tuple(y.shape[mesh.rank_ndim:])) \
-        .contiguous()
-
-
-def _from_ranks(y: torch.Tensor, spec, mesh: LocalMesh) -> torch.Tensor:
-    """The inverse of :func:`_to_ranks`: concat the ``spec`` axis's ranks
-    along the leading dim, or take rank 0's copy of a replicated value."""
-    axis = _spec_axis(spec)
-    if axis is None:
-        return y[(0,) * mesh.rank_ndim]
-    d = mesh.dim(axis)
-    y = y[tuple(slice(None) if j == d else 0
-                for j in range(mesh.rank_ndim))]
-    return y.reshape((y.shape[0] * y.shape[1],) + tuple(y.shape[2:]))
-
-
-def _spec_axis(spec) -> Optional[str]:
-    entries = tuple(spec) if spec is not None else ()
-    if any(e is not None for e in entries[1:]) \
-            or (entries and not isinstance(entries[0], (str, type(None)))):
-        raise NotImplementedError(
-            f"partition spec {spec!r}: only the leading dim may be sharded, "
-            "over one mesh axis (multi-axis specs wait for ROADMAP.md, "
-            "queue 1 item 3)")
-    return entries[0] if entries else None
 
 
 def compile_program(
@@ -2893,12 +2897,10 @@ def compile_program(
         ins = in_specs if not isinstance(in_specs, PartitionSpec) \
             else (in_specs,) * len(xs)
         with mesh:
-            outs = compiled(*(_to_ranks(x, s, mesh)
-                              for x, s in zip(xs, ins)))
+            outs = compiled(*(mesh.shard(x, s) for x, s in zip(xs, ins)))
             outs_sp = out_specs if not isinstance(out_specs, PartitionSpec) \
                 else (out_specs,) * len(outs)
-            res = tuple(_from_ranks(o, s, mesh)
-                        for o, s in zip(outs, outs_sp))
+            res = tuple(mesh.unshard(o, s) for o, s in zip(outs, outs_sp))
         # the rank-local program always returns a tuple; like shard_map,
         # a single output comes back bare
         return res[0] if len(res) == 1 else res

@@ -9,14 +9,21 @@ the plan partitions stages into per-axis **dispatch groups**
 rings and serialize, stages on different axes are free to overlap.  The
 plan is the reference's, stage for stage.
 
-:func:`execute` runs the plan eagerly on PyTorch's current stream, in the
-reference's issue order (round-robin across a wave's dispatch groups).
-On one mesh axis that order is already the ring order every rank must
-follow, so the reference's ``optimization_barrier`` edges have nothing
-to pin; several axes on their own CUDA streams come with the
-hierarchical slice.  Bucket-pack stages carrying an ``arena_slot`` write
-into the caller's persistent arena tensors **in place** — the same
-tensors come back, so there is nothing to donate.
+:func:`execute` runs the plan eagerly, wave by wave.  Overlapped (the
+default) it issues a wave round-robin across its dispatch groups, the
+reference's order; where the wave spans several mesh axes and the values
+live on the card, each axis group runs on a CUDA stream of its own (one
+per mesh axis, kept on the plan), so collectives on different axes may
+run at once.  That is the port's form of the reference's
+``optimization_barrier`` edges: a stream runs its stages in issue order
+(the chain every rank must follow on one ring), and nothing orders two
+streams inside a wave.  Each such wave forks from the caller's stream
+and joins it again before the next wave, so every dependency, which
+always crosses a wave, is ordered by an event.  Serial dispatch
+(``overlapped=False``) runs the stages in plan order on the caller's
+stream.  Bucket-pack stages carrying an ``arena_slot`` write into the
+caller's persistent arena tensors **in place** — the same tensors come
+back, so there is nothing to donate.
 
 The plan is deliberately dumb data (stage indices + edges + waves): it
 duck-types against anything carrying ``in_vids``/``out_vids``.
@@ -30,6 +37,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import spans as _spans
 
@@ -56,6 +64,10 @@ class ExecutionPlan:
     deps: tuple[tuple[int, ...], ...]
     waves: tuple[tuple[int, ...], ...]
     wave_groups: tuple[tuple[tuple[str, tuple[int, ...]], ...], ...] = ()
+    # the CUDA streams overlapped dispatch runs axis groups on, by
+    # (device, axis); made on first use
+    streams: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
 
     @property
     def n_stages(self) -> int:
@@ -93,6 +105,14 @@ class ExecutionPlan:
             if flat != sorted(wave):
                 raise ValueError(
                     f"wave_groups {groups} do not partition wave {wave}")
+
+    def stream(self, device: torch.device, axis: str):
+        """The plan's CUDA stream for ``axis`` on ``device``."""
+        key = (device.index, axis)
+        s = self.streams.get(key)
+        if s is None:
+            s = self.streams[key] = torch.cuda.Stream(device)
+        return s
 
     def dispatch_groups(self) -> tuple:
         """The per-wave axis dispatch groups — the stored ``wave_groups``
@@ -264,12 +284,39 @@ def _block(values) -> None:
             return
 
 
+def _tensors(values) -> list:
+    return [t for t in _tree.tree_leaves(values)
+            if isinstance(t, torch.Tensor)]
+
+
+def _cuda_device(values) -> Optional[torch.device]:
+    for t in _tensors(values):
+        if t.is_cuda:
+            return t.device
+    return None
+
+
 def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
             arenas: Optional[Sequence] = None,
+            overlapped: bool = True,
             instrument: Optional[list] = None) -> tuple:
     """Run the plan over rank-local values (inside ``with mesh:``), wave
-    by wave, each wave round-robin across its dispatch groups (the
-    reference's overlapped issue order).
+    by wave.
+
+    ``overlapped=True`` (the default) issues each wave round-robin across
+    its dispatch groups (the reference's overlapped issue order).  When
+    the wave holds more than one axis group and the values are on the
+    card, each axis group runs on the plan's stream for that axis: the
+    side streams first wait for the caller's stream, every tensor a
+    stage reads there is marked as in use by that stream
+    (``record_stream``) and every tensor it makes as in use by the
+    caller's, so the caching allocator reuses no block another stream
+    may still read; the caller's stream waits for them all before the
+    next wave, and so before ``execute`` returns.  Axis-less groups
+    (local maps) stay on the caller's stream.  ``overlapped=False`` runs
+    the stages in plan order on the caller's stream (the reference's
+    serial emission).  On the CPU both modes issue on the one host
+    thread, in their order.
 
     ``arenas`` are the persistent flat buffers for the program's bucket
     packs (one per ``arena_slot``, see
@@ -287,6 +334,7 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
     env: dict[int, PyTree] = dict(enumerate(args))
     new_arenas = list(arenas) if arenas is not None else None
     wave_of = {i: w for w, ws in enumerate(plan.waves) for i in ws}
+    device = _cuda_device(args) if overlapped else None
 
     def run_stage(i: int) -> tuple:
         st = plan.stages[i]
@@ -313,9 +361,41 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
             env[vid] = o
         return outs
 
+    def run_on(stream, caller, i: int) -> None:
+        st = plan.stages[i]
+        for t in _tensors([env[v] for v in st.in_vids]):
+            if t.is_cuda:
+                t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            outs = run_stage(i)
+        for t in _tensors(outs):
+            if t.is_cuda:
+                t.record_stream(caller)
+
     for wave, groups in zip(plan.waves, plan.dispatch_groups()):
+        if not overlapped:
+            for i in wave:
+                run_stage(i)
+            continue
+        n_axes = sum(1 for ax, _ in groups if ax)
+        if device is None or n_axes < 2:
+            for i in _issue_order(groups):
+                run_stage(i)
+            continue
+        caller = torch.cuda.current_stream(device)
+        forked = {}
+        for ax, _ in groups:
+            if ax and ax not in forked:
+                forked[ax] = plan.stream(device, ax)
+                forked[ax].wait_stream(caller)
         for i in _issue_order(groups):
-            run_stage(i)
+            ax = plan.stages[i].axis
+            if ax:
+                run_on(forked[ax], caller, i)
+            else:
+                run_stage(i)
+        for s in forked.values():
+            caller.wait_stream(s)
     outs = tuple(env[v] for v in plan.outputs)
     if new_arenas is not None:
         return outs, tuple(new_arenas)

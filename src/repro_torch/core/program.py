@@ -11,8 +11,8 @@ and multiple program outputs.  Users normally do not build it by hand —
 they write a plain Python function over symbolic values and call
 :func:`repro_torch.core.tracing.trace`; the compiler (core/compiler.py)
 runs a pass pipeline (Legalize → LowerTopology → Coalesce → FuseHops →
-SelectSchedule → Emit) over the DAG and emits one rank-local program that
-runs eagerly over the active mesh.
+SelectSchedule → PlaceCGRA → Emit) over the DAG and emits one rank-local
+program that runs eagerly over the active mesh.
 
 :class:`SwitchProgram` — the original linear chain-of-nodes spelling — is
 kept as a thin front-end shim; :meth:`SwitchProgram.to_dag` builds the

@@ -160,6 +160,17 @@ def int8_codec(block: int = QBLOCK, *,
                      combine_encoded=combine, wire_ratio=ratio)
 
 
+def with_kernels(codec: WireCodec) -> WireCodec:
+    """``codec`` with its encoded combine on the CUDA kernels where one
+    exists: a fresh 256-lane int8 codec built with ``use_kernels`` (its
+    ``encode``/``decode`` pair carries per-call shape state, so it is
+    never shared).  Every other codec comes back unchanged."""
+    if codec.name == f"int8_b{QBLOCK}" \
+            and not hasattr(codec.combine_encoded, "fused_hop"):
+        return int8_codec(QBLOCK, use_kernels=True)
+    return codec
+
+
 CODECS = {
     "identity": IDENTITY,
     "bf16": BF16,

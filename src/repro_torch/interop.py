@@ -1,8 +1,10 @@
 """Hand the same data to the reference and to the port.
 
-The reference shards a global array over a mesh axis with
-``P("data")``: rank ``r`` holds the ``r``-th slice of the leading dim.
-The port holds every rank's slice in one tensor, ``[*rank, *local]``.
+The reference shards a global array over mesh axes with a partition
+spec: under ``P("data")`` rank ``r`` holds the ``r``-th slice of the
+leading dim, under ``P("pod", "data", None)`` rank ``(p, d)`` holds
+block ``[p, d]`` of the first two dims.  The port holds every rank's
+slice in one tensor, ``[*rank, *local]``.
 These functions convert between the two layouts (numpy on the
 reference's side, torch on the port's), leaf by leaf for pytrees, so a
 test can feed one seeded numpy input to both packages and compare.
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
-from repro_torch.mesh import LocalMesh
+from repro_torch.mesh import LocalMesh, PartitionSpec
 
 PyTree = Any
 
@@ -44,26 +46,30 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def ranks_from_reference(x_global, mesh: LocalMesh) -> torch.Tensor:
-    """A global array the reference shards ``P(<every mesh axis>)`` over
-    its leading dim → the port's rank-stacked tensor on the mesh's
-    device: ``[G, ...]`` → ``[*rank_shape, G / n_ranks, ...]``."""
-    t = _to_torch(x_global)
-    n = mesh.n_ranks
-    if t.shape[0] % n:
-        raise ValueError(f"leading dim {t.shape[0]} not divisible by the "
-                         f"{n} ranks of {mesh.axes}")
-    return t.reshape(mesh.rank_shape + (t.shape[0] // n,)
-                     + tuple(t.shape[1:])).to(mesh.device)
+def _spec(mesh: LocalMesh, spec):
+    # the default: the leading dim over every mesh axis, the first axis
+    # major (shard_map's split of a compound leading dim)
+    return PartitionSpec(mesh.axis_names) if spec is None else spec
 
 
-def reference_from_ranks(x: torch.Tensor, mesh: LocalMesh) -> np.ndarray:
-    """The inverse: the port's ``[*rank, L, ...]`` → the reference's
-    global ``[n_ranks * L, ...]`` numpy array."""
-    nd = mesh.rank_ndim
-    lead = x.shape[nd] if x.dim() > nd else 1
-    return _to_numpy(x.reshape((mesh.n_ranks * lead,)
-                               + tuple(x.shape[nd + 1:])))
+def ranks_from_reference(x_global, mesh: LocalMesh,
+                         spec=None) -> torch.Tensor:
+    """A global array the reference shards by ``spec`` → the port's
+    rank-stacked tensor on the mesh's device.  ``spec`` defaults to the
+    leading dim split over every mesh axis: ``[G, ...]`` →
+    ``[*rank_shape, G / n_ranks, ...]``; ``P("pod", "data", None)`` takes
+    ``[pod, data, L, ...]`` to ``[pod, data, 1, 1, L, ...]``."""
+    return mesh.shard(_to_torch(x_global), _spec(mesh, spec))
+
+
+def reference_from_ranks(x: torch.Tensor, mesh: LocalMesh,
+                         spec=None) -> np.ndarray:
+    """The inverse: the port's ``[*rank, *local]`` → the reference's
+    global numpy array under ``spec`` (by default ``[n_ranks * L,
+    ...]``, and ``[n_ranks]`` for one scalar a rank)."""
+    if spec is None and x.dim() == mesh.rank_ndim:
+        return _to_numpy(x.reshape(mesh.n_ranks))
+    return _to_numpy(mesh.unshard(x, _spec(mesh, spec)))
 
 
 def tree_ranks_from_reference(t: PyTree, mesh: LocalMesh) -> PyTree:

@@ -35,9 +35,11 @@ _ACTIVE: contextvars.ContextVar[Optional["Transport"]] = \
 
 
 class PartitionSpec(tuple):
-    """How a global tensor's dims map onto mesh axes (``P("data")``
-    shards the leading dim over ``data``; ``P(None)`` / ``P()``
-    replicates)."""
+    """How a global tensor's dims map onto mesh axes, one entry per dim
+    as in ``shard_map``: ``P("data")`` shards the leading dim over
+    ``data``, ``P("pod", "data", None)`` the first dim over ``pod`` and
+    the second over ``data``, ``P(("pod", "data"))`` the leading dim over
+    both (pod-major); ``P(None)`` / ``P()`` replicates."""
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
@@ -221,3 +223,71 @@ class LocalMesh(Transport):
 
     def shift(self, x: torch.Tensor, axis: str, k: int) -> torch.Tensor:
         return torch.roll(x, k, dims=self.dim(axis))
+
+    # -- global tensors <-> rank-stacked tensors (shard_map's in/out specs) --
+
+    def _spec_dims(self, spec, ndim: int) -> list[tuple[str, ...]]:
+        """The mesh axes each of a global tensor's ``ndim`` dims is split
+        over, major first; raises on an axis used twice or not on the
+        mesh."""
+        entries = tuple(spec) if spec is not None else ()
+        while len(entries) > ndim and entries[-1] is None:
+            entries = entries[:-1]          # P(None) of a scalar
+        if len(entries) > ndim:
+            raise ValueError(f"partition spec {spec!r} has more entries "
+                             f"than the tensor's {ndim} dims")
+        dims, seen = [], set()
+        for e in entries + (None,) * (ndim - len(entries)):
+            axes = () if e is None else (e,) if isinstance(e, str) \
+                else tuple(e)
+            for a in axes:
+                self.dim(a)                         # raises if absent
+                if a in seen:
+                    raise ValueError(f"axis {a!r} used twice in {spec!r}")
+                seen.add(a)
+            dims.append(axes)
+        return dims
+
+    def shard(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """A global tensor → the rank-stacked tensor ``shard_map`` would
+        hand the ranks under ``spec``: every sharded dim is split over its
+        axes (major first), and the ranks of the axes ``spec`` leaves out
+        hold copies.  ``[*rank_shape, *local]``, contiguous, on this
+        mesh's device."""
+        x = torch.as_tensor(x, device=self.device)
+        shape, pos = [], {}
+        for j, axes in enumerate(self._spec_dims(spec, x.dim())):
+            n = math.prod(self.axis_size(a) for a in axes)
+            if x.shape[j] % n:
+                raise ValueError(f"dim {j} of size {x.shape[j]} not "
+                                 f"divisible by the {n} ranks of {axes}")
+            for a in axes:
+                pos[a] = len(shape)
+                shape.append(self.axis_size(a))
+            shape.append(x.shape[j] // n)
+        local = [k for k in range(len(shape)) if k not in pos.values()]
+        for a in self.axis_names:             # replicated: a size-1 dim
+            if a not in pos:
+                pos[a] = len(shape)
+                shape.append(1)
+        y = x.reshape(shape).permute(
+            [pos[a] for a in self.axis_names] + local)
+        return y.expand(self.rank_shape + tuple(y.shape[self.rank_ndim:])) \
+            .contiguous()
+
+    def unshard(self, y: torch.Tensor, spec) -> torch.Tensor:
+        """The inverse of :meth:`shard`: every sharded dim gathered from
+        its axes' ranks (major first), rank 0's copy along the axes
+        ``spec`` leaves out."""
+        nd = self.rank_ndim
+        dims = self._spec_dims(spec, y.dim() - nd)
+        used = [a for axes in dims for a in axes]
+        y = y[tuple(slice(None) if a in used else 0
+                    for a in self.axis_names)]
+        kept = [a for a in self.axis_names if a in used]
+        perm, shape = [], []
+        for j, axes in enumerate(dims):
+            perm += [kept.index(a) for a in axes] + [len(kept) + j]
+            shape.append(y.shape[len(kept) + j]
+                         * math.prod(self.axis_size(a) for a in axes))
+        return y.permute(perm).reshape(shape)

@@ -74,12 +74,13 @@ def test_prefix_checks_rehearsed_on_the_cpu(smoke, monkeypatch):
 def test_quant_hop_checks_rehearsed_on_the_cpu(smoke, monkeypatch):
     """The kernels phase's quant_hop checks at a small largest hop: every
     hop of the 8-ring on one axis and over the second of two, random,
-    exact and NaN rows (7 hops x (3 random + exact + NaN) x 2 meshes + 7
-    at the largest hop)."""
+    exact and NaN rows (7 hops x (3 random + exact + NaN) x 2 meshes),
+    every hop of both rings of pod 2 x data 4 at 3 random row counts
+    ((3 + 1) x 3), and 7 at the largest hop."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     gen = torch.Generator().manual_seed(0)
     r = smoke.quant_hop_checks(torch.device("cpu"), gen, big_rows=40)
-    assert r["cases"] == 7 * 5 * 2 + 7 and r["max_abs_err"] == 0.0
+    assert r["cases"] == 7 * 5 * 2 + 4 * 3 + 7 and r["max_abs_err"] == 0.0
 
 
 def test_int8_hopquant_sync_counts_quant_hops(smoke):
@@ -273,3 +274,102 @@ def test_rglru_work_and_bound_at_the_prefill_shape(smoke):
     assert nbytes / 3.35e12 > flops / 67e12
     assert 0.0600 < nbytes / 3.35e12 * 1e3 < 0.0602
 
+
+
+def test_hop_checks_cover_both_rings_of_the_hierarchical_mesh(smoke,
+                                                               monkeypatch):
+    """fused_hop's checks hold every hop of the data ring ([A, n, B] =
+    [2, 4, chunk]) and the pod ring ([1, 2, 4 x chunk]) of pod 2 x data
+    4, beside the flat ring and the second axis of two."""
+    assert ({"pod": 2, "data": 4}, "data") in smoke.HOP_VIEWS
+    assert ({"pod": 2, "data": 4}, "pod") in smoke.HOP_VIEWS
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    gen = torch.Generator().manual_seed(0)
+
+    def data(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-128, 128, shape, generator=gen,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    monkeypatch.setattr(smoke, "HOP_VIEWS", smoke.HOP_VIEWS[2:])
+    r = smoke.hop_checks(torch.device("cpu"), gen, lambda s, d: data(
+        tuple(min(x, 4096) for x in s), d))
+    # (3 + 1) hops x 3 dtypes x 3 ops x 2 chunks, then the 7 hops of the
+    # largest ring (at a CPU-sized chunk here)
+    assert r["cases"] == 4 * 3 * 3 * 2 + 7 and r["max_abs_err"] == 0.0
+
+
+def _hier_plan(smoke, backend, compressor="int8"):
+    from repro_torch import core as acis
+    from repro_torch.configs.acis_100m import SMOKE, grad_leaf_specs
+
+    mesh = LocalMesh({"pod": 2, "data": 4}, device="meta")
+    eng = acis.make_engine(backend, compressor=compressor,
+                           outer_axis="pod")
+    eng.init_arenas({k: torch.empty((2, 4) + s, dtype=dt, device="meta")
+                     for k, s, dt in grad_leaf_specs(SMOKE)}, mesh=mesh)
+    compiled = eng.last_sync_program()
+    return compiled, smoke.expected_launches(compiled, mesh)
+
+
+def test_hierarchical_launch_expectations_from_the_plan(smoke):
+    """What the hierarchical phase holds its launch counts to, read off
+    the plan: a fused hop per hop of every data reduce-scatter (3) and
+    pod all-reduce (1), a quant hop per hop of every int8_hopquant data
+    ring, n + 1 top-k accumulates per top-k stage; F2's program one
+    reduce-scatter of 3 fused hops and one int8 pod hop."""
+    compiled, per = _hier_plan(smoke, "acis_hierarchical")
+    kinds = [(st.kind, st.axis, st.schedule) for st in compiled.stages]
+    want_hop = 3 * kinds.count(("reduce_scatter", "data", "")) \
+        + sum(1 for k in kinds if k[:2] == ("allreduce", "pod")
+              and k[2] == "bandwidth")
+    assert per["fused_hop"] == want_hop > 0
+    assert per["fused_combine"] == sum(
+        1 for k in kinds if k == ("allreduce", "pod", "latency"))
+    assert per["fused_pack"] > 0 and per["quant_hop"] == 0
+    for comp, kernel, each in (("int8_hopquant", "quant_hop", 3),
+                               ("topk", "topk_accumulate", 5)):
+        compiled, per = _hier_plan(smoke, "acis_hierarchical_compressed",
+                                   comp)
+        ef = [st for st in compiled.stages if st.kind == "ef_allreduce"]
+        assert ef and all(st.axis == "data" for st in ef)
+        assert per[kernel] == each * len(ef)
+
+
+def test_hierarchical_path_rehearsed_on_the_cpu(smoke):
+    """The hierarchical phase at the smoke config: kernels against plain
+    bitwise, serial against overlapped dispatch bitwise, the mean within
+    twice the ring bound of the flat acis sync, the EF identity within
+    its bound, F2's program within its int8 bound; every record carries
+    the compile ms and the cost model's program time, labelled as such;
+    nothing launched on a CPU."""
+    from repro_torch.configs.acis_100m import SMOKE
+
+    recs = smoke.hierarchical_path(
+        LocalMesh({"pod": 2, "data": 4}, device="cpu"), SMOKE, 0,
+        expect_kernels=False, f2_local=4096)
+    assert [(r["phase"], r["backend"], r.get("compressor"),
+             r.get("program")) for r in recs] == [
+        ("hierarchical", "acis_hierarchical", None, None)] + [
+        ("hierarchical", "acis_hierarchical_compressed", c, None)
+        for c in smoke.COMPRESSORS] + [
+        ("hierarchical", "acis_hierarchical_compressed", None,
+         "f2_compressed_reduce")]
+    sync = recs[0]
+    assert sync["serial_bitwise_equal_to_overlapped"]
+    assert sync["multi_axis_waves"] > 0 and sync["streams"] == []
+    assert sync["launches_per_sync"]["fused_hop"] > 0
+    assert sync["max_abs_diff_vs_flat_acis"] > 0       # another fold order
+    for r in recs[1:4]:
+        assert r["bitwise_equal_to_plain"]
+        assert r["ef_identity_err_over_bound"] <= 1
+    f2 = recs[4]
+    assert f2["launches_per_call"]["quant_hop"] == 1
+    assert f2["launches_per_call"]["fused_hop"] == 3
+    assert f2["codecs"][2] == ["int8_b256"] and f2["max_err_over_bound"] <= 1
+    for r in recs:
+        assert r["compile_ms"] > 0 and r["cost_model_program_time_s"] > 0
+        assert "not a time on this card" in r["cost_model"]
+        assert sum(r["launches"].values()) == 0
+        assert r["mesh"] == {"pod": 2, "data": 4}

@@ -1,6 +1,6 @@
 """repro_torch compiler structure against the JAX reference, compared as data.
 
-The port runs the reference's passes rule for rule (minus PlaceCGRA), so a
+The port runs the reference's passes rule for rule, so a
 program must compile to the same stages, schedules, axes, per-stage
 payload bytes, dependency edges, waves, dispatch groups, arena avals and
 pack transient — at the full width of acis-100m (avals only, no data) and
@@ -8,6 +8,8 @@ on small programs that exercise bucketing, batched rings and RS/AG
 buckets.  Where a small program is cheap to run, the outputs are held
 bitwise too.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -36,9 +38,8 @@ def structure(cp) -> dict:
         "bytes_in": [st.ir.bytes_in for st in cp.stages],
         "in_vids": [st.in_vids for st in cp.stages],
         "out_vids": [st.out_vids for st in cp.stages],
-        # the ring-schedule decisions; the reference appends its CGRA
-        # placement (" | ...") and describes map stages by it, which is
-        # not ported yet
+        # the ring-schedule decisions (both append the CGRA placement,
+        # " | ...", which tests/test_torch_mapper.py compares)
         "descs": [st.desc.split(" | ")[0] for st in cp.stages
                   if st.kind in ("allreduce", "batched_allreduce",
                                  "map+allreduce")],
@@ -372,16 +373,20 @@ def test_fig5_program_through_engine_compile_on_a_mesh(mesh8, rng):
 
 
 def test_cost_model_views_wait_for_the_mapper():
+    """The cost-model views the mapper unblocked: ``program_time`` equals
+    the reference's, and ``explain`` (with a recording too) prints the
+    reference's table, placement column included."""
     tcp, jcp = _compile_pair(lambda a: _sync_fn(a, 3, lambda y: y / 8),
                              [(4,), (9,), (2, 2)])
-    with pytest.raises(NotImplementedError, match="mapper"):
-        tcp.program_time()
-    with pytest.raises(NotImplementedError, match="mapper"):
-        tcp.explain(trace=[])
-    # the table itself matches, placement column aside
-    t_rows = [ln.split()[:5] for ln in tcp.explain().splitlines()[1:-1]]
-    j_rows = [ln.split()[:5] for ln in jcp.explain().splitlines()[1:-1]]
+    assert tcp.program_time() == pytest.approx(jcp.program_time(),
+                                               rel=1e-12)
+    t_rows = [ln.split() for ln in tcp.explain().splitlines()[1:-1]]
+    j_rows = [ln.split() for ln in jcp.explain().splitlines()[1:-1]]
     assert t_rows == j_rows
+    spans = [types.SimpleNamespace(stage=i, duration=1e-5)
+             for i in range(len(tcp.stages))]
+    text = tcp.explain(trace=spans)
+    assert "meas_us" in text and "mispredict ratio" in text
 
 
 def test_compile_on_a_mesh_splits_and_replicates(mesh8, rng):

@@ -171,8 +171,15 @@ def test_arena_mismatch_raises(rng):
 @pytest.mark.parametrize("backend", ["acis_hierarchical",
                                      "acis_hierarchical_compressed"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tacis.make_engine(backend)
+    """The hierarchical backends, the last two to be ported, now build
+    like the reference's: two-level, acis ring schedules underneath, the
+    compressed one stateful."""
+    eng = tacis.make_engine(backend, outer_axis="pod")
+    ref = jacis.make_engine(backend, outer_axis="pod")
+    assert (eng.hierarchical, eng.base_backend, eng.compressed) \
+        == (ref.hierarchical, ref.base_backend, ref.compressed) \
+        == (True, "acis", "compressed" in backend)
+    assert tacis.BACKENDS == jacis.BACKENDS
 
 
 def test_unknown_backend_rejected():

@@ -22,9 +22,10 @@ def _all_modules() -> list[str]:
 
 def _import_all_in_a_fresh_process(report: str) -> str:
     mods = _all_modules()
-    for m in ("configs.recurrentgemma_9b", "configs.rwkv6_1_6b",
-              "core.compiler", "core.compression",
-              "core.fused", "core.lookaside", "kernels.chunk_scan",
+    for m in ("cgra.mapper", "configs.recurrentgemma_9b",
+              "configs.rwkv6_1_6b", "core.compiler", "core.compression",
+              "core.fused", "core.lookaside", "core.topology",
+              "kernels.chunk_scan",
               "kernels.fused_combine", "kernels.pack_combine",
               "kernels.quant_combine", "kernels.rwkv6_recurrence",
               "kernels.topk_accum", "models.attention", "models.config",

@@ -523,8 +523,8 @@ def test_powersgd_init_draws_from_the_generator():
 # look-aside ops routed through engine.compile.  The port's map bodies get
 # rank-stacked tensors, so where the reference's body indexes its local
 # leading dim (`ab[0]`, `[None]`) the port's indexes the one after the rank
-# dim (`ab[:, 0]`, `.unsqueeze(1)`).  PlaceCGRA is not ported: the
-# reference's host-fallback placement has no counterpart to compare.
+# dim (`ab[:, 0]`, `.unsqueeze(1)`).  Both packages place these map
+# bodies as host fallbacks (tests/test_torch_mapper.py).
 # ---------------------------------------------------------------------------
 
 def test_distributed_prefix_sum_through_engine_compile(mesh8, rng):
