@@ -83,7 +83,34 @@ Phases, one JSON line each:
                   compile ms (PlaceCGRA included) and the cost model's
                   ``program_time`` for the paper's switch, which is not a
                   time on the card
-  8. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
+  8. sim        — ``SwitchSim`` (``repro_torch.cgra.simulate``) on the card
+                  at the same width: the compiled ``acis`` sync on
+                  {data: 8}, ``acis_hierarchical`` on {data: 4, pod: 2},
+                  ``acis_compressed`` with ``int8_hopquant`` and with
+                  ``topk``, the masked ``acis`` sync under
+                  ``FaultPlan(dead={3})``, and Fig. 5's inclusive-add scan
+                  at 4 MiB a rank; each run with kernels and with
+                  ``use_kernels=False`` in turns, held to the executed
+                  program (bitwise; ``topk`` within n·2^-24·Σ|v| of the
+                  exact total, the scan within ``scan_tolerance``), its
+                  ``fused_combine`` / ``quant_combine`` / ``topk_accumulate``
+                  / ``prefix_sum`` launches as the plan predicts
+                  (``sim_path``); the report's times are the cost model's
+  9. tune       — ``record_instrumented`` of the ``acis`` and
+                  ``acis_hierarchical`` syncs (CUDA-event spans), 3 runs
+                  each, ``fit_traces`` (a fit of this card) and ``replay``
+                  against the measured ``t_end``, a Chrome trace written and
+                  parsed back, the drift watchdog, and ``autotune`` through
+                  a temporary tuning DB: search once, hit the DB after
+                  (``tune_path``)
+  10. elastic   — ``gradient_sync(membership=...)`` with rank 3 of 8
+                  dropped on ``acis`` and ``acis_hierarchical``: kernels
+                  against plain bitwise, within the ring bound of the live
+                  mean, masked and unmasked ms in turns, ``recompile``
+                  reusing program and arenas; one ``sync_with_deadline``
+                  over ``SwitchSim`` rank times with a straggler, masked on
+                  one retry (``elastic_path``)
+  11. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
                   2048, 32 heads of 64, d_ff 7168, vocab 65,536) on seeded
                   random bf16 weights made on the card: ``Model.prefill``
                   of 8 prompts of 512 tokens and 32 greedy
@@ -97,7 +124,7 @@ Phases, one JSON line each:
                   ``F32_REL`` (``serve_path``); ``rwkv6_recurrence``
                   launched once per layer per prefill call, decode step
                   and engine tick
-  9. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
+  12. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
                   12 x (lru, lru, window) + (lru, lru); d_model 4096, 16
                   query heads and 1 KV head of 256, lru_width 4096, conv
                   width 4, window 2048, d_ff 12288 GeGLU, vocab 256,000)
@@ -120,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import math
 import shutil
@@ -329,6 +357,7 @@ def kernel_checks(dev) -> dict:
           "an overflowing pack did not raise")
     report["fused_pack"]["max_parts_per_launch"] = pc.MAX_PARTS
     report["fused_hop"] = hop_checks(dev, gen, data)
+    report["fused_hop"]["fp8_wire"] = fp8_hop_checks(dev, gen)
     report["quant_combine"] = quant_checks(dev, gen)
     report["quant_hop"] = quant_hop_checks(dev, gen)
     report["topk_accumulate"] = topk_checks(dev, gen)
@@ -388,6 +417,42 @@ def hop_checks(dev, gen, data) -> dict:
     xs = data((8, 8, 3_072_000), torch.bfloat16)
     hold(mesh, xs[:, 0].clone(), xs, "add")
     return report
+
+
+def fp8_hop_checks(dev, gen) -> dict:
+    """F3: an fp8 wire's ring hop with kernels on.  ``switchops.
+    hop_kernel``'s combine and its fused hop compute in f32 through the
+    kernels and round once to the fp8 dtype: bitwise the monoid's own
+    (widening) combine, and the plain ring step in f32 rounded to fp8, for
+    every hop of a ring of 8, both fp8 formats, add and max."""
+    from repro_torch.core import switchops
+    from repro_torch.core.types import TYPE1_MONOIDS
+    from repro_torch.kernels import fused_combine as fc
+
+    def same(got, want, what):
+        check(got.dtype == want.dtype and torch.equal(
+            got.view(torch.uint8), want.view(torch.uint8)),
+            f"fp8 {what}: differs from the widening combine")
+
+    cases = 0
+    for dt in (torch.float8_e4m3fn, torch.float8_e5m2):
+        for name in ("add", "max"):
+            hop = switchops.hop_kernel(name)
+            x, y = ((torch.randn((8, 3000), device=dev, generator=gen) * 4)
+                    .to(dt) for _ in range(2))
+            same(hop(x, y), TYPE1_MONOIDS[name].combine(x, y),
+                 f"{name} combine")
+            xs = (torch.randn((8, 8, 3000), device=dev, generator=gen) * 4) \
+                .to(dt)
+            buf = xs[:, 1].contiguous()
+            for s in range(7):
+                got = hop.fused_hop(buf, xs, s, dim=0, rank_ndim=1)
+                want = fc.hop_plain(buf.float(), xs.float(), s, dim=0,
+                                    rank_ndim=1, op=name).to(dt)
+                same(got, want, f"{name} hop {s}")
+                buf = got
+            cases += 8
+    return {"cases": cases, "bitwise": True}
 
 
 def quant_cases(dev, gen) -> tuple[list, list]:
@@ -1060,8 +1125,8 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     """Each kernel at the main path's shapes: the largest ring hop (one
     fused bf16 add hop from the [8, 8, 3,072,000] chunked input into the
     [8, 3,072,000] partial sums, beside the shift + take + add step it
-    replaced; the elementwise form, which no main path runs, at the same
-    [8, 3,072,000] add), the Coalesce bucket pack (f32 parts
+    replaced; the elementwise form, which the sim phase runs once a ring
+    step, at the same [8, 3,072,000] add), the Coalesce bucket pack (f32 parts
     of 768, 9216 and 9216 per rank into the [8, 19200] arena), the largest
     int8_hopquant hop (the embed leaf's chunk, rank dims folded into
     rows; its ring-hop form from the [8, 8, blocks, 256] chunked input
@@ -1096,7 +1161,6 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
             lambda: fc.fused_combine(x, y, op="add"), "combine_kernel"),
         "bytes": 3 * x.numel() * x.element_size(),
         "shape": [8, 3_072_000], "dtype": "bfloat16", "op": "add",
-        "main_path": False,
     }
     del x, y, out
     # one hop of the largest acis-100m ring: xs is every rank's input in 8
@@ -1155,7 +1219,6 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
             "quant_combine_kernel"),
         "bytes": ranks * blocks * 3 * (256 + 4),
         "shape": [ranks, blocks, 256], "dtype": "int8+float32",
-        "main_path": False,
     }
     del qa, qb, sa, sb
     # the same hop as the ring takes it: xs is every rank's payload and
@@ -2682,6 +2745,619 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
     return [record, eng, eng32]
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the simulator, the tuning loop and the elastic sync
+# ---------------------------------------------------------------------------
+
+# the cost model's figures (SimReport, program_time, a NetFit fitted from
+# simulated traces) are for the paper's Table II switch, never card times
+SIM_NOTE = ("SwitchSim's t_end / t_program_model / deviation are the cost "
+            "model's times for the paper's Table II switch (PAPER_CGRA), "
+            "not times on this card")
+
+# the compiled syncs the sim phase runs: (backend, compressor, the sim's
+# rank grid in topology order, inner axis first)
+SIM_SYNCS = (("acis", None, {"data": 8}),
+             ("acis_hierarchical", None, {"data": 4, "pod": 2}),
+             ("acis_compressed", "int8_hopquant", {"data": 8}),
+             ("acis_compressed", "topk", {"data": 8}))
+
+
+def sim_expected_launches(compiled, sizes: dict) -> dict:
+    """Each kernel's launches in one ``SwitchSim`` run of ``compiled``
+    with kernels on, read off the plan: one elementwise ``fused_combine``
+    per ring step (n-1 a reduce-scatter, a ring all-reduce of either
+    schedule, a blockwise scan walk or a histogram ring over an axis of
+    n), one ``quant_combine`` per step of an int8-coded all-reduce or an
+    ``int8_hopquant`` EF stage, two ``topk_accumulate`` per ``topk`` EF
+    stage (every rank's own vector, then every ring's shared sum), and one
+    ``prefix_sum`` per inclusive-add ``scan+allgather``.  Every combine of
+    these programs is add/max/min on f32 or bf16, the kernels' types."""
+    out = dict.fromkeys(kernel_modules(), 0)
+    for st in compiled.stages:
+        n = sizes.get(st.axis, 1) if st.axis else 1
+        kind = st.kind
+        if kind in ("allreduce", "batched_allreduce", "map+allreduce"):
+            codec = next(nd.op.codec for nd in st.ir.nodes
+                         if nd.op.codec is not None
+                         and nd.op.kind.name in ("REDUCE", "REDUCE_SCATTER"))
+            key = "quant_combine" if codec.combine_encoded is not None \
+                else "fused_combine"
+            out[key] += max(n - 1, 0)
+        elif kind in ("reduce_scatter", "map+reduce_scatter", "scan",
+                      "allreduce+alltoall"):
+            out["fused_combine"] += max(n - 1, 0)
+        elif kind == "scan+allgather":
+            scan = st.ir.nodes[1].op
+            if scan.monoid.name == "add" and not scan.exclusive:
+                out["prefix_sum"] += 1
+            else:
+                out["fused_combine"] += max(n - 1, 0)
+        elif kind in ("ef_allreduce", "delivered"):
+            comp = st.ir.nodes[0].op.ef.compressor
+            if comp == "int8_hopquant":
+                out["quant_combine"] += max(n - 1, 0)
+            elif comp == "topk":
+                out["topk_accumulate"] += 2
+    return out
+
+
+def _dev_sync(dev):
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+def _sim_grads(cfg, mesh, gen) -> dict:
+    from repro_torch.configs.acis_100m import grad_leaf_specs
+
+    return {k: torch.randn(mesh.rank_shape + shape, device=mesh.device,
+                           generator=gen).to(dt)
+            for k, shape, dt in grad_leaf_specs(cfg)}
+
+
+def _topk_bound(target, residual, n: int, dtype) -> tuple:
+    """``(exact, bound)`` of a top-k EF total per element: the float64 sum
+    over the ranks of what each delivered (``target - residual``, exact:
+    a selected lane's residual is 0), and the f32 rounding of summing n
+    values in any order, ``n·2^-24·Σ|v|``, plus the total's rounding to
+    the gradient's dtype."""
+    d = target.double() - residual.double()
+    exact = d.sum(0)
+    eps = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    return exact, n * 2.0 ** -24 * d.abs().sum(0) * (1 + eps) \
+        + eps * exact.abs()
+
+
+def sim_sync(cfg, seed: int, backend: str, compressor, sizes: dict, dev, *,
+             steps: int = 3, expect_kernels: bool = True,
+             dead: Optional[int] = None) -> dict:
+    """One compiled sync through ``SwitchSim`` on the card: the engine's
+    program executed once (kernels on) for the reference outputs, then
+    ``steps`` simulated runs with kernels and with ``use_kernels=False``
+    in turns, their launches counted and held to
+    :func:`sim_expected_launches`.  Identity codecs and the int8 codecs
+    are bitwise equal to the executed program and between the two sims;
+    ``topk`` (atomics on the card) is held within ``n·2^-24·Σ|v|`` of the
+    exact total an element (:func:`_topk_bound`).  With ``dead``, the
+    masked sync under ``FaultPlan(dead={dead})``: its live ranks equal the
+    executed masked sync with that rank dropped, bit for bit."""
+    from repro_torch import core as acis
+    from repro_torch import tree
+    from repro_torch.cgra.simulate import FaultPlan, SwitchSim
+    from repro_torch.elastic import Membership
+    from repro_torch.mesh import LocalMesh
+
+    mesh = LocalMesh(sizes, device=dev)
+    sync_dev = _dev_sync(mesh.device)
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 31)
+    grads = _sim_grads(cfg, mesh, gen)
+    outer = "pod" if "pod" in sizes else None
+    eng = acis.make_engine(backend, outer_axis=outer,
+                           **({"compressor": compressor} if compressor
+                              else {}))
+    check(eng.config.use_kernels, "use_kernels is off by default")
+    state = eng.init_state(grads)
+    membership = None if dead is None \
+        else Membership.all_alive(mesh.n_ranks).drop(dead)
+    want, want_state = eng.gradient_sync(grads, state, mesh=mesh,
+                                         membership=membership)
+    compiled = eng.last_sync_program()
+    leaves, treedef = tree.tree_flatten(grads)
+    args = list(leaves)
+    if eng.compressed:
+        args += tree.tree_flatten(state)[0]
+    if membership is not None:
+        with mesh:
+            args.append(eng._local_alive(membership))
+    want_flat = tree.tree_flatten(want)[0] + (
+        tree.tree_flatten(want_state)[0] if eng.compressed else [])
+    faults = FaultPlan(dead={dead}, detect_timeout_s=1e-5) \
+        if dead is not None else None
+    sims = {uk: SwitchSim(compiled.topology, faults=faults, use_kernels=uk)
+            for uk in (True, False)}
+    per_run = sim_expected_launches(compiled, sizes)
+
+    def run(uk):
+        sync_dev()
+        t0 = time.perf_counter()
+        outs, rep = sims[uk].run(compiled, *args)
+        sync_dev()
+        return outs, rep, (time.perf_counter() - t0) * 1e3
+
+    sync_dev()
+    reset_counts()
+    t_k, t_p = [], []
+    for step in range(steps):
+        (outs_k, rep_k, dk), (outs_p, rep_p, dp) = in_turns(
+            step, lambda: run(True), lambda: run(False))
+        t_k.append(dk)
+        t_p.append(dp)
+    launches = read_counts()
+    if expect_kernels:
+        check_launches(launches, per_run, steps)
+    check(rep_k.t_end == rep_p.t_end and
+          [s.t_sim for s in rep_k.stages] == [s.t_sim for s in rep_p.stages],
+          "the simulated clock depends on use_kernels")
+
+    live = torch.ones(mesh.n_ranks, dtype=torch.bool, device=mesh.device)
+    if dead is not None:
+        live[dead] = False
+    worst_topk = 0.0
+    n_ring = max(sizes.values())
+    for i, (w, ok, op) in enumerate(zip(want_flat, outs_k, outs_p)):
+        w, ok, op = (t.flatten(0, mesh.rank_ndim - 1)[live]
+                     for t in (w, ok, op))
+        check(tuple(ok.shape) == tuple(w.shape) and ok.dtype == w.dtype,
+              f"output {i}: {tuple(ok.shape)} {ok.dtype}")
+        check(bool(torch.isfinite(ok.float()).all()),
+              f"output {i}: non-finite")
+        if compressor == "topk" and i < len(leaves):
+            # the synced mean: the total over n ranks, divided by n
+            t = leaves[i].flatten(0, mesh.rank_ndim - 1).float()
+            r = tree.tree_flatten(want_state)[0][i] \
+                .flatten(0, mesh.rank_ndim - 1)
+            exact, bound = _topk_bound(t, r, n_ring, w.dtype)
+            for got in (ok, op, w):
+                err = (got[0].double() * n_ring - exact).abs()
+                check(bool((err <= bound).all()),
+                      f"topk output {i}: {err.max().item()} off the exact "
+                      "total, beyond n·2^-24·Σ|v|")
+                worst_topk = max(worst_topk,
+                                 (err / bound.clamp_min(1e-300)).max()
+                                 .item())
+            continue
+        _bitwise_err(ok, w)
+        _bitwise_err(op, w)
+    deviations = [s.deviation for s in rep_k.stages
+                  if s.deviation is not None]
+    profile = device_profile(lambda: sims[True].run(compiled, *args),
+                             RING_OPS) if mesh.device.type == "cuda" else None
+    return {
+        "phase": "sim", "program": backend + (f"[{compressor}]"
+                                              if compressor else "")
+        + ("[masked, dead rank %d]" % dead if dead is not None else ""),
+        "grid": dict(sizes), "model": cfg.name,
+        "stages": compiled.stage_kinds(),
+        "launches_per_run": per_run, "launches": launches,
+        "sim_ms_kernels": t_k, "sim_ms_plain": t_p,
+        "median_sim_ms_kernels": statistics.median(t_k),
+        "median_sim_ms_plain": statistics.median(t_p),
+        "bitwise_to_executed": compressor != "topk",
+        "topk_err_over_bound": worst_topk if compressor == "topk" else None,
+        "cost_model_t_end_s": rep_k.t_end,
+        "cost_model_t_program_model_s": rep_k.t_program_model,
+        "cost_model_max_stage_deviation": max(deviations, default=None),
+        "cost_model_rank_t_end_s": list(rep_k.rank_t_end),
+        "cost_model": SIM_NOTE,
+        "profile": profile,
+    }
+
+
+def sim_scan(seed: int, local: int, dev, *, steps: int = 3,
+             expect_kernels: bool = True) -> dict:
+    """Fig. 5's inclusive-add ``scan+allgather`` program (the fused phase's
+    ``fig5_scan``) through ``SwitchSim`` on ``{"data": 8}``: one
+    ``prefix_sum`` launch a run, every rank's copy and both sims within
+    :func:`scan_tolerance` of the exact sum, as the executed program is;
+    integer-valued data bitwise."""
+    from repro_torch import core as acis
+    from repro_torch.cgra.simulate import SwitchSim
+    from repro_torch.mesh import LocalMesh
+
+    mesh = LocalMesh({"data": 8}, device=dev)
+    sync_dev = _dev_sync(mesh.device)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 37)
+    compiled = acis.make_engine("acis").compile(
+        lambda v: acis.all_gather(acis.scan(acis.all_gather(v))),
+        in_avals=(acis.TensorSpec((local,), torch.float32),), axis_size=8)
+    check(compiled.stage_kinds() == ["scan+allgather"], "fig5 stages")
+    x = torch.randn((8, local), device=mesh.device, generator=gen)
+    ints = torch.randint(-1, 2, (8, local), device=mesh.device,
+                         generator=gen).float()
+    exact, tol = scan_tolerance(x.reshape(-1), 0)
+    with mesh:
+        (want,) = compiled(x)
+        (want_i,) = compiled(ints)
+    sims = {uk: SwitchSim(compiled.topology, use_kernels=uk)
+            for uk in (True, False)}
+    per_run = sim_expected_launches(compiled, {"data": 8})
+
+    def run(uk, v):
+        sync_dev()
+        t0 = time.perf_counter()
+        out, rep = sims[uk].run(compiled, v)
+        sync_dev()
+        return out, rep, (time.perf_counter() - t0) * 1e3
+
+    sync_dev()
+    reset_counts()
+    out_i, _, _ = run(True, ints)
+    t_k, t_p = [], []
+    for step in range(steps):
+        (ok, rep, dk), (op, _, dp) = in_turns(
+            step, lambda: run(True, x), lambda: run(False, x))
+        t_k.append(dk)
+        t_p.append(dp)
+    launches = read_counts()
+    if expect_kernels:
+        check_launches(launches, per_run, steps + 1)
+    _bitwise_err(out_i, want_i)
+    check(torch.equal(out_i[0].double(), torch.cumsum(
+        ints.reshape(-1).double(), 0)), "integer-valued scan not exact")
+    ratios = [scan_err(t[0], exact, tol, name)
+              for t, name in ((ok, "sim"), (op, "plain sim"),
+                              (want, "executed"))]
+    for r in range(8):
+        check(torch.equal(ok[r], ok[0]), f"sim rank {r} holds another scan")
+    return {"phase": "sim", "program": "fig5_scan", "grid": {"data": 8},
+            "local": local, "stages": compiled.stage_kinds(),
+            "launches_per_run": per_run, "launches": launches,
+            "sim_ms_kernels": t_k, "sim_ms_plain": t_p,
+            "median_sim_ms_kernels": statistics.median(t_k),
+            "median_sim_ms_plain": statistics.median(t_p),
+            "err_over_bound": {"sim": ratios[0], "plain_sim": ratios[1],
+                               "executed": ratios[2]},
+            "cost_model_t_end_s": rep.t_end,
+            "cost_model_t_program_model_s": rep.t_program_model,
+            "cost_model": SIM_NOTE}
+
+
+def sim_path(cfg, seed: int, *, device="cuda", steps: int = 3,
+             scan_local: int = 1 << 20,
+             expect_kernels: bool = True) -> list[dict]:
+    """The sim phase: every :data:`SIM_SYNCS` sync, the masked ``acis``
+    sync with rank 3 dead, and Fig. 5's scan."""
+    dev = torch.device(device)
+    recs = [sim_sync(cfg, seed, b, c, s, dev, steps=steps,
+                     expect_kernels=expect_kernels)
+            for b, c, s in SIM_SYNCS]
+    recs.append(sim_sync(cfg, seed, "acis", None, {"data": 8}, dev,
+                         steps=steps, expect_kernels=expect_kernels, dead=3))
+    recs.append(sim_scan(seed, scan_local, dev, steps=steps,
+                         expect_kernels=expect_kernels))
+    return recs
+
+
+def tune_path(cfg, seed: int, *, device="cuda", runs: int = 3,
+              expect_kernels: bool = True) -> dict:
+    """The tuning loop on the card: ``record_instrumented`` of the ``acis``
+    sync on ``{"data": 8}`` and the ``acis_hierarchical`` one on ``{"data":
+    4, "pod": 2}``, ``runs`` each (CUDA-event spans: device time, one
+    synchronize a run); ``fit_traces`` on them — a ``NetFit`` of the card,
+    tagged with its name and power limit by the caller — then ``replay``
+    under the fit against each measured ``t_end``; a ``chrome_trace``
+    written to a temporary file and parsed back; ``DriftWatchdog`` on the
+    traces against the fit; and ``make_engine("acis", autotune=True,
+    tune_db=<temporary file>)``: the first sync searches and stores, a
+    second engine hits the DB without searching, and the tuned mean is
+    within the ring's rounding bound of the exact mean."""
+    import tempfile
+
+    from repro_torch import core as acis
+    from repro_torch import obs, tune, tree
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.obs import metrics as _metrics
+    from repro_torch.obs.drift import DriftWatchdog
+
+    # the package exports a function of the module's name
+    _search = importlib.import_module("repro_torch.tune.search")
+
+    dev = torch.device(device)
+    sync_dev = _dev_sync(dev)
+    out: dict = {"phase": "tune", "model": cfg.name, "runs": runs}
+    reset_counts()
+    samples, measured = [], {}
+    for backend, sizes in (("acis", {"data": 8}),
+                           ("acis_hierarchical", {"data": 4, "pod": 2})):
+        mesh = LocalMesh(sizes, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 41)
+        grads = _sim_grads(cfg, mesh, gen)
+        eng = acis.make_engine(backend, outer_axis="pod" if "pod" in sizes
+                               else None)
+        eng.gradient_sync(grads, None, mesh=mesh)            # compile, warm
+        compiled = eng.last_sync_program()
+        leaves = tree.tree_flatten(grads)[0]
+        with mesh:                       # one untimed instrumented run
+            tune.record_instrumented(compiled, *leaves)
+        traces = []
+        for _ in range(runs):
+            sync_dev()
+            t0 = time.perf_counter()
+            with mesh:
+                _, tr = tune.record_instrumented(compiled, *leaves,
+                                                 axes=dict(sizes))
+            wall = (time.perf_counter() - t0) * 1e3
+            check(len(tr.stages) == len(compiled.stages),
+                  f"{backend}: {len(tr.stages)} spans for "
+                  f"{len(compiled.stages)} stages")
+            check(all(s.t_end >= s.t_start >= 0 for s in tr.stages),
+                  f"{backend}: a span runs backwards")
+            traces.append((tr, wall))
+            samples.append((compiled.plan, compiled.topology, tr))
+        measured[backend] = (compiled, traces)
+        out[backend] = {
+            "stages": len(compiled.stages),
+            "t_end_ms": [tr.t_end * 1e3 for tr, _ in traces],
+            "serial_ms": [tr.t_serial * 1e3 for tr, _ in traces],
+            "wall_ms": [w for _, w in traces],
+            "clock": "CUDA events (device time)" if dev.type == "cuda"
+            else "perf_counter (host)"}
+        del grads, leaves
+    fit = tune.fit_traces(samples)
+    out["fit"] = {
+        "tiers": {t: {"bw_Bps": p.bw, "hop_s": p.fpga_link + p.port}
+                  for t, p in fit.tiers.items()},
+        "overlap": dict(fit.overlap), "detour_s": fit.detour,
+        "host_bw_Bps": fit.host_bw, "residual": fit.residual,
+        "n_stages": fit.n_stages, "dropped": list(fit.dropped)}
+    for backend, (compiled, traces) in measured.items():
+        pred = tune.replay(compiled.plan, None, compiled.topology,
+                           fit=fit).t_end
+        self_r = tune.replay(compiled.plan, traces[-1][0],
+                             compiled.topology)
+        meas = statistics.median(tr.t_end for tr, _ in traces)
+        out[backend].update(replay_fit_ms=pred * 1e3,
+                            measured_median_ms=meas * 1e3,
+                            replay_over_measured=pred / meas,
+                            self_replay_ms=self_r.t_end * 1e3,
+                            self_replay_match=self_r.match_fraction)
+    compiled, traces = measured["acis_hierarchical"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.timeline.save(Path(tmp) / "sync.trace.json",
+                                 traces[-1][0], compiled.plan)
+        loaded = json.loads(Path(path).read_text())
+    xs = [e for e in loaded["traceEvents"]
+          if e["ph"] == "X" and e["name"] != "inject"]
+    check(len(xs) == len(compiled.stages), "chrome trace lost a stage")
+    check(sum(e["ph"] == "i" for e in loaded["traceEvents"])
+          == compiled.plan.n_waves, "chrome trace lost a wave")
+    out["chrome_trace"] = {"events": len(loaded["traceEvents"]),
+                           "stage_slices": len(xs),
+                           "lanes": sorted({e["tid"] for e in xs})}
+    wd = DriftWatchdog()
+    priced = sum(wd.observe(plan, fit.wrap(topo), tr)
+                 for plan, topo, tr in samples)
+    check(priced > 0, "the drift watchdog priced no span")
+    verdict = wd.classify()
+    out["drift"] = {"priced_spans": priced, "verdict": verdict.describe(),
+                    "alerts": [a.describe() for a in wd.alerts()]}
+
+    mesh = LocalMesh({"data": 8}, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    grads = _sim_grads(cfg, mesh, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        db = str(Path(tmp) / "tune.json")
+        n0 = _search.SEARCHES_RUN
+        with _metrics.recording() as rec:
+            t0 = time.perf_counter()
+            e1 = acis.make_engine("acis", autotune=True, tune_db=db)
+            synced, _ = e1.gradient_sync(grads, None, mesh=mesh)
+            search_s = time.perf_counter() - t0
+            e2 = acis.make_engine("acis", autotune=True, tune_db=db)
+            again, _ = e2.gradient_sync(grads, None, mesh=mesh)
+        check(_search.SEARCHES_RUN == n0 + 1 and
+              rec.counter("tune.db_search") == 1 and
+              rec.counter("tune.db_hit") == 1,
+              "the second autotuned compile did not hit the DB")
+        entry = next(iter(json.loads(
+            Path(db).read_text())["entries"].values()))
+    check(e1.last_sync_program().stage_kinds()
+          == e2.last_sync_program().stage_kinds(), "DB hit built another plan")
+    n = mesh.n_ranks
+    worst = 0.0
+    for k, g in grads.items():
+        o = synced[k]
+        check(torch.equal(o, again[k]), f"{k}: tuned syncs differ")
+        mean = g.float().mean(0)
+        eps = 2.0 ** -7 if o.dtype == torch.bfloat16 else 2.0 ** -23
+        bound = (n - 1) / 2 * eps * g.abs().float().sum(0) / n \
+            + eps * mean.abs()
+        dm = (o[0].float() - mean).abs()
+        check(bool((dm <= bound).all()),
+              f"{k}: the tuned sync is off the exact mean beyond the "
+              "ring's rounding")
+        worst = max(worst, (dm / bound.clamp_min(1e-30)).max().item())
+    out["autotune"] = {"overrides": entry["overrides"],
+                       "score_s": entry.get("score"),
+                       "default_score_s": entry.get("default_score"),
+                       "evals": entry.get("evals"),
+                       "search_and_first_sync_s": search_s,
+                       "db_hit": True, "err_over_ring_bound": worst,
+                       "cost_model": "scores are replayed cost-model "
+                       "times for the paper's switch"}
+    out["launches"] = read_counts()
+    return out
+
+
+def elastic_path(cfg, seed: int, *, device="cuda", steps: int = 3,
+                 expect_kernels: bool = True) -> list[dict]:
+    """The elastic sync at full width: ``gradient_sync(membership=...)``
+    with rank 3 of 8 dropped, on ``acis`` over ``{"data": 8}`` and
+    ``acis_hierarchical`` over ``{"pod": 2, "data": 4}``; kernels against
+    ``use_kernels=False`` bitwise, both within the flat sync's ring bound
+    of the exact mean of the 7 live ranks; masked and unmasked sync ms in
+    turns; ``recompile`` of the shape-preserving delta reusing program and
+    arenas; then one ``sync_with_deadline`` whose rank times come from
+    ``SwitchSim`` under a straggler ``FaultPlan`` (rank 5): it masks the
+    straggler once and the retry is clean."""
+    from repro_torch import core as acis
+    from repro_torch import tree
+    from repro_torch.cgra.simulate import FaultPlan, SwitchSim
+    from repro_torch.elastic import Membership, sync_with_deadline
+    from repro_torch.mesh import LocalMesh
+
+    dev = torch.device(device)
+    sync_dev = _dev_sync(dev)
+    recs = []
+    for backend, axes in (("acis", {"data": 8}),
+                          ("acis_hierarchical", {"pod": 2, "data": 4})):
+        mesh = LocalMesh(axes, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(seed + 47)
+        grads = _sim_grads(cfg, mesh, gen)
+        outer = "pod" if "pod" in axes else None
+        eng_k = acis.make_engine(backend, outer_axis=outer)
+        eng_p = acis.make_engine(backend, outer_axis=outer,
+                                 use_kernels=False)
+        mem = Membership.all_alive(mesh.n_ranks)
+        dropped = mem.drop(3)
+        ar_k = eng_k.init_arenas(grads, mesh=mesh, masked=True)
+        per_sync = expected_launches(eng_k.last_sync_program(), mesh)
+        ar_p = eng_p.init_arenas(grads, mesh=mesh, masked=True)
+        ar_u = eng_k.init_arenas(grads, mesh=mesh)
+        per_plain_sync = expected_launches(eng_k.last_sync_program(), mesh)
+        with mesh:
+            alive = eng_k._local_alive(dropped)
+        live = alive.flatten() != 0
+
+        def timed(eng, ar, membership):
+            sync_dev()
+            t0 = time.perf_counter()
+            out = eng.gradient_sync(grads, None, arenas=ar, mesh=mesh,
+                                    membership=membership)[0]
+            sync_dev()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        reset_counts()
+        t_m, t_p, t_u = [], [], []
+        for step in range(-1, steps):
+            (ok, dk), (op, dp) = in_turns(
+                step, lambda: timed(eng_k, ar_k, dropped),
+                lambda: timed(eng_p, ar_p, dropped))
+            _, du = timed(eng_k, ar_u, None)
+            for k in grads:
+                check(torch.equal(ok[k], op[k]),
+                      f"{backend} masked: kernels differ from plain on {k}")
+            if step >= 0:
+                t_m.append(dk)
+                t_p.append(dp)
+                t_u.append(du)
+        launches = read_counts()
+        if expect_kernels:
+            check_launches(launches, {k: per_sync[k] + per_plain_sync[k]
+                                      for k in per_sync}, steps + 1)
+        n_live = int(live.sum())
+        worst = 0.0
+        for k, g in grads.items():
+            gl = g.flatten(0, mesh.rank_ndim - 1)[live].float()
+            mean = gl.mean(0)
+            o = ok[k].flatten(0, mesh.rank_ndim - 1)
+            eps = 2.0 ** -7 if o.dtype == torch.bfloat16 else 2.0 ** -23
+            bound = (mesh.n_ranks - 1) / 2 * eps * gl.abs().sum(0) \
+                / n_live + eps * mean.abs()
+            for r in range(mesh.n_ranks):
+                d = (o[r].float() - mean).abs()
+                check(bool((d <= bound).all()),
+                      f"{backend} masked {k} rank {r}: off the live mean "
+                      "beyond the ring's rounding")
+                worst = max(worst, (d / bound.clamp_min(1e-30)).max().item())
+        profile = {name: device_profile(lambda a=a, m=m: eng_k.gradient_sync(
+            grads, None, arenas=a, mesh=mesh, membership=m), RING_OPS)
+            for name, a, m in (("masked", ar_k, dropped),
+                               ("unmasked", ar_u, None))} \
+            if dev.type == "cuda" else None
+        rep = eng_k.recompile(mem.delta(dropped), grads, mesh=mesh)
+        check(rep.programs_reused == 1 and rep.arenas_reused == 1 and
+              not rep.full_recompile, f"{backend}: recompile rebuilt")
+        recs.append({
+            "phase": "elastic", "backend": backend, "mesh": dict(axes),
+            "model": cfg.name, "dead": [3], "live_ranks": n_live,
+            "stages": eng_k.last_sync_program().stage_kinds(),
+            "launches_per_masked_sync": per_sync, "launches": launches,
+            "masked_ms_kernels": t_m, "masked_ms_plain": t_p,
+            "unmasked_ms_kernels": t_u,
+            "median_masked_ms_kernels": statistics.median(t_m),
+            "median_masked_ms_plain": statistics.median(t_p),
+            "median_unmasked_ms_kernels": statistics.median(t_u),
+            "bitwise_kernels_vs_plain": True,
+            "err_over_ring_bound": worst,
+            "recompile": dataclasses.asdict(rep) | {
+                "reuse_frac": rep.reuse_frac},
+            "profile": profile})
+        del grads, ok, op, ar_k, ar_p, ar_u
+
+    # sync_with_deadline over SwitchSim rank times: the straggler's delay
+    # lands on every hop it receives, so it finishes last; the deadline
+    # sits between it and the rest
+    mesh = LocalMesh({"data": 8}, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 53)
+    grads = _sim_grads(cfg, mesh, gen)
+    eng = acis.make_engine("acis")
+    mem = Membership.all_alive(8)
+    eng.gradient_sync(grads, None, mesh=mesh, membership=mem)
+    compiled = eng.last_sync_program()
+    leaves = tree.tree_flatten(grads)[0]
+
+    def sim_times(m, faults):
+        with mesh:
+            flags = eng._local_alive(m)
+        _, rep = SwitchSim(compiled.topology, faults=faults).run(
+            compiled, *leaves, flags)
+        return rep
+
+    base = sim_times(mem, None).t_end
+    slow = sim_times(mem, FaultPlan(straggler_s={5: base}))
+    others = max(t for r, t in enumerate(slow.rank_t_end) if r != 5)
+    check(slow.rank_t_end[5] > others, "the straggler is not last")
+    deadline = 0.5 * (others + slow.rank_t_end[5])
+    attempts = []
+
+    def run(m, _deadline):
+        faults = FaultPlan(straggler_s={5: base}) if m.alive[5] \
+            else FaultPlan(dead={5})
+        rep = sim_times(m, faults)
+        synced = eng.gradient_sync(grads, None, mesh=mesh, membership=m)[0]
+        attempts.append(rep.t_end)
+        return synced, rep.rank_t_end
+
+    reset_counts()
+    outcome = sync_with_deadline(run, mem, deadline_s=deadline)
+    launches = read_counts()
+    check(outcome.attempts == 2 and outcome.masked == (5,),
+          f"sync_with_deadline: {outcome.attempts} attempts, masked "
+          f"{outcome.masked}")
+    live = torch.ones(8, dtype=torch.bool, device=dev)
+    live[5] = False
+    for k, g in grads.items():
+        mean = g[live].float().mean(0)
+        eps = 2.0 ** -7 if g.dtype == torch.bfloat16 else 2.0 ** -23
+        bound = 3.5 * eps * g[live].abs().float().sum(0) / 7 \
+            + eps * mean.abs()
+        check(bool(((outcome.result[k][0].float() - mean).abs()
+                    <= bound).all()),
+              f"deadline sync {k}: off the live mean")
+    recs.append({"phase": "elastic", "program": "sync_with_deadline",
+                 "model": cfg.name, "straggler": 5,
+                 "attempts": outcome.attempts,
+                 "masked": list(outcome.masked),
+                 "cost_model_deadline_s": deadline,
+                 "cost_model_attempt_t_end_s": attempts,
+                 "cost_model": SIM_NOTE, "launches": launches})
+    return recs
+
+
 # device kernels of a ring sync counted by name: PyTorch's rolls and its
 # index kernels (the per-rank gathers and the all-gather's puts), and the
 # hand-written hops, combines and pack
@@ -2738,16 +3414,18 @@ def device_profile(step, count: Optional[dict] = None) -> dict:
 # ---------------------------------------------------------------------------
 
 COMPRESSORS = ("int8", "int8_hopquant", "topk")
-# the kernels the main paths run, one per TPU kernel: the fused_combine and
-# quant_combine sources' on the paths are their ring-hop forms (the
-# elementwise forms serve latency rings, Type 2 hooks and the codec's
-# combine outside a ring, which no path here takes; they are checked and
-# timed in the kernels phase all the same)
+# the kernels the main paths run: the fused_combine and quant_combine
+# sources' ring-hop forms on the executed syncs, their elementwise forms on
+# the sim phase (SwitchSim's one launch a ring step)
 SOURCES = {
+    "fused_combine": ("src/repro_torch/kernels/csrc/fused_combine.cu",
+                      "src/repro/kernels/fused_combine.py:70"),
     "fused_hop": ("src/repro_torch/kernels/csrc/fused_combine.cu",
                   "src/repro/kernels/fused_combine.py:70"),
     "fused_pack": ("src/repro_torch/kernels/csrc/fused_pack.cu",
                    "src/repro/kernels/pack_combine.py:68"),
+    "quant_combine": ("src/repro_torch/kernels/csrc/quant_combine.cu",
+                      "src/repro/kernels/quant_combine.py:55"),
     "quant_hop": ("src/repro_torch/kernels/csrc/quant_combine.cu",
                   "src/repro/kernels/quant_combine.py:55"),
     "topk_accumulate": ("src/repro_torch/kernels/csrc/topk_accum.cu",
@@ -2837,6 +3515,16 @@ def main() -> int:
     for rec in hierarchical_path(LocalMesh({"pod": 2, "data": 4},
                                            device="cuda"),
                                  CONFIG, args.seed):
+        paths.append(rec)
+        emit(rec)
+    for rec in sim_path(CONFIG, args.seed, scan_local=FUSED.scan):
+        paths.append(rec)
+        emit(rec)
+    rec = tune_path(CONFIG, args.seed)
+    rec["card"] = smi
+    paths.append(rec)
+    emit(rec)
+    for rec in elastic_path(CONFIG, args.seed):
         paths.append(rec)
         emit(rec)
     for rec in serve_path(RWKV6, args.seed, SERVE):

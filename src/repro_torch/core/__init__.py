@@ -32,7 +32,8 @@ Usually imported as ``acis``::
 from repro_torch.core.types import (ADD, MAX, MIN, PROD, AcisType, Monoid,
                                     TYPE1_MONOIDS, TensorSpec, tree_monoid)
 from repro_torch.core.api import (BACKENDS, CollectiveConfig,
-                                  CollectiveEngine, make_engine)
+                                  CollectiveEngine, RecompileReport,
+                                  make_engine)
 from repro_torch.core.program import (AllGather, AllToAll, Bcast, DagNode,
                                       DagProgram, ErrorFeedback, Map, Node,
                                       Reduce, ReduceScatter, Scan,
@@ -49,7 +50,7 @@ from repro_torch.core.tracing import map  # noqa: A004  (traced op, by design)
 __all__ = [
     "ADD", "MAX", "MIN", "PROD", "AcisType", "Monoid", "TYPE1_MONOIDS",
     "TensorSpec", "tree_monoid", "BACKENDS", "CollectiveConfig",
-    "CollectiveEngine", "make_engine", "AllGather", "AllToAll", "Bcast",
+    "CollectiveEngine", "RecompileReport", "make_engine", "AllGather", "AllToAll", "Bcast",
     "Map", "Node", "Reduce", "ReduceScatter", "Scan", "SwitchProgram",
     "Wire", "DagNode", "DagProgram", "ErrorFeedback", "AxisSpec",
     "Topology", "CompiledProgram", "Stage", "compile_program",

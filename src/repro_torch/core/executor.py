@@ -275,15 +275,6 @@ def _issue_order(groups) -> list[int]:
     return order
 
 
-def _block(values) -> None:
-    """Wait for the device work behind ``values`` (the instrument hook's
-    ``block_until_ready``)."""
-    for v in values:
-        if isinstance(v, torch.Tensor) and v.is_cuda:
-            torch.cuda.synchronize(v.device)
-            return
-
-
 def _tensors(values) -> list:
     return [t for t in _tree.tree_leaves(values)
             if isinstance(t, torch.Tensor)]
@@ -326,37 +317,62 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
     output tuple.
 
     ``instrument`` is the stage-trace recorder hook: a list that receives
-    one :class:`repro_torch.obs.spans.StageSpan` per executed stage, with
-    ``perf_counter`` timestamps taken around a device synchronize on the
-    stage's inputs and outputs.  Instrumented stages synchronize per
-    stage, so the recorded run is a serial measurement.
+    one :class:`repro_torch.obs.spans.StageSpan` per executed stage, in
+    dispatch order.  Which clock a span carries depends on where the values
+    live:
+
+      * **on the card**: device time.  Each stage records a
+        ``torch.cuda.Event`` pair on the stream it runs on (the caller's,
+        or its axis stream in a multi-axis wave); ``execute`` synchronizes
+        once at the end and sets each span's ``t_start``/``t_end`` (in
+        seconds) from ``elapsed_time`` relative to the first stage's start
+        event.  Nothing synchronizes per stage, so the stages keep their
+        overlap and the recording does not serialize the program;
+      * **on the CPU**: host ``time.perf_counter`` seconds around each
+        stage (the host runs the stages one after another).
     """
     env: dict[int, PyTree] = dict(enumerate(args))
     new_arenas = list(arenas) if arenas is not None else None
     wave_of = {i: w for w, ws in enumerate(plan.waves) for i in ws}
     device = _cuda_device(args) if overlapped else None
+    # the instrument's clock: CUDA events on the card, perf_counter on the
+    # host (see the docstring)
+    timer = _cuda_device(args) if instrument is not None else None
+    events: list = []               # (stage, start event, end event)
+
+    def record(i: int, t0: float, t1: float) -> None:
+        span = _spans.from_stage(plan.stages[i], i, wave_of.get(i, 0),
+                                 t0, t1)
+        instrument.append(span)
+        rec = _metrics.RECORDER
+        if rec.enabled:
+            rec.count("exec.instrumented_stages")
+            rec.observe("exec.stage_s", span.duration)
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(timer))
+        return ev
 
     def run_stage(i: int) -> tuple:
         st = plan.stages[i]
         ins = tuple(env[v] for v in st.in_vids)
         slot = getattr(st, "arena_slot", None)
         if instrument is not None:
-            _block(ins)
-            t0 = time.perf_counter()
+            if timer is not None:
+                e0 = mark()
+            else:
+                t0 = time.perf_counter()
         if slot is not None and new_arenas is not None:
             outs = st.run(ins, st.axis, arena=new_arenas[slot])
             new_arenas[slot] = outs[0]
         else:
             outs = st.run(ins, st.axis)
         if instrument is not None:
-            _block(outs)
-            span = _spans.from_stage(st, i, wave_of.get(i, 0), t0,
-                                     time.perf_counter())
-            instrument.append(span)
-            rec = _metrics.RECORDER
-            if rec.enabled:
-                rec.count("exec.instrumented_stages")
-                rec.observe("exec.stage_s", span.duration)
+            if timer is not None:
+                events.append((i, e0, mark()))
+            else:
+                record(i, t0, time.perf_counter())
         for vid, o in zip(st.out_vids, outs):
             env[vid] = o
         return outs
@@ -396,6 +412,12 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
                 run_stage(i)
         for s in forked.values():
             caller.wait_stream(s)
+    if events:
+        torch.cuda.synchronize(timer)
+        origin = events[0][1]
+        for i, e0, e1 in events:
+            record(i, origin.elapsed_time(e0) / 1e3,
+                   origin.elapsed_time(e1) / 1e3)
     outs = tuple(env[v] for v in plan.outputs)
     if new_arenas is not None:
         return outs, tuple(new_arenas)

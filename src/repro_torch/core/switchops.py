@@ -11,7 +11,6 @@ CGRA binary into the switch.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -79,13 +78,21 @@ register("topk_accumulate", _ref("topk_accumulate"))
 register("pack_combine", _ref("pack_combine"))
 
 
+# wire dtypes with no arithmetic of their own: a combine computes in f32
+# and rounds once to the wire dtype (the Type 1 monoids' widening)
+WIDENED = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
 def hop_kernel(name: str) -> Optional[Callable]:
     """The registered CUDA combine of the Type 1 monoid ``name`` as a ring
     ``hop_combine(incoming, local)`` hook, or None when it has no kernel
     (the ring then folds with the plain monoid combine).  The hook's
     ``fused_hop`` attribute is the one-launch ring reduce-scatter step
     (:func:`repro_torch.kernels.fused_combine.fused_hop`), which the ring
-    takes on a one-tensor mesh in place of roll, gather and combine."""
+    takes on a one-tensor mesh in place of roll, gather and combine.
+    Operands of a :data:`WIDENED` dtype (an fp8 wire) go through the f32
+    kernel and are rounded once to their dtype, as the monoid's own
+    combine does."""
     if name not in ("add", "max", "min"):
         return None
     from repro_torch.kernels import ops as kops
@@ -93,8 +100,18 @@ def hop_kernel(name: str) -> Optional[Callable]:
     sop = get(name, load=True)
 
     def hop(incoming, local, _sop=sop):
+        if incoming.dtype in WIDENED:
+            return _sop(incoming.float(), local.float(),
+                        use_kernel=True).to(incoming.dtype)
         return _sop(incoming, local, use_kernel=True)
-    hop.fused_hop = functools.partial(kops.ring_hop, op=name)
+
+    def fused_hop(buf, xs, s, *, dim, rank_ndim):
+        if buf.dtype in WIDENED:
+            return kops.ring_hop(buf.float(), xs.float(), s, dim=dim,
+                                 rank_ndim=rank_ndim, op=name).to(buf.dtype)
+        return kops.ring_hop(buf, xs, s, dim=dim, rank_ndim=rank_ndim,
+                             op=name)
+    hop.fused_hop = fused_hop
     return hop
 
 

@@ -24,7 +24,7 @@ tune.fit_runs             counter     tune.fit.fit_net_params
 arena.alloc/realloc       counter     api.CollectiveEngine.init_arenas
 arena.roundtrip           counter     api gradient_sync arena threading
 coalesce.bucket_fill_frac histogram   Coalesce bucket formation (bytes/cap)
-emit.kernel_stage         counter     Emit under use_kernels (Pallas path)
+emit.kernel_stage         counter     Emit under use_kernels (CUDA kernels)
 emit.reference_stage      counter     Emit reference lowering
 cgra.placed/host_fallback counter     compile placements (PlaceCGRA result)
 plan.stage_bytes          histogram   per-stage payload at compile

@@ -373,3 +373,151 @@ def test_hierarchical_path_rehearsed_on_the_cpu(smoke):
         assert "not a time on this card" in r["cost_model"]
         assert sum(r["launches"].values()) == 0
         assert r["mesh"] == {"pod": 2, "data": 4}
+
+
+# ---------------------------------------------------------------------------
+# the sim, tune and elastic phases
+# ---------------------------------------------------------------------------
+
+def _full_width_sync(smoke, backend, compressor, sizes):
+    from repro_torch import core as acis
+    from repro_torch import tree
+    from repro_torch.configs.acis_100m import CONFIG, grad_leaf_specs
+    from repro_torch.core.types import TensorSpec
+
+    specs = grad_leaf_specs(CONFIG)
+    _, treedef = tree.tree_flatten({k: 0 for k, _, _ in specs})
+    eng = acis.make_engine(backend,
+                           outer_axis="pod" if "pod" in sizes else None,
+                           **({"compressor": compressor} if compressor
+                              else {}))
+    return eng._sync_program(treedef, tuple(TensorSpec(s, dt)
+                                            for _, s, dt in specs),
+                             None, axis_sizes=sizes)
+
+
+def test_sim_launch_expectations_at_full_width(smoke):
+    """One elementwise combine a ring step: 70 a simulated acis sync (10
+    bucket rings of 8), 40 a hierarchical one, 70 quant_combine for
+    int8_hopquant, two topk_accumulate per topk EF stage (12 leaves)."""
+    want = {"acis": {"fused_combine": 70},
+            "acis_hierarchical": {"fused_combine": 40},
+            "int8_hopquant": {"quant_combine": 70},
+            "topk": {"topk_accumulate": 24}}
+    for backend, comp, sizes in smoke.SIM_SYNCS:
+        c = _full_width_sync(smoke, backend, comp, sizes)
+        got = smoke.sim_expected_launches(c, sizes)
+        assert {k: v for k, v in got.items() if v} == want[comp or backend]
+
+
+def test_sim_path_rehearsed_on_the_cpu(smoke):
+    from repro_torch.configs.acis_100m import SMOKE
+
+    recs = smoke.sim_path(SMOKE, 0, device="cpu", scan_local=5000,
+                          expect_kernels=False)
+    by = {r["program"]: r for r in recs}
+    assert list(by) == ["acis", "acis_hierarchical",
+                        "acis_compressed[int8_hopquant]",
+                        "acis_compressed[topk]",
+                        "acis[masked, dead rank 3]", "fig5_scan"]
+    per = {k: {n: c for n, c in r["launches_per_run"].items() if c}
+           for k, r in by.items()}
+    assert per["acis"] == {"fused_combine": 14}        # 2 rings of 8
+    assert per["acis_hierarchical"] == {"fused_combine": 8}
+    assert per["acis_compressed[int8_hopquant]"] == {"quant_combine": 14}
+    assert per["acis_compressed[topk]"] == {"topk_accumulate": 24}
+    assert per["fig5_scan"] == {"prefix_sum": 1}
+    for r in recs:
+        assert not any(r["launches"].values())       # the CPU launches none
+        assert r["cost_model_t_end_s"] > 0 and "cost model" in r["cost_model"]
+    assert by["acis_compressed[topk]"]["topk_err_over_bound"] <= 1
+    assert not by["acis_compressed[topk]"]["bitwise_to_executed"]
+    assert by["acis"]["bitwise_to_executed"]
+    assert all(v <= 1 for v in by["fig5_scan"]["err_over_bound"].values())
+
+
+def test_sim_phase_fails_on_a_wrong_ring_walk(smoke, monkeypatch):
+    """A ring step folding the wrong chunk cannot pass the sim phase."""
+    from repro_torch.cgra import simulate
+    from repro_torch.configs.acis_100m import SMOKE
+
+    real = simulate.ring_reduce_scatter
+
+    def off_by_one(x, combine):
+        return real(torch.roll(x, 1, dims=1), combine)
+    monkeypatch.setattr(simulate, "ring_reduce_scatter", off_by_one)
+    with pytest.raises(AssertionError):
+        smoke.sim_sync(SMOKE, 0, "acis", None, {"data": 8},
+                       torch.device("cpu"), expect_kernels=False)
+
+
+def test_tune_path_rehearsed_on_the_cpu(smoke):
+    from repro_torch.configs.acis_100m import SMOKE
+
+    r = smoke.tune_path(SMOKE, 0, device="cpu")
+    for backend in ("acis", "acis_hierarchical"):
+        assert len(r[backend]["t_end_ms"]) == 3
+        assert r[backend]["clock"] == "perf_counter (host)"
+        assert r[backend]["self_replay_match"] == 1.0
+    assert r["fit"]["n_stages"] > 0
+    assert r["chrome_trace"]["stage_slices"] == r["acis_hierarchical"][
+        "stages"]
+    assert r["drift"]["priced_spans"] > 0
+    assert r["autotune"]["db_hit"]
+    assert r["autotune"]["err_over_ring_bound"] <= 1
+
+
+def test_tune_phase_fails_when_the_db_never_hits(smoke, monkeypatch):
+    """A DB that never hits makes the second compile search again: the
+    phase fails.  (The search itself is stubbed to its bookkeeping, which
+    is all the check reads.)"""
+    import importlib
+
+    from repro_torch.configs.acis_100m import SMOKE
+    from repro_torch.tune import TuneDB
+
+    search = importlib.import_module("repro_torch.tune.search")
+
+    def stub(build, *, base, **kw):
+        search.SEARCHES_RUN += 1
+        return search.SearchResult({}, 0.0, 0.0, 0)
+    monkeypatch.setattr(search, "search", stub)
+    monkeypatch.setattr(TuneDB, "lookup", lambda self, key: None)
+    with pytest.raises(AssertionError, match="did not hit the DB"):
+        smoke.tune_path(SMOKE, 0, device="cpu", runs=1)
+
+
+def test_elastic_path_rehearsed_on_the_cpu(smoke):
+    from repro_torch.configs.acis_100m import SMOKE
+
+    recs = smoke.elastic_path(SMOKE, 0, device="cpu", steps=1,
+                              expect_kernels=False)
+    assert [r.get("backend", r.get("program")) for r in recs] == \
+        ["acis", "acis_hierarchical", "sync_with_deadline"]
+    for r in recs[:2]:
+        assert r["live_ranks"] == 7 and r["bitwise_kernels_vs_plain"]
+        assert r["err_over_ring_bound"] <= 1
+        assert r["recompile"]["reuse_frac"] == 1.0
+    assert recs[2]["attempts"] == 2 and recs[2]["masked"] == [5]
+
+
+def test_elastic_phase_fails_when_the_mask_is_ignored(smoke, monkeypatch):
+    """A masked sync that reduces every rank cannot pass the phase: the
+    live mean check sees rank 3's contribution."""
+    from repro_torch.configs.acis_100m import SMOKE
+    from repro_torch.core import api
+
+    real = api.CollectiveEngine._local_alive
+    monkeypatch.setattr(api.CollectiveEngine, "_local_alive",
+                        lambda self, m: torch.ones_like(real(self, m)))
+    with pytest.raises(AssertionError, match="live mean"):
+        smoke.elastic_path(SMOKE, 0, device="cpu", steps=1,
+                           expect_kernels=False)
+
+
+def test_fp8_hop_checks_rehearsed_on_the_cpu(smoke):
+    """F3's card check: on the CPU the kernels' plain versions compute the
+    fp8 hops in f32, rounded once to fp8."""
+    r = smoke.fp8_hop_checks(torch.device("cpu"),
+                             torch.Generator().manual_seed(0))
+    assert r == {"cases": 32, "bitwise": True}

@@ -22,7 +22,7 @@ def _all_modules() -> list[str]:
 
 def _import_all_in_a_fresh_process(report: str) -> str:
     mods = _all_modules()
-    for m in ("cgra.mapper", "configs.recurrentgemma_9b",
+    for m in ("cgra.mapper", "cgra.simulate", "configs.recurrentgemma_9b",
               "configs.rwkv6_1_6b", "core.compiler", "core.compression",
               "core.fused", "core.lookaside", "core.topology",
               "kernels.chunk_scan",
@@ -31,7 +31,10 @@ def _import_all_in_a_fresh_process(report: str) -> str:
               "kernels.topk_accum", "models.attention", "models.config",
               "models.decode", "models.layers", "models.model",
               "models.rglru", "models.rwkv6",
-              "models.transformer", "serve.engine"):
+              "models.transformer", "serve.engine", "obs.timeline",
+              "obs.drift", "obs.report", "obs.__main__", "tune.trace",
+              "tune.fit", "tune.replay", "tune.search",
+              "elastic.membership", "elastic.sync"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, sys\n"
