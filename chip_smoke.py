@@ -132,6 +132,28 @@ Phases, one JSON line each:
                   (past the window) and 16 decode steps, kernels against
                   plain; ``rglru_scan`` launched once per lru layer (26)
                   per prefill call, decode step and engine tick
+  13. serve_tp_dense — qwen3-8b at full width and depth (36 layers,
+                  d_model 4096, 32 query and 8 KV heads of 128, qk-norm,
+                  SwiGLU d_ff 12288, vocab 151,936) served tensor-parallel
+                  on ``LocalMesh({"tp": 8})`` through ``ServeCollectives``:
+                  the params split once, a batched 8 x 512 prefill and 32
+                  greedy decode ticks in five modes in turns (compiled
+                  switch programs with kernels and with
+                  ``use_kernels=False``, direct acis rings, the plain
+                  reduction, the unsharded model), compiled bitwise equal
+                  without kernels and to direct, every mode within
+                  ``BF16_REL`` of the unsharded logits, ``fused_hop`` /
+                  ``fused_combine`` launched as the programs predict; a
+                  profile of one tick; ``ServeEngine(slots=8,
+                  collectives=)`` over 16 requests (``tp_serve_path``)
+  14. serve_tp_moe — qwen2-moe-a2.7b at full width and depth (24 layers,
+                  d_model 2048, 16 heads of 128, 60 routed experts top-4
+                  of d_ff 1408, shared experts of 5632, vocab 151,936) on
+                  ``LocalMesh({"tp": 4})``: the same with a 4 x 256
+                  prefill (decode ticks, as the reference prefills a MoE
+                  stack); the tick's all-to-all and its Type-4
+                  ``allreduce+alltoall`` combine (shared-expert reduce
+                  and the expert all-to-all in one stage)
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
@@ -1339,7 +1361,9 @@ def expected_launches(compiled, mesh) -> dict:
     """Each kernel's launches in one sync, read off the compiled plan:
     n-1 fused hops per bandwidth ring all-reduce or reduce-scatter stage
     over an axis of n ranks (n-1 elementwise hop combines on a latency
-    ring, n-1 quant hops on an int8-coded one), one pack launch per
+    ring and on a fused ``allreduce+alltoall`` stage's reduce, whose
+    operand is f32 or bf16 on every path here; n-1 quant hops on an
+    int8-coded ring), one pack launch per
     ``MAX_PARTS`` parts of an arena pack, n-1 quant hops per
     int8_hopquant EF stage, and per top-k EF stage one accumulate of the
     rank's own payload, n-1 of the hops' and one for the decompress, and
@@ -1364,6 +1388,8 @@ def expected_launches(compiled, mesh) -> dict:
                 out[hop] += n - 1
         if st.kind == "reduce_scatter":
             out["fused_hop"] += n - 1
+        if st.kind == "allreduce+alltoall":
+            out["fused_combine"] += n - 1
         if st.arena_slot is not None:
             out["fused_pack"] += -(-pack_parts(st) // pc.MAX_PARTS)
         if st.kind in ("ef_allreduce", "delivered"):
@@ -2746,6 +2772,547 @@ def serve_path(cfg, seed: int, sizes: ServeSizes, *, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# phases 13-14: tensor-parallel serving through the switch collectives
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPSizes:
+    """A tensor-parallel serve phase's mesh and traffic."""
+    tp: int                    # LocalMesh({"tp": tp})
+    batch: int                 # batched prefill and decode batch
+    prompt: int                # prefill tokens per sequence
+    steps: int                 # greedy decode ticks after the prefill
+    slots: int                 # ServeEngine slots
+    requests: tuple            # ServeEngine: (prompt tokens, new tokens)
+    rounds: int = 2            # turns of the five modes (timed, checked)
+    f32_layers: Optional[int] = None  # the f32 semantics check's depth
+
+
+# 16 requests, prompts 64-512 and 32 new tokens each, over 8 slots: the
+# 512-token prompt takes one slot for 544 ticks while the other seven
+# slots serve the fifteen shorter ones
+TP_REQUESTS = tuple((p, 32) for p in (512, 64, 96, 128, 64, 96, 128, 160,
+                                      64, 96, 128, 160, 192, 224, 256,
+                                      288))
+# qwen3-8b on 8 ranks: a batched 8 x 512 prefill, 32 greedy ticks at
+# batch 8, two turns of the five modes, then the engine
+SERVE_TP_DENSE = TPSizes(tp=8, batch=8, prompt=512, steps=32, slots=8,
+                         requests=TP_REQUESTS)
+# qwen2-moe-a2.7b on 4 ranks (tp=8 does not divide its 60 experts): a
+# 4 x 256 prefill, which a MoE stack runs as 256 decode ticks (the
+# reference's prefill), so one turn of the five modes; the f32 semantics
+# check on a 4-layer f32 model of the same widths
+SERVE_TP_MOE = TPSizes(tp=4, batch=4, prompt=256, steps=32, slots=8,
+                       requests=TP_REQUESTS, rounds=1, f32_layers=4)
+# the same phases at sizes a CPU runs in seconds (a rehearsal only)
+SERVE_TP_SMOKE = TPSizes(tp=2, batch=2, prompt=6, steps=3, slots=2,
+                         requests=((5, 3), (3, 4), (4, 2)), f32_layers=2)
+TP_MODES = ("compiled", "compiled_plain", "direct", "xla", "unsharded")
+
+
+def tp_launches(programs, n: int) -> dict:
+    """``fused_combine`` launches (both forms) of one run of the
+    ``(name, program, calls)`` list on a ring of ``n`` ranks
+    (:func:`expected_launches` of each program): n-1 ``fused_hop`` per
+    bandwidth ring all-reduce, n-1 elementwise ``fused_combine`` per
+    latency ring and per fused ``allreduce+alltoall`` stage; an
+    all-to-all is data movement only."""
+    from repro_torch.mesh import LocalMesh
+
+    mesh = LocalMesh({"tp": n}, device="meta")
+    out = {"fused_combine": 0, "fused_hop": 0}
+    for _, prog, calls in programs:
+        per = expected_launches(prog, mesh)
+        for k in out:
+            out[k] += calls * per[k]
+    return out
+
+
+class RoutingLog:
+    """Within the block, every MoE routing decision (``moe.top_k``'s
+    expert indices, ``[*rank, G, Ng, k]``) in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.orig, self.calls = moe, moe.top_k, []
+
+        def top_k(x, k):
+            vals, idx = self.orig(x, k)
+            self.calls.append(idx)
+            return vals, idx
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top_k = self.orig
+        return False
+
+
+class RoutingReplay:
+    """Within the block, ``moe.top_k`` returns the expert indices of a
+    recorded run (:class:`RoutingLog`) in call order, with this run's own
+    probabilities at them: two runs of one model then compute the same
+    function even where their routers sit one rounding apart near a tie
+    (top-k is discontinuous, and a random bf16 router ties often).
+    ``apart`` counts the rows whose own top-k chose other experts, of
+    ``rows`` routing decisions; the calls must match the record's."""
+
+    def __init__(self, routes: list):
+        self.routes = routes
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.orig = moe, moe.top_k
+        self.calls, self.apart, self.rows = 0, 0, 0
+
+        def top_k(x, k):
+            own = self.orig(x, k)[1]
+            idx = self.routes[self.calls].reshape(own.shape)
+            self.calls += 1
+            self.apart = self.apart + (own != idx).any(-1).sum()
+            self.rows += own[..., 0].numel()
+            return x.gather(-1, idx), idx
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top_k = self.orig
+        self.apart = int(self.apart)
+        if exc[0] is None:
+            check(self.calls == len(self.routes), f"routing replay: "
+                  f"{self.calls} calls of {len(self.routes)} recorded")
+        return False
+
+
+def hold_routed(want: torch.Tensor, got: torch.Tensor, want_idx: list,
+                got_idx: list, rel: float) -> tuple[float, int, int]:
+    """One decode step of a MoE model from the same cache: the rows whose
+    routing agrees in every layer (every rank of ``got`` picking the
+    experts ``want`` picks) hold their logits within ``rel`` of the row's
+    largest |logit|.  A row routed elsewhere computes another function
+    (top-k is discontinuous: a probability one rounding from a tie flips
+    it).  Returns (worst error over the bound, rows compared, rows)."""
+    agree = torch.ones(want.shape[0], dtype=torch.bool, device=want.device)
+    for w, g in zip(want_idx, got_idx):
+        same = (g == w).all(-1)                    # [*rank, G, Ng]
+        agree &= same.reshape(-1, same.shape[-1]).all(0)
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    tol = rel * want.float().abs().amax(-1)
+    err = (got.float() - want.float()).abs().amax(-1) / tol
+    worst = err[agree].max().item() if bool(agree.any()) else 0.0
+    return worst, int(agree.sum()), agree.numel()
+
+
+def _add_counts(a: dict, b: dict, times: int = 1) -> dict:
+    return {k: a.get(k, 0) + times * b.get(k, 0) for k in set(a) | set(b)}
+
+
+def routed_steps(sc, split, ref: dict, feed: list, t: int, rel: float
+                 ) -> dict:
+    """Every decode step of ``ref`` (a run of the unsharded model with
+    its caches before each step and its routing, :class:`RoutingLog`)
+    run again tensor-parallel, compiled, from the same cache, held by
+    :func:`hold_routed`: the rows routed alike within ``rel``."""
+    dec = sc.decode_fn(split, None)
+    per = len(ref["routes"]) // (t + len(feed))
+    worst, compared, rows = 0.0, 0, 0
+    for j, tok in enumerate(feed):
+        cache = sc.shard_cache(ref["caches"][j])
+        with RoutingLog() as log:
+            lg, _ = dec(split, tok, cache, t + j)
+        k = (t + j) * per
+        w, c, n = hold_routed(ref["logits"][j + 1], lg,
+                              ref["routes"][k:k + per], log.calls, rel)
+        worst, compared, rows = max(worst, w), compared + c, rows + n
+    check(worst <= 1, f"logits of rows routed alike differ by "
+          f"{worst:.3g} x the bound ({rel})")
+    return {"logit_err_over_bound": worst, "rows_compared": compared,
+            "rows": rows}
+
+
+def rank_spread(sc, split, cache, feed: list, t: int, want: list) -> dict:
+    """Every rank's logits of the compiled decode ticks from ``cache``
+    (the cache after the prefill; ``decode_step`` under the hook in the
+    mesh, with no ``rank0``): each rank within ``BF16_REL`` of rank 0's
+    row maximum of rank 0's logits, and rank 0's within the same of
+    ``want`` (these ticks through ``decode_fn``).  A rank that routed a
+    token apart, or gathered another token's expert output, would hold
+    another hidden state."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import parallel as TPH
+
+    worst, vs_fn, bitwise = 0.0, 0.0, True
+    with sc.mesh, TPH.tensor_parallel(sc.hook("compiled")), torch.no_grad():
+        for i, tok in enumerate(feed):
+            lg, cache = D.decode_step(split, sc.cfg_local, tok, cache, t + i)
+            lg = lg.float()
+            tol = BF16_REL * lg[0].abs().amax(-1)
+            worst = max(worst, ((lg[1:] - lg[0]).abs().amax(-1)
+                                / tol).max().item())
+            vs_fn = max(vs_fn, ((lg[0] - want[i].float()).abs().amax(-1)
+                                / tol).max().item())
+            bitwise &= bool((lg == lg[:1]).all())
+    check(worst <= 1, f"the ranks' logits differ by {worst:.3g} x the "
+          f"bound ({BF16_REL})")
+    check(vs_fn <= 1, f"rank 0's logits differ from decode_fn's by "
+          f"{vs_fn:.3g} x the bound ({BF16_REL})")
+    return {"rank_vs_rank0_err_over_bound": worst, "ranks_bitwise": bitwise,
+            "rank0_vs_decode_fn_err_over_bound": vs_fn, "ranks": lg.shape[0],
+            "ticks": len(feed)}
+
+
+def unsharded_run(model, params, toks, steps: int, dev, dtype) -> dict:
+    """Prefill and ``steps`` greedy ticks of the unsharded model, its
+    routing recorded and its cache kept before every tick."""
+    from repro_torch import tree
+
+    b, t = toks.shape
+    cache = model.init_cache(b, t + steps + 1, dtype, device=dev)
+    out = {"logits": [], "caches": [], "tokens": []}
+    with RoutingLog() as log:
+        lg, cache = model.prefill(params, toks, cache)
+        out["logits"].append(lg)
+        for i in range(steps):
+            tok = lg.argmax(-1)
+            out["tokens"].append(tok)
+            out["caches"].append(tree.tree_map(torch.clone, cache))
+            lg, cache = model.decode_step(params, tok, cache, t + i)
+            out["logits"].append(lg)
+    out["routes"] = log.calls
+    return out
+
+
+def tp_f32_check(cfg, seed: int, sizes: TPSizes, dev) -> dict:
+    """The semantics check of a MoE stack: ``sizes.f32_layers`` layers of
+    the same widths with f32 weights (in bf16 a random model's router
+    probabilities sit within a rounding of a tie often enough that most
+    rows route differently somewhere in 24 layers), served
+    tensor-parallel with compiled programs and kernels against the
+    unsharded model: the prefill's logits (rows routed alike over the
+    whole prompt) and every decode step from the unsharded cache
+    (:func:`routed_steps`) within ``F32_REL``; at least 3/4 of the rows
+    compared."""
+    from repro_torch.models import Model
+    from repro_torch.serve.collectives import (ServeCollectives,
+                                               SwitchProgramCache)
+
+    cfg = dataclasses.replace(cfg, n_layers=sizes.f32_layers,
+                              param_dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(gen, device=dev)
+    b, t = sizes.batch, sizes.prompt
+    toks = torch.randint(0, cfg.vocab, (b, t), device=dev, generator=gen)
+    sc = ServeCollectives(cfg, sizes.tp, device=dev,
+                          cache=SwitchProgramCache())
+    split = sc.shard_params(params)
+    ref = unsharded_run(model, params, toks, sizes.steps, dev,
+                        torch.float32)
+    per = len(ref["routes"]) // (t + sizes.steps)
+    cache = sc.shard_cache(model.init_cache(b, t + sizes.steps + 1,
+                                            torch.float32, device=dev))
+    with RoutingLog() as log:
+        lg, _ = sc.prefill_fn()(split, toks, cache)
+    pre = hold_routed(ref["logits"][0], lg, ref["routes"][:t * per],
+                      log.calls, F32_REL)
+    check(pre[0] <= 1, f"f32 prefill: logits of rows routed alike differ "
+          f"by {pre[0]:.3g} x the bound ({F32_REL})")
+    steps = routed_steps(sc, split, ref, ref["tokens"], t, F32_REL)
+    compared = pre[1] + steps["rows_compared"]
+    rows = pre[2] + steps["rows"]
+    check(4 * compared >= 3 * rows, f"f32: only {compared} of {rows} rows "
+          "routed alike")
+    return {"layers": cfg.n_layers, "rel": F32_REL,
+            "prefill_err_over_bound": pre[0],
+            "decode_err_over_bound": steps["logit_err_over_bound"],
+            "rows_compared": compared, "rows": rows}
+
+
+def tp_serve_path(cfg, seed: int, sizes: TPSizes, *, device="cuda",
+                  expect_kernels: bool = True, phase: str = "serve_tp"
+                  ) -> list[dict]:
+    """A dense or MoE model served tensor-parallel on ``LocalMesh({"tp":
+    sizes.tp})`` at full width (seeded random bf16 weights made on the
+    device):
+
+      * the params split once (``ServeCollectives.shard_params``);
+      * a batched prefill of ``batch`` x ``prompt`` tokens and ``steps``
+        greedy decode ticks in each of five modes, in turns (``rounds``
+        turns): compiled switch programs with kernels, compiled with
+        ``use_kernels=False``, direct acis rings, the plain (xla)
+        reduction, and the unsharded model with no hook; every mode fed
+        the first one's tokens;
+      * checks: compiled with kernels bitwise equal to compiled without
+        (logits and cache); a dense stack's compiled bitwise equal to
+        direct, and every mode's logits within ``BF16_REL`` of the
+        unsharded path's (:func:`hold_logits`); ``fused_combine`` and
+        ``fused_hop`` launched exactly as ``prefill_programs`` /
+        ``decode_programs`` predict with kernels (:func:`tp_launches`)
+        and never without; a MoE tick holds ``serve_moe_alltoall`` and
+        ``serve_moe_combine``, the combine one ``allreduce+alltoall``
+        stage;
+      * a MoE stack: the direct, xla and unsharded runs replay the
+        compiled run's expert choices (:class:`RoutingReplay`; top-k is
+        discontinuous, and a random bf16 router sits one rounding from a
+        tie often enough that one flip in 24 layers sends most rows down
+        another path), so every row of every step is held, and the rows
+        whose own routing chose other experts are counted; compiled
+        differs from direct in bits there (the fused combine folds the
+        shared experts' partials in the reference's latency order, the
+        direct ring in its bandwidth order); then :func:`tp_f32_check`
+        holds the natural routing;
+      * every rank's logits of the compiled decode ticks
+        (:func:`rank_spread`);
+      * a profile of one compiled decode tick;
+      * ``ServeEngine(slots, collectives=)`` over ``requests``: every
+        request completes in full, its launches as the ticks' programs
+        predict."""
+    from repro_torch import tree
+    from repro_torch.core.api import CollectiveConfig
+    from repro_torch.models import Model
+    from repro_torch.obs import metrics
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.collectives import (ServeCollectives,
+                                               SwitchProgramCache)
+
+    import numpy as np
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    model = Model(cfg)
+    n_params = sum(x.numel() for x in tree.tree_leaves(model.param_shapes()))
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    cache_pool = SwitchProgramCache()
+    sc = {uk: ServeCollectives(cfg, sizes.tp, cache=cache_pool, device=dev,
+                               config=CollectiveConfig(backend="acis",
+                                                       use_kernels=uk))
+          for uk in (True, False)}
+    t0 = time.perf_counter()
+    split = sc[True].shard_params(params)
+    _sync(dev)
+    shard_s = time.perf_counter() - t0
+    b, t = sizes.batch, sizes.prompt
+    toks = torch.randint(0, cfg.vocab, (b, t), device=dev, generator=gen)
+    seq = t + sizes.steps + 1
+    moe = cfg.family == "moe"
+    t0 = time.perf_counter()
+    dec_progs = sc[True].decode_programs(b)
+    pre_progs = [(n, p, c * t) for n, p, c in dec_progs] if moe \
+        else sc[True].prefill_programs(b, t)
+    sc[False].decode_programs(b)
+    if not moe:
+        sc[False].prefill_programs(b, t)
+    compile_s = time.perf_counter() - t0
+    names = {n: p for n, p, _ in dec_progs}
+    if moe:
+        check({"serve_moe_alltoall", "serve_moe_combine"} <= set(names),
+              f"a MoE tick runs {sorted(names)}")
+        check(names["serve_moe_combine"].stage_kinds()
+              == ["allreduce+alltoall"], "the MoE combine is not one "
+              "allreduce+alltoall stage")
+    want = _add_counts(tp_launches(pre_progs, sizes.tp),
+                       tp_launches(dec_progs, sizes.tp), sizes.steps)
+
+    def fns(mode):
+        """(prefill, decode, params, cache) of one mode."""
+        if mode == "unsharded":
+            return (model.prefill, model.decode_step, params,
+                    model.init_cache(b, seq, device=dev))
+        s = sc[mode != "compiled_plain"]
+        m = "compiled" if mode.startswith("compiled") else mode
+        cache = s.shard_cache(model.init_cache(b, seq, device=dev))
+        return (s.prefill_fn(mode=m), s.decode_fn(split, cache, mode=m),
+                split, cache)
+
+    def run(mode, feed=None, keep=False):
+        """Prefill and ``steps`` ticks of one mode (``keep``: a copy of
+        the cache after the prefill, outside the timed spans)."""
+        pre, dec, p, cache = fns(mode)
+        _sync(dev)
+        t0 = time.perf_counter()
+        lg, cache = pre(p, toks, cache)
+        _sync(dev)
+        out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "step_ms": [], "logits": [lg], "tokens": []}
+        if keep:
+            out["prefilled"] = tree.tree_map(torch.clone, cache)
+        for i in range(sizes.steps):
+            tok = lg.argmax(-1) if feed is None else feed[i]
+            out["tokens"].append(tok)
+            _sync(dev)
+            t0 = time.perf_counter()
+            lg, cache = dec(p, tok, cache, t + i)
+            _sync(dev)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(lg)
+        out["cache"] = cache
+        return out
+
+    launches = dict.fromkeys(kernel_modules(), 0)
+    rounds, held, feed, routes, apart = [], {}, None, None, {}
+    direct_bitwise, spread = True, None
+    for rnd in range(sizes.rounds):      # odd rounds in reverse order
+        res = {}
+        for mode in (TP_MODES if rnd % 2 == 0 else TP_MODES[::-1]):
+            reset_counts()
+            first = rnd == 0 and mode == "compiled"
+            if moe and first:
+                # the compiled run's expert choices, which the direct,
+                # xla and unsharded runs replay: every mode then computes
+                # one function, held on every row
+                with RoutingLog() as log:
+                    res[mode] = run(mode, feed, keep=True)
+                routes = log.calls
+            elif moe and mode in ("direct", "xla", "unsharded"):
+                with RoutingReplay(routes) as rp:
+                    res[mode] = run(mode, feed)
+                apart.setdefault(mode, (rp.apart, rp.rows))
+            else:
+                res[mode] = run(mode, feed, keep=first)
+            got = read_counts()
+            need = want if mode == "compiled" and expect_kernels else {}
+            for k in ("fused_combine", "fused_hop"):
+                check(got[k] == need.get(k, 0),
+                      f"{phase} {mode}: {k} launched {got[k]} times, the "
+                      f"programs predict {need.get(k, 0)}")
+            launches = _add_counts(launches, got)
+            if feed is None:
+                feed = res[mode]["tokens"]
+        ck, cp, cd = res["compiled"], res["compiled_plain"], res["direct"]
+        for a, c in zip(ck["logits"], cp["logits"]):
+            check(torch.equal(a, c), f"{phase}: compiled logits differ "
+                  "with and without kernels")
+        for a, c in zip(tree.tree_leaves(ck["cache"]),
+                        tree.tree_leaves(cp["cache"])):
+            check(torch.equal(a, c), f"{phase}: compiled caches differ "
+                  "with and without kernels")
+        direct_bitwise &= all(
+            torch.equal(a, c) for a, c in zip(ck["logits"], cd["logits"])) \
+            and all(torch.equal(a, c) for a, c in zip(
+                tree.tree_leaves(ck["cache"]), tree.tree_leaves(cd["cache"])))
+        if not moe:
+            check(direct_bitwise, f"{phase}: compiled and direct differ")
+        for mode in TP_MODES[:-1]:
+            held[mode] = hold_logits(res["unsharded"]["logits"],
+                                     res[mode]["logits"], BF16_REL)
+        if rnd == 0:
+            reset_counts()
+            spread = rank_spread(sc[True], split, ck["prefilled"], feed, t,
+                                 ck["logits"][1:])
+            launches = _add_counts(launches, read_counts())
+        rounds.append({m: (r["prefill_ms"], r["step_ms"])
+                       for m, r in res.items()})
+        del res, ck, cp, cd
+    peak_mem = torch.cuda.max_memory_allocated() if cuda else None
+    med = statistics.median
+    record = {
+        "phase": phase, "program": "prefill_decode", "model": cfg.name,
+        "family": cfg.family, "layers": cfg.n_layers, "params": n_params,
+        "param_bytes": sum(x.numel() * x.element_size()
+                           for x in tree.tree_leaves(params)),
+        "split_param_bytes": sum(
+            x.numel() * x.element_size() for x in tree.tree_leaves(split)
+            if all(x is not y for y in tree.tree_leaves(params))),
+        "tp": sizes.tp, "batch": b, "prompt": t, "steps": sizes.steps,
+        "init_s": init_s, "shard_s": shard_s, "compile_s": compile_s,
+        "decode_programs": {n: {"calls": c, "stages": p.stage_kinds(),
+                                "schedules": [s.schedule
+                                              for s in p.stages]}
+                            for n, p, c in dec_progs},
+        "prefill_ms": {m: [r[m][0] for r in rounds] for m in TP_MODES},
+        "decode_ms_per_tick": {m: med([x for r in rounds for x in r[m][1]])
+                               for m in TP_MODES},
+        "bf16_rel": BF16_REL,
+        "vs_unsharded": {m: h["logit_err_over_bound"]
+                         for m, h in held.items()},
+        "vs_unsharded_rule": "free-running from one prompt, every row of "
+        "every step" + ("; the direct, xla and unsharded runs replay the "
+        "compiled run's expert choices" if moe else ""),
+        "routing_rows_apart": {m: list(v) for m, v in apart.items()},
+        "rank_spread": spread,
+        "compiled_bitwise_to_plain": True,
+        "compiled_bitwise_to_direct": direct_bitwise,
+        "launches_per_run_predicted": want,
+        "decode_comm_time_s": sc[True].decode_comm_time(b),
+        "prefill_comm_time_s": sc[True].prefill_comm_time(b, t),
+        "cost_model": COST_MODEL_NOTE,
+        "max_memory_allocated": peak_mem,
+    }
+    if cuda:
+        pre, dec, p, cache = fns("compiled")
+        lg, cache = pre(p, toks, cache)
+        reset_counts()
+        record["profile"] = {"decode_tick": device_profile(
+            lambda: dec(p, lg.argmax(-1), cache, t), RING_OPS)}
+        launches = _add_counts(launches, read_counts())
+        del cache
+
+    # the engine on the compiled transport
+    rng = np.random.default_rng(seed)
+    reqs = [(i, rng.integers(0, cfg.vocab, p).astype(np.int32), n)
+            for i, (p, n) in enumerate(sizes.requests)]
+    max_seq = max(p + n for p, n in sizes.requests) + 2
+    rec = metrics.Recorder()
+    eng = ServeEngine(model, split, slots=sizes.slots, max_seq=max_seq,
+                      recorder=rec, collectives=sc[True])
+    est0 = eng.tick_time_estimate()
+    for rid, prompt, n_new in reqs:
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    tick = tp_launches(sc[True].decode_programs(sizes.slots), sizes.tp)
+    if expect_kernels:
+        for k, v in tick.items():
+            check(got[k] == eng.ticks * v, f"{phase} engine: {k} launched "
+                  f"{got[k]} times, {eng.ticks} ticks need {v} each")
+    check([c.rid for c in done] == [r[0] for r in reqs]
+          and [len(c.tokens) for c in done] == [n for _, _, n in reqs],
+          f"{phase}: the engine did not complete every request in full")
+    ticks = sorted(eng._tick_times)
+    n_tok = sum(len(c.tokens) for c in done)
+    eng_rec = {
+        "phase": phase, "program": "engine", "model": cfg.name,
+        "tp": sizes.tp, "slots": sizes.slots,
+        "requests": [list(r) for r in sizes.requests], "ticks": eng.ticks,
+        "wall_s": wall, "generated_tokens": n_tok,
+        "tokens_per_s": n_tok / wall,
+        "tick_p50_ms": ticks[len(ticks) // 2] * 1e3,
+        "tick_p99_ms": ticks[min(len(ticks) - 1,
+                                 int(len(ticks) * 0.99))] * 1e3,
+        "tick_estimate_before_first_tick_s": est0,
+        "cost_model": COST_MODEL_NOTE,
+        "program_cache": cache_pool.stats(),
+        "counters": {k: rec.counter(k) for k in (
+            "serve.ticks", "serve.admitted", "serve.retired",
+            "serve.host_sync")},
+        "launches": got, "launches_per_tick": tick,
+    }
+    del eng, split, params
+    if cuda:
+        torch.cuda.empty_cache()
+    if moe and sizes.f32_layers:
+        reset_counts()
+        record["f32_check"] = tp_f32_check(cfg, seed, sizes, dev)
+        launches = _add_counts(launches, read_counts())
+    record["launches"] = launches
+    return [record, eng_rec]
+
+
+# ---------------------------------------------------------------------------
 # phases 10-12: the simulator, the tuning loop and the elastic sync
 # ---------------------------------------------------------------------------
 
@@ -3457,6 +4024,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.configs.acis_100m import CONFIG
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
+    from repro_torch.configs.qwen3_8b import CONFIG as QWEN3
     from repro_torch.configs.recurrentgemma_9b import CONFIG as RGEMMA
     from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
     from repro_torch.kernels import build
@@ -3534,6 +4103,15 @@ def main() -> int:
                           phase="serve_hybrid"):
         paths.append(rec)
         emit(rec)
+    for cfg, sizes, phase in ((QWEN3, SERVE_TP_DENSE, "serve_tp_dense"),
+                              (QWEN2_MOE, SERVE_TP_MOE, "serve_tp_moe")):
+        t0 = time.perf_counter()
+        recs = tp_serve_path(cfg, args.seed, sizes, phase=phase)
+        for rec in recs:
+            rec["card"] = smi
+            rec["phase_seconds"] = time.perf_counter() - t0
+            paths.append(rec)
+            emit(rec)
     records.extend(paths)
 
     kernels = []

@@ -1,8 +1,9 @@
 """acis-100m — the ~100M-param dense model of the end-to-end training
 example, the vehicle for the paper's gradient-sync collectives.
 
-The port's copy of :mod:`repro.configs.acis_100m`, plus
-:func:`grad_leaf_specs`: the model's gradient leaves — one per
+The port's copy of :mod:`repro.configs.acis_100m` (the dense family's
+model path serves it), plus :func:`grad_leaf_specs`: the model's
+gradient leaves — one per
 parameter — with the shapes and dtypes the reference's
 ``Model(CONFIG).param_shapes()`` gives them, in the reference's flatten
 order.  ``chip_smoke.py`` builds the full-width

@@ -1,0 +1,20 @@
+"""granite-8b (code) — llama-arch dense GQA. [arXiv:2405.04324; hf]
+
+The port's copy of :mod:`repro.configs.granite_8b` (CONFIG and SMOKE field
+for field)."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=49152, activation="swiglu",
+    rope_theta=10000.0, max_seq=32768,
+)
+
+SMOKE = ModelConfig(
+    name="granite-8b-smoke", family="dense",
+    n_layers=2, d_model=96, n_heads=6, n_kv_heads=2,
+    d_ff=192, vocab=512, activation="swiglu", max_seq=256,
+    remat="none",
+)

@@ -2627,9 +2627,19 @@ class Emit:
 
     @staticmethod
     def _allreduce_alltoall(g: StageIR, ctx: CompileContext):
-        def run(args, ax):
+        """The fused pair; under ``use_kernels`` each histogram hop is the
+        elementwise ``fused_combine`` kernel for the dtypes it takes (f32,
+        bf16, int8 — the MoE combine's bf16 shared-expert partial), the
+        plain add for the others (an int64 IS histogram)."""
+        from repro_torch.kernels.fused_combine import DTYPES
+
+        hop = switchops.hop_kernel("add") if _use_kernels(ctx) else None
+
+        def run(args, ax, _h=hop):
             hist, keys = args
-            return fused.fused_allreduce_alltoall(hist, keys, ax)
+            return fused.fused_allreduce_alltoall(
+                hist, keys, ax,
+                hop_combine=_h if hist.dtype in DTYPES else None)
         return run
 
     @staticmethod

@@ -28,7 +28,7 @@ reference's do.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -96,13 +96,17 @@ def allreduce_alltoall_baseline(hist: torch.Tensor, keys: torch.Tensor,
 
 
 def fused_allreduce_alltoall(hist: torch.Tensor, keys: torch.Tensor,
-                             axis_name: str
+                             axis_name: str, *,
+                             hop_combine: Optional[Callable] = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused schedule: the histogram reduction hops ride the same loop as
     the key-chunk exchange, so the (small) histogram combine hides behind
     the (large) key transfer at every hop — one traversal of the ring does
     both jobs (the paper's IS observation: "ACiS can take advantage of
-    communication-computation overlap and in-network data reduction")."""
+    communication-computation overlap and in-network data reduction").
+    ``hop_combine(acc, incoming)`` folds each histogram hop (the add by
+    default; Emit passes the ``fused_combine`` kernel's hook under
+    ``use_kernels``)."""
     tp = current()
     n = tp.axis_size(axis_name)
     if n == 1:
@@ -120,7 +124,8 @@ def fused_allreduce_alltoall(hist: torch.Tensor, keys: torch.Tensor,
         # histogram combine hop rides the same loop iteration (n-1 hops
         # total): rotate original contributions, fold into accumulator.
         hmsg = tp.shift(hmsg, axis_name, 1)
-        hacc = hacc + hmsg
+        hacc = hacc + hmsg if hop_combine is None \
+            else hop_combine(hacc, hmsg)
     # after n-1 latency-ring hops every rank has the full histogram sum
     return hacc, out.reshape(keys.shape)
 

@@ -15,8 +15,14 @@ query may see: ``0 <= pos <= index`` and ``pos > index - window``.  A
 cache may hold fewer slots than the window (``min(window, seq)``, as the
 reference's ``init_cache`` sizes it); then every position it is asked to
 hold is below its slot count.  Both functions write the cache in place.
-``gqa_decode`` / ``init_gqa_cache`` (the dense family's full KV cache)
-wait for that family (ROADMAP.md queue 1 item 6).
+
+The dense and MoE families keep a full KV cache (``init_gqa_cache``,
+``gqa_decode``): the token's key and value go to position ``index`` of
+each row, in place, and the query attends over the valid prefix.  The
+attention functions take any leading dims before ``[B, T, ...]``: under
+tensor parallelism (:mod:`repro_torch.serve.collectives`) activations,
+sliced weights and caches carry the rank dim in front, and one call
+serves every rank (:func:`repro_torch.models.layers.dense`).
 """
 
 from __future__ import annotations
@@ -33,15 +39,15 @@ NEG_INF = -1e30
 
 
 def _gqa_expand(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """[B, T, Hq, d] -> [B, T, Hkv, G, d]."""
-    b, t, hq, d = q.shape
-    return q.reshape(b, t, n_kv, hq // n_kv, d)
+    """[..., T, Hq, d] -> [..., T, Hkv, G, d]."""
+    hq, d = q.shape[-2:]
+    return q.reshape(q.shape[:-2] + (n_kv, hq // n_kv, d))
 
 
 def flash_attention(
-    q: torch.Tensor,            # [B, Tq, Hq, d]
-    k: torch.Tensor,            # [B, Tk, Hkv, d]
-    v: torch.Tensor,            # [B, Tk, Hkv, dv]
+    q: torch.Tensor,            # [..., B, Tq, Hq, d]
+    k: torch.Tensor,            # [..., B, Tk, Hkv, d]
+    v: torch.Tensor,            # [..., B, Tk, Hkv, dv]
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -51,14 +57,14 @@ def flash_attention(
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """``q_offset`` and ``kv_len`` are scalars or per-row [B] vectors
-    (continuous batching: every row at its own position).  Returns
-    [B, Tq, Hq, dv] in v's dtype."""
-    b, tq, hq, d = q.shape
-    _, tk, hkv, dv = v.shape
+    (continuous batching: every row at its own position).  Leading dims
+    before B broadcast (the rank dim under tensor parallelism).  Returns
+    [..., B, Tq, Hq, dv] in v's dtype."""
+    tq, hq, d = q.shape[-3:]
+    tk, hkv, dv = v.shape[-3:]
     dev = q.device
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    qf = _gqa_expand(q.to(torch.float32) * scale, hkv)    # [B,Tq,Hkv,G,d]
-    g = qf.shape[3]
+    qf = _gqa_expand(q.to(torch.float32) * scale, hkv)    # [..,Tq,Hkv,G,d]
 
     chunk = min(chunk, tk)
     nkc = -(-tk // chunk)
@@ -71,18 +77,16 @@ def flash_attention(
     kl = None if kv_len is None else \
         torch.as_tensor(kv_len, device=dev).to(torch.int64).reshape(-1, 1)
 
-    m = torch.full((b, tq, hkv, g), NEG_INF, dtype=torch.float32, device=dev)
-    l_ = torch.zeros((b, tq, hkv, g), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, tq, hkv, g, dv), dtype=torch.float32, device=dev)
+    m = l_ = acc = None
     for ci in range(nkc):
         k_pos = ci * chunk + torch.arange(chunk, device=dev)       # [C]
-        kc = k[:, ci * chunk:(ci + 1) * chunk].to(torch.float32)
-        vc = v[:, ci * chunk:(ci + 1) * chunk].to(torch.float32)
-        if kc.shape[1] < chunk:                 # the ragged last chunk
-            pad = chunk - kc.shape[1]
+        kc = k[..., ci * chunk:(ci + 1) * chunk, :, :].to(torch.float32)
+        vc = v[..., ci * chunk:(ci + 1) * chunk, :, :].to(torch.float32)
+        if kc.shape[-3] < chunk:                # the ragged last chunk
+            pad = chunk - kc.shape[-3]
             kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, pad))
             vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
-        s = torch.einsum("bqhgd,bchd->bqhgc", qf, kc)     # [B,Tq,Hkv,G,C]
+        s = torch.einsum("...qhgd,...chd->...qhgc", qf, kc)  # [..,Tq,Hkv,G,C]
         mask = (k_pos < tk)[None, None, :]                 # [1, 1, C]
         if kl is not None:
             mask = mask & (k_pos[None, :] < kl)[:, None, :]
@@ -91,15 +95,21 @@ def flash_attention(
         if window is not None:
             mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
         s = s.masked_fill(~mask[:, :, None, None, :], NEG_INF)
+        if m is None:
+            m = torch.full(s.shape[:-1], NEG_INF, dtype=torch.float32,
+                           device=dev)
+            l_ = torch.zeros_like(m)
+            acc = torch.zeros(s.shape[:-1] + (dv,), dtype=torch.float32,
+                              device=dev)
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l_ = l_ * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bqhgc,bchv->bqhgv", p,
-                                                   vc)
+        acc = acc * corr[..., None] + torch.einsum("...qhgc,...chv->...qhgv",
+                                                   p, vc)
         m = m_new
     out = acc / l_.clamp_min(1e-30)[..., None]
-    return out.reshape(b, tq, hq, dv).to(v.dtype)
+    return out.reshape(out.shape[:-3] + (hq, dv)).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,13 +132,17 @@ def init_gqa(gen, d_model: int, n_heads: int, n_kv: int, d_head: int,
     return p
 
 
+def _heads(y: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
+    """[..., T, n * d_head] -> [..., T, n, d_head]."""
+    return y.reshape(y.shape[:-1] + (n, d_head))
+
+
 def _project_qkv(p, x, xc, n_heads, n_kv, d_head, qk_norm, rope_theta,
                  q_positions, k_positions, use_rope=True):
-    b, t, _ = x.shape
-    tc = xc.shape[1]
-    q = (x @ p["wq"]).reshape(b, t, n_heads, d_head)
-    k = (xc @ p["wk"]).reshape(b, tc, n_kv, d_head)
-    v = (xc @ p["wv"]).reshape(b, tc, n_kv, d_head)
+    """x, xc: [..., B, T, D]; positions [1 or B, T]."""
+    q = _heads(L.dense(x, p["wq"]), n_heads, d_head)
+    k = _heads(L.dense(xc, p["wk"]), n_kv, d_head)
+    v = _heads(L.dense(xc, p["wv"]), n_kv, d_head)
     if qk_norm:
         q = L.rmsnorm(p["q_norm"], q)
         k = L.rmsnorm(p["k_norm"], k)
@@ -144,17 +158,76 @@ def gqa_attention(
     rope_theta: float = 10000.0, q_offset: int = 0, chunk: int = 1024,
     context: Optional[torch.Tensor] = None, use_rope: bool = True,
 ) -> torch.Tensor:
-    """Self (context=None) or cross attention over full sequences."""
+    """Self (context=None) or cross attention over full sequences
+    x [..., B, T, D]."""
     xc = x if context is None else context
-    b, t, _ = x.shape
+    t = x.shape[-2]
     q_pos = q_offset + torch.arange(t, device=x.device)
-    k_pos = torch.arange(xc.shape[1], device=x.device)
+    k_pos = torch.arange(xc.shape[-2], device=x.device)
     q, k, v = _project_qkv(p, x, xc, n_heads, n_kv, d_head, qk_norm,
                            rope_theta, q_pos[None], k_pos[None],
                            use_rope=use_rope and context is None)
     out = flash_attention(q, k, v, causal=causal and context is None,
                           window=window, q_offset=q_offset, chunk=chunk)
-    return out.reshape(b, t, n_heads * d_head) @ p["wo"]
+    return L.dense(out.reshape(out.shape[:-2] + (n_heads * d_head,)),
+                   p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# single-token decode against a full KV cache (dense, moe)
+# ---------------------------------------------------------------------------
+
+def gqa_decode(
+    p: PyTree, x: torch.Tensor, cache: PyTree, index, *,
+    n_heads: int, n_kv: int, d_head: int, window: Optional[int] = None,
+    qk_norm: bool = False, rope_theta: float = 10000.0,
+    use_rope: bool = True,
+) -> tuple[torch.Tensor, PyTree]:
+    """One-token decode.  x: [..., B, 1, D]; cache: {k, v: [..., B, S,
+    Hkv, d]}, written in place.
+
+    ``index`` is a scalar (lockstep batch: an int, or a 0-dim tensor) or
+    an integer [B] tensor (continuous batching: per-row positions; the
+    cache writes are per-row scatters and the masks per row)."""
+    b = x.shape[-3]
+    dev = x.device
+    vec = torch.is_tensor(index) and index.dim() > 0
+    if vec:
+        idx = index.to(device=dev, dtype=torch.int64)
+        pos = idx[:, None]
+    elif isinstance(index, int):
+        idx = index
+        pos = torch.full((b, 1), index, dtype=torch.int64, device=dev)
+    else:
+        idx = torch.as_tensor(index, device=dev).to(torch.int64)
+        pos = idx.reshape(1, 1).expand(b, 1)
+    q, k_new, v_new = _project_qkv(
+        p, x, x, n_heads, n_kv, d_head, qk_norm, rope_theta, pos, pos,
+        use_rope=use_rope)
+    kc, vc = cache["k"], cache["v"]
+    if vec:
+        rows = torch.arange(b, device=dev)
+        kc[..., rows, idx, :, :] = k_new[..., 0, :, :].to(kc.dtype)
+        vc[..., rows, idx, :, :] = v_new[..., 0, :, :].to(vc.dtype)
+    elif isinstance(idx, int):
+        kc[..., idx:idx + 1, :, :] = k_new.to(kc.dtype)
+        vc[..., idx:idx + 1, :, :] = v_new.to(vc.dtype)
+    else:
+        kc.index_copy_(kc.dim() - 3, idx.reshape(1), k_new.to(kc.dtype))
+        vc.index_copy_(vc.dim() - 3, idx.reshape(1), v_new.to(vc.dtype))
+    out = flash_attention(q, kc, vc, causal=False, window=window,
+                          q_offset=idx, kv_len=idx + 1,
+                          chunk=min(4096, kc.shape[-3]))
+    y = L.dense(out.reshape(out.shape[:-2] + (n_heads * d_head,)), p["wo"])
+    return y, cache
+
+
+def init_gqa_cache(batch: int, seq: int, n_kv: int, d_head: int,
+                   dtype=torch.bfloat16, *, device="cpu",
+                   lead: tuple[int, ...] = ()) -> PyTree:
+    shape = lead + (batch, seq, n_kv, d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

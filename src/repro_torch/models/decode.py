@@ -1,25 +1,38 @@
 """Serving paths: cache init, prefill, and single-token decode.
 
-The part of :mod:`repro.models.decode` the ``ssm`` and ``hybrid``
-families need.  Caches mirror the stacked-layer structure: one stacked
-cache per period position (``[n_periods, B, ...]``) plus unstacked caches
-for remainder layers.  Cache kinds per block:
+The port of :mod:`repro.models.decode` for the ``dense`` and ``moe`` (GQA
+attention), ``ssm`` and ``hybrid`` families.  Caches mirror the
+stacked-layer structure: one stacked cache per period position
+(``[n_periods, B, ...]``) plus unstacked caches for remainder layers.
+Cache kinds per block:
 
+  self/dense_self/moe_self — {k, v: [B, S, Hkv, dh]}, the full KV cache
   rwkv   — {s: [B, H, K, V] f32, x_tok, x_ch: [B, D]}
   lru    — {h: [B, W] f32, conv: [B, cw-1, W]}
   window — ring buffer {k, v: [B, S, Hkv, dh], pos: [B, S] int32 (-1 =
            empty)}, S = min(window, seq)
 
 ``decode_step`` walks the stacked layers in a Python loop (the reference
-scans them), then the remainder.  ``prefill`` runs the whole prompt
-through each layer in turn — one ``rwkv6_recurrence`` or ``rglru_scan``
-launch per recurrent layer, the causal + window mask over the prompt for
-a window layer — where the reference runs T decode steps.  Both update
-the cache IN PLACE and return it: the counterpart of the reference
-engine's donated cache.  A caller that needs the cache as it was clones
-it first (``tree_map(torch.clone, cache)``).  Full KV caches (the dense,
-moe, encdec and vlm kinds) wait for their families (ROADMAP.md queue 1
-item 6).
+scans them); a MoE stack runs its remainder (the leading dense layers)
+first, every other stack last, as the reference does.  ``prefill`` takes
+the reference's routes: a pure-GQA stack one batched forward pass
+(:func:`_prefill_gqa_fast`) that also writes every layer's keys and
+values; a stack with MoE layers T decode steps (the reference's loop:
+capacity and drops are those of single-token decode).  The ``ssm`` and
+``hybrid`` stacks take the whole prompt through each layer in turn — one
+``rwkv6_recurrence`` or ``rglru_scan`` launch per recurrent layer, the
+causal + window mask over the prompt for a window layer — which computes
+what the reference's T decode steps from position 0 compute.  Both
+update the cache IN PLACE and return it: the counterpart of the
+reference engine's donated cache.  A caller that needs the cache as it
+was clones it first (``tree_map(torch.clone, cache)``).
+
+Under a tensor-parallel hook inside a mesh (:mod:`repro_torch.serve.
+collectives`) params and caches are rank-stacked slices and the
+activations carry the rank dims; ``rank0=True`` takes rank 0's hidden
+state before the final norm and head, so the logits are one ``[B, V]``.
+MLA caches (deepseek-v2) and the encdec and vlm kinds wait for ROADMAP.md
+queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -28,14 +41,16 @@ from typing import Any
 
 import torch
 
-from repro_torch import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import parallel as TP
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import PORTED_KINDS, _not_ported, \
-    _norm, _period_of, logits
+from repro_torch.models.transformer import (
+    ATTENTION_KINDS, _attn_kw, _check_kind, _norm, _period_of, apply_block,
+    layer_views, logits, rank0, ranked, rem_first)
 
 PyTree = Any
 
@@ -43,6 +58,10 @@ PyTree = Any
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, seq: int,
                  dtype=torch.bfloat16, *, device="cpu",
                  lead: tuple[int, ...] = ()) -> PyTree:
+    _check_kind(cfg, kind)
+    if kind in ATTENTION_KINDS:
+        return A.init_gqa_cache(batch, seq, cfg.n_kv_heads, cfg.head_dim,
+                                dtype, device=device, lead=lead)
     if kind == "rwkv":
         return RW.init_rwkv6_cache(batch, cfg.d_model, dtype, device=device,
                                    lead=lead)
@@ -53,7 +72,7 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, seq: int,
     if kind == "lru":
         return RG.init_rglru_cache(batch, cfg.hybrid, cfg.d_model, dtype,
                                    device=device, lead=lead)
-    raise _not_ported(kind)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -71,32 +90,26 @@ def _ported_stack(cfg: ModelConfig) -> tuple[list[str], int, list[str]]:
     """:func:`_period_of`, raising for a kind the port does not run."""
     period, n_periods, rem = _period_of(cfg)
     for kind in period + rem:
-        if kind not in PORTED_KINDS:
-            raise _not_ported(kind)
+        _check_kind(cfg, kind)
     return period, n_periods, rem
-
-
-def layer_views(stacked: PyTree) -> list[PyTree]:
-    """Per-layer views of a stacked ``[n, ...]`` tree: writes through a
-    view land in the stacked tensors."""
-    leaves, td = tree.tree_flatten(stacked)
-    per_leaf = [leaf.unbind(0) for leaf in leaves]
-    return [tree.tree_unflatten(td, [p[i] for p in per_leaf])
-            for i in range(len(per_leaf[0]))]
 
 
 def _layers(params: PyTree, cache: PyTree, cfg: ModelConfig):
     """``(params, cache, kind)`` of every layer in depth order: the
-    stacked periods, then the remainder (the hybrid and ssm stacks have
-    no leading remainder)."""
+    stacked periods and the remainder, the remainder first in a MoE
+    stack (its leading dense layers) and last in every other."""
     period, _, _ = _period_of(cfg)
+    rem = [(params["rem"][name], cache["rem"][name], name.split("_", 1)[1])
+           for name in sorted(cache["rem"])]
+    if rem_first(cfg):
+        yield from rem
     for pp, cc in zip(layer_views(params["layers"]),
                       layer_views(cache["layers"])):
         for j, kind in enumerate(period):
             name = f"pos{j}_{kind}"
             yield pp[name], cc[name], kind
-    for name in sorted(cache["rem"]):
-        yield params["rem"][name], cache["rem"][name], name.split("_", 1)[1]
+    if not rem_first(cfg):
+        yield from rem
 
 
 # Cache leaves the reference replaces by the step's activations (the conv
@@ -119,10 +132,8 @@ def _follow_activations_(cache: PyTree, dtype: torch.dtype) -> None:
                     c[key] = c[key].to(want)
 
 
-def _attn_kw(cfg: ModelConfig) -> dict:
-    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                d_head=cfg.head_dim, qk_norm=cfg.qk_norm,
-                rope_theta=cfg.rope_theta, window=cfg.hybrid.window)
+def _window_kw(cfg: ModelConfig) -> dict:
+    return dict(_attn_kw(cfg), window=cfg.hybrid.window)
 
 
 def _norms(p, cfg):
@@ -137,19 +148,36 @@ def _norms(p, cfg):
 def block_decode(p: PyTree, x: torch.Tensor, cache: PyTree, index,
                  cfg: ModelConfig, kind: str, *, use_kernels: bool = True
                  ) -> tuple[torch.Tensor, PyTree]:
-    """One token x [B, 1, D] through one block; ``index`` (scalar or
-    per-row [B]) is read by window layers."""
+    """One token x [..., B, 1, D] through one block; ``index`` (scalar or
+    per-row [B]) is read by the attention and window layers."""
+    if kind in ATTENTION_KINDS:
+        _check_kind(cfg, kind)
+        tp = TP.current()
+        h, cache = A.gqa_decode(p["attn"], _norm(p["ln1"], x, cfg), cache,
+                                index, **_attn_kw(cfg))
+        if tp is not None:
+            h = tp.attn_reduce(h)
+        x = x + h
+        if kind == "moe_self":
+            y, _ = MOE.moe_ffn(p["moe"], _norm(p["ln2"], x, cfg), cfg.moe,
+                               cfg.activation)
+            return x + y, cache
+        f = L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
+        if tp is not None:
+            f = tp.ffn_reduce(f)
+        return x + f, cache
     if kind == "rwkv":
         return RW.rwkv6_decode(p["tok"], p["ch"], x, cache, *_norms(p, cfg),
                                use_kernels=use_kernels)
     if kind == "window":
         h, cache = A.window_decode(p["attn"], _norm(p["ln1"], x, cfg), cache,
-                                   index, **_attn_kw(cfg))
+                                   index, **_window_kw(cfg))
     elif kind == "lru":
         h, cache = RG.rglru_decode(p["mixer"], _norm(p["ln1"], x, cfg),
                                    cache, use_kernels=use_kernels)
     else:
-        raise _not_ported(kind)
+        _check_kind(cfg, kind)
+        raise ValueError(kind)
     x = x + h
     x = x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
     return x, cache
@@ -158,20 +186,21 @@ def block_decode(p: PyTree, x: torch.Tensor, cache: PyTree, index,
 def block_prefill(p: PyTree, x: torch.Tensor, cache: PyTree,
                   cfg: ModelConfig, kind: str, *, use_kernels: bool = True
                   ) -> tuple[torch.Tensor, PyTree]:
-    """A whole prompt x [B, T, D] through one block (window layers from
-    position 0)."""
+    """A whole prompt x [B, T, D] through one recurrent or window block
+    (window layers from position 0)."""
     if kind == "rwkv":
         return RW.rwkv6_prefill(p["tok"], p["ch"], x, cache,
                                 *_norms(p, cfg), use_kernels=use_kernels)
     if kind == "window":
         h, cache = A.window_prefill(p["attn"], _norm(p["ln1"], x, cfg),
                                     cache, chunk=cfg.attn_chunk,
-                                    **_attn_kw(cfg))
+                                    **_window_kw(cfg))
     elif kind == "lru":
         h, cache = RG.rglru_prefill(p["mixer"], _norm(p["ln1"], x, cfg),
                                     cache, use_kernels=use_kernels)
     else:
-        raise _not_ported(kind)
+        raise ValueError(f"block_prefill runs the recurrent and window "
+                         f"kinds, not {kind!r}")
     x = x + h
     x = x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
     return x, cache
@@ -181,40 +210,84 @@ def block_prefill(p: PyTree, x: torch.Tensor, cache: PyTree,
 # decode step and prefill over the whole stack
 # ---------------------------------------------------------------------------
 
+def _head(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+          take_rank0: bool) -> torch.Tensor:
+    """Final norm and logits of the last position of x [..., B, T, D]:
+    [..., B, V] f32 (rank 0's [B, V] with ``take_rank0``)."""
+    x = x[..., -1:, :]
+    if take_rank0:
+        x = rank0(x)
+    return logits(params, cfg, _norm(params["final_norm"], x, cfg))[..., 0, :]
+
+
 def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
-                cache: PyTree, index, *, use_kernels: bool = True
-                ) -> tuple[torch.Tensor, PyTree]:
-    """token: [B] int; ``index`` scalar or per-row [B] (read by window
-    layers: RoPE, ring slot and mask are per row).  Returns (logits
-    [B, V] f32, cache), the cache updated in place."""
+                cache: PyTree, index, *, use_kernels: bool = True,
+                rank0: bool = False) -> tuple[torch.Tensor, PyTree]:
+    """token: [B] int; ``index`` scalar or per-row [B] (RoPE, cache slot
+    and mask are per row).  Returns (logits [B, V] f32, cache), the cache
+    updated in place; under a tensor-parallel hook in a mesh the logits
+    are every rank's ``[*rank, B, V]``, or rank 0's with ``rank0``."""
     period, _, rem = _ported_stack(cfg)
-    x = L.embed_lookup(params["embed"], token[:, None])
+    x = ranked(L.embed_lookup(params["embed"], token[:, None]))
     _follow_activations_(cache, x.dtype)
     if "window" in period + rem:           # one copy to the device
         index = torch.as_tensor(index, device=x.device)
     for p, c, kind in _layers(params, cache, cfg):
         x, _ = block_decode(p, x, c, index, cfg, kind,
                             use_kernels=use_kernels)
-    x = _norm(params["final_norm"], x, cfg)
-    return logits(params, cfg, x)[:, 0, :], cache
+    return _head(params, cfg, x, rank0), cache
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: PyTree, *, use_kernels: bool = True
+            cache: PyTree, *, use_kernels: bool = True, rank0: bool = False
             ) -> tuple[torch.Tensor, PyTree]:
-    """Fill the caches with a whole prompt [B, T]; returns (last_logits,
-    cache), the cache updated in place.
+    """Fill the caches with a whole prompt [B, T] from position 0;
+    returns (last_logits, cache), the cache updated in place.
 
-    Each layer takes the whole prompt at once (:func:`block_prefill`):
-    recurrent layers continue their cached state with one kernel launch
-    over T, window layers attend from position 0 (the reference's prefill
-    starts every sequence there); it computes what T decode steps from
-    position 0 compute.
+    A pure-GQA stack takes :func:`_prefill_gqa_fast` (the reference's
+    batched pass); a stack with MoE layers T decode steps (the
+    reference's loop).  In the recurrent and window stacks each layer
+    takes the whole prompt at once (:func:`block_prefill`): recurrent
+    layers continue their cached state with one kernel launch over T,
+    window layers attend from position 0 (the reference's prefill starts
+    every sequence there); it computes what T decode steps from position
+    0 compute.
     """
-    _ported_stack(cfg)
+    period, _, rem = _ported_stack(cfg)
+    kinds = set(period) | set(rem)
+    if kinds <= {"self", "dense_self"}:
+        return _prefill_gqa_fast(params, cfg, tokens, cache, rank0=rank0)
+    if kinds & set(ATTENTION_KINDS):
+        b, t = tokens.shape
+        lg = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                         device=tokens.device)
+        for i in range(t):
+            lg, cache = decode_step(params, cfg, tokens[:, i], cache, i,
+                                    use_kernels=use_kernels, rank0=rank0)
+        return lg, cache
     x = L.embed_lookup(params["embed"], tokens)
     _follow_activations_(cache, x.dtype)
     for p, c, kind in _layers(params, cache, cfg):
         x, _ = block_prefill(p, x, c, cfg, kind, use_kernels=use_kernels)
-    x = _norm(params["final_norm"], x[:, -1:], cfg)
-    return logits(params, cfg, x)[:, 0, :], cache
+    return _head(params, cfg, x, rank0), cache
+
+
+def _prefill_gqa_fast(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: PyTree, *, rank0: bool = False
+                      ) -> tuple[torch.Tensor, PyTree]:
+    """Batched prefill for homogeneous GQA stacks: the forward pass
+    (:func:`repro_torch.models.transformer.apply_block` per layer) that
+    also projects every layer's K/V once more for the cache, written to
+    positions ``[0, T)`` in place; returns the last token's logits."""
+    t = tokens.shape[1]
+    x = ranked(L.embed_lookup(params["embed"], tokens))
+    pos = torch.arange(t, device=x.device)[None]
+    for p, c, kind in _layers(params, cache, cfg):
+        xin = _norm(p["ln1"], x, cfg)
+        _, k, v = A._project_qkv(p["attn"], xin, xin, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm,
+                                 cfg.rope_theta, pos, pos)
+        x, _ = apply_block(p, x, cfg, kind)
+        c["k"][..., :t, :, :] = k.to(c["k"].dtype)
+        c["v"][..., :t, :, :] = v.to(c["v"].dtype)
+    return _head(params, cfg, x, rank0), cache

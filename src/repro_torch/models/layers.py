@@ -10,6 +10,11 @@ in one draw, as the reference's ``vmap`` over layer keys gives them.  On
 the ``meta`` device nothing is drawn: the leaves carry shape and dtype
 only.  ``shard_act`` is dropped: without activation sharding it is the
 identity (ROADMAP.md queue 1 item 9).
+
+Under tensor parallelism a weight may be a rank-stacked slice
+``[*rank, d_in, d_out]`` (:mod:`repro_torch.serve.collectives`); then the
+activations carry the same rank dims in front (or size-1 ones), and
+:func:`dense` multiplies each rank's rows by its own slice.
 """
 
 from __future__ import annotations
@@ -131,6 +136,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# dense products
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with jnp's dtype promotion (a bf16 operand meets an f32
+    one in f32).  A weight with leading rank dims ``[*rank, d_in,
+    d_out]`` meets an ``x`` of ``[*rank (or 1s), ..., d_in]``: every
+    rank's rows, flattened into one matrix, go through that rank's slice
+    in one batched product (the weight is never broadcast over x's
+    batch dims, which would copy it)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    r = w.dim() - 2
+    if not r:
+        return x @ w
+    rows = x.shape[r:-1]
+    y = x.reshape(x.shape[:r] + (-1, x.shape[-1])) @ w
+    return y.reshape(y.shape[:r] + rows + (w.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
 # FFN variants
 # ---------------------------------------------------------------------------
 
@@ -149,16 +176,17 @@ def ffn(p: PyTree, x: torch.Tensor, activation: str) -> torch.Tensor:
     """The reference's FFN; ``gelu`` is the tanh approximation, as
     ``jax.nn.gelu(approximate=True)``."""
     if activation == "swiglu":
-        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = F.silu(dense(x, p["wi_gate"])) * dense(x, p["wi_up"])
     elif activation == "geglu":
-        h = F.gelu(x @ p["wi_gate"], approximate="tanh") * (x @ p["wi_up"])
+        h = F.gelu(dense(x, p["wi_gate"]), approximate="tanh") \
+            * dense(x, p["wi_up"])
     elif activation == "relu2":
-        h = torch.relu(x @ p["wi"]).square()
+        h = torch.relu(dense(x, p["wi"])).square()
     elif activation == "gelu":
-        h = F.gelu(x @ p["wi"], approximate="tanh")
+        h = F.gelu(dense(x, p["wi"]), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return h @ p["wo"]
+    return dense(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------

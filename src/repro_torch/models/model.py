@@ -7,15 +7,18 @@
     lg, cache = model.decode_step(params, token, cache, index)
 
 The counterpart of :class:`repro.models.model.Model` for the families the
-port runs: the serving paths of ``ssm`` (RWKV-6) and ``hybrid`` (RG-LRU +
-window attention, recurrentgemma).  Params and caches live on the card
+port runs: the serving paths of ``dense`` and ``moe`` (GQA attention),
+``ssm`` (RWKV-6) and ``hybrid`` (RG-LRU + window attention,
+recurrentgemma); MLA attention (deepseek-v2), ``encdec`` and ``vlm`` wait
+for ROADMAP.md queue 1 item 6.  Params and caches live on the card
 unless the caller passes ``device=`` (the tests pass ``"cpu"``; ``"meta"``
 gives shapes and dtypes without memory).  ``use_kernels=False`` runs every
 kernel's plain PyTorch version instead, on any device — the engine's
 convention, which ``chip_smoke.py`` uses to time both on the card.
 ``prefill`` and ``decode_step`` update the cache in place and return it;
 clone it first to keep the old one.  ``forward`` (training) waits for
-ROADMAP.md queue 1 item 7.
+ROADMAP.md queue 1 item 7; the inference forward of the attention stacks
+is :func:`repro_torch.models.transformer.forward`.
 """
 
 from __future__ import annotations

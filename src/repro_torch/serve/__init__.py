@@ -1,8 +1,10 @@
-"""repro_torch.serve — the continuous-batching serving engine.
+"""repro_torch.serve — the continuous-batching serving engine and the
+compiled tensor-parallel data path.
 
 ``engine`` is the host-side control loop (slots, admission, SLO policy)
-over ``Model.decode_step``.  The compiled tensor-parallel data path
-(``repro.serve.collectives``) waits for ROADMAP.md queue 1 item 8.
+over ``Model.decode_step``; ``collectives`` (``ServeCollectives``) splits
+a dense or MoE model over a ``tp`` mesh and runs its all-reduces and
+all-to-alls as compiled switch programs (``ServeEngine(collectives=)``).
 """
 
 from repro_torch.serve.engine import Completion, Request, ServeEngine, \

@@ -6,19 +6,24 @@ from the request queue; new prompts prefill *inside the running batch*:
 the new slot steps through its prompt tokens while other slots keep
 generating, one ``Model.decode_step`` per tick for everything.
 
-Transport: plain only — ``model.decode_step`` eagerly on the params'
+Transport: plain — ``model.decode_step`` eagerly on the params'
 device, the cache updated in place (the reference donates it to its
-jitted step).  The compiled tensor-parallel transport (``collectives=``,
-``ServeCollectives``) waits for ROADMAP.md queue 1 item 8.
+jitted step) — or, with ``collectives=`` a
+:class:`repro_torch.serve.collectives.ServeCollectives`, tensor-parallel:
+the engine splits the params and its cache once over the ``tp`` mesh and
+calls ``collectives.decode_fn`` every tick (every layer's all-reduces,
+and a MoE stack's all-to-alls, are compiled switch programs).
 
 Admission is SLO-aware when an :class:`SLOPolicy` is installed, as in
 the reference: requests carry deadlines, the cost of admitting is
-estimated from measured tick times, and requests that cannot make their
+estimated from measured tick times (before any tick, from the compiled
+decode programs' cost-model time), and requests that cannot make their
 deadline are rejected at admission.
 
 One repair against the reference: an admitted slot's cache rows are
 reset along the slot dim of each leaf — dim 1 of the stacked
-``cache["layers"]`` leaves, dim 0 of ``cache["rem"]``.  The reference
+``cache["layers"]`` leaves, dim 0 of ``cache["rem"]`` (one further in
+for the rank dim of a tensor-parallel cache).  The reference
 resets a leaf only where its dim 0 equals the slot count, so a request
 admitted into a reused slot inherits the previous request's RWKV state
 and token shifts (or, when the layer count equals the slot count, a
@@ -74,11 +79,15 @@ class SLOPolicy:
         (``serve.admit_deferred``): too many slots are already
         prefilling
 
-    The per-tick cost estimate is the engine's measured tick time (p50
-    over a sliding window); before any tick has run there is none, and
-    only expired deadlines reject.  Deadline checks run before the
-    prefill-cap defer.  ``membership`` (any object with ``n_ranks`` and
-    ``n_alive``) inflates the estimate by ``n_ranks / n_alive``.
+    The per-tick cost estimate is the engine's
+    :meth:`ServeEngine.tick_time_estimate`; with none (plain transport,
+    nothing measured yet) only expired deadlines reject.  Deadline checks
+    run before the prefill-cap defer.  In-batch prefill pays one tick per
+    prompt token; on the compiled transport the time to the first token
+    is at least the batched prefill's cost-model switch time
+    (``prefill_comm_time``), as in the reference.  ``membership`` (any
+    object with ``n_ranks`` and ``n_alive``) inflates the estimate by
+    ``n_ranks / n_alive``.
     """
 
     # admit at most this many concurrently-prefilling slots (None = no cap)
@@ -109,6 +118,10 @@ class SLOPolicy:
                 tick = tick * self._degrade_factor()
                 # in-batch prefill pays one tick per prompt token
                 ttft = len(req.prompt) * tick
+                sc = getattr(engine, "collectives", None)
+                if sc is not None:
+                    ttft = max(ttft, sc.prefill_comm_time(
+                        engine.slots, max(len(req.prompt), 1)))
                 est = waited + ttft + req.max_new_tokens * tick
                 if est * self.slack > req.deadline_s:
                     return "reject"
@@ -122,13 +135,8 @@ class ServeEngine:
     def __init__(self, model: Model, params: PyTree, *, slots: int = 4,
                  max_seq: int = 256, recorder: Optional[_obs.Recorder] = None,
                  collectives=None, admission: Optional[SLOPolicy] = None):
-        if collectives is not None:
-            raise NotImplementedError(
-                "ServeEngine(collectives=...) — the compiled tensor-parallel "
-                "decode transport — is not ported yet: ROADMAP.md queue 1 "
-                "item 8")
         self.model = model
-        self.params = params
+        self.collectives = collectives
         # per-engine recorder; defaults to the process-wide one at call
         # time (so ``obs.recording()`` around a serving loop just works)
         self.recorder = recorder
@@ -138,7 +146,19 @@ class ServeEngine:
         # the cache lives with the params, in bf16 whatever their dtype
         # (the reference's ``model.init_cache(slots, max_seq)``)
         self.device = params["embed"].device
-        self.cache = model.init_cache(slots, max_seq, device=self.device)
+        cache = model.init_cache(slots, max_seq, device=self.device)
+        if collectives is None:
+            self.params, self.cache = params, cache
+            self._rank_ndim = 0
+            self._decode = model.decode_step
+        else:
+            # split once; the cache leaves carry the rank dim after the
+            # layer dim (ServeCollectives.shard_cache)
+            self.params = collectives.shard_params(params)
+            self.cache = collectives.shard_cache(cache)
+            del cache
+            self._rank_ndim = 1
+            self._decode = collectives.decode_fn(self.params, self.cache)
 
         # host-side slot state
         self.rid = np.full(slots, -1, np.int64)
@@ -169,9 +189,13 @@ class ServeEngine:
 
     def tick_time_estimate(self) -> Optional[float]:
         """Seconds per engine tick: the measured p50 once ticks have run,
-        else None."""
+        else the compiled decode programs' cost-model switch time
+        (``decode_comm_time``), else None (plain transport, nothing
+        measured yet)."""
         if self._tick_times:
             return float(np.median(self._tick_times))
+        if self.collectives is not None:
+            return self.collectives.decode_comm_time(self.slots)
         return None
 
     # -- slot management -------------------------------------------------------
@@ -179,13 +203,15 @@ class ServeEngine:
     def _reset_slot_caches(self, slot_ids: list[int]):
         """Reset the cache rows of every slot admitted this tick, along
         each leaf's slot dim: dim 1 of the stacked layer caches
-        ``[n_periods, slots, ...]``, dim 0 of the remainder caches.
-        Window ``pos`` buffers (int32, ``[slots, W]`` per layer) take -1
-        = invalid, everything else 0 (RWKV state and shifts, RG-LRU
-        state and conv windows, ring keys and values)."""
+        ``[n_periods, slots, ...]``, dim 0 of the remainder caches, one
+        further in on a tensor-parallel cache (its rank dim).  Window
+        ``pos`` buffers (int32, ``[slots, W]`` per layer) take -1 =
+        invalid, everything else 0 (RWKV state and shifts, RG-LRU state
+        and conv windows, ring and full KV caches)."""
         idx = torch.as_tensor(slot_ids, dtype=torch.int64,
                               device=self.device)
-        for part, dim in (("layers", 1), ("rem", 0)):
+        r = self._rank_ndim
+        for part, dim in (("layers", 1 + r), ("rem", r)):
             for leaf in tree.tree_leaves(self.cache[part]):
                 fill = -1 if leaf.dtype == torch.int32 \
                     and leaf.dim() == dim + 2 else 0
@@ -265,7 +291,7 @@ class ServeEngine:
                     else self.prompt[s][-1]
 
         t0 = time.perf_counter()
-        lg, self.cache = self.model.decode_step(
+        lg, self.cache = self._decode(
             self.params, torch.from_numpy(tok).to(self.device), self.cache,
             torch.from_numpy(self.pos.copy()).to(self.device))
         # the tick's ONE host sync: greedy sampling needs the argmax on

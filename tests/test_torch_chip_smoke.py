@@ -58,8 +58,13 @@ def test_fused_path_rehearsed_on_the_cpu(smoke):
         assert by[name]["checks"]["step2"]["kernels_err_over_bound"] <= 1
     for r in recs:
         assert r["launches"]["prefix_sum"] == 0
-        assert sum(r.get("launches_per_call", {"": 0}).values()) == \
-            r.get("launches_per_call", {}).get("prefix_sum", 0)
+        per = r.get("launches_per_call", {})
+        # the fused allreduce+alltoall stage's reduce: n-1 elementwise
+        # fused_combine hops a call; every other program launches only
+        # its prefix_sum
+        hops = 7 if r["program"] == "nas_is_c" else 0
+        assert per.get("fused_combine", 0) == hops
+        assert sum(per.values()) == per.get("prefix_sum", 0) + hops
     assert len(by["powersgd_r4"]["ms"]) == 3
 
 
@@ -521,3 +526,118 @@ def test_fp8_hop_checks_rehearsed_on_the_cpu(smoke):
     r = smoke.fp8_hop_checks(torch.device("cpu"),
                              torch.Generator().manual_seed(0))
     assert r == {"cases": 32, "bitwise": True}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel serve phases (serve_tp_dense, serve_tp_moe)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["qwen3-8b", "qwen2-moe-a2.7b"])
+def test_tp_serve_path_rehearsed_on_the_cpu(smoke, name):
+    """Both phases at smoke size on LocalMesh({"tp": 2}): every mode runs,
+    compiled equals compiled-without-kernels (and, dense, direct) bit for
+    bit, every row's logits sit within BF16_REL of the unsharded ones (a
+    MoE stack's direct, xla and unsharded runs replaying the compiled
+    run's expert choices, and its f32 check within F32_REL), every rank's
+    logits within BF16_REL of rank 0's, the engine completes every
+    request, and the CPU launches nothing."""
+    from repro_torch import configs
+
+    pre, eng = smoke.tp_serve_path(configs.get_smoke(name), 0,
+                                   smoke.SERVE_TP_SMOKE, device="cpu",
+                                   expect_kernels=False, phase="serve_tp")
+    assert pre["program"] == "prefill_decode" and eng["program"] == "engine"
+    assert set(pre["decode_ms_per_tick"]) == set(smoke.TP_MODES)
+    assert all(v <= 1 for v in pre["vs_unsharded"].values())
+    assert pre["compiled_bitwise_to_plain"]
+    moe = name.startswith("qwen2")
+    progs = pre["decode_programs"]
+    if moe:
+        assert progs["serve_moe_combine"]["stages"] == ["allreduce+alltoall"]
+        assert progs["serve_moe_alltoall"]["stages"] == ["alltoall"]
+        sizes = smoke.SERVE_TP_SMOKE
+        calls = (sizes.prompt + sizes.steps) * 2            # 2 MoE layers
+        for mode in ("direct", "xla", "unsharded"):
+            apart, rows = pre["routing_rows_apart"][mode]
+            assert 0 <= apart <= rows == calls * sizes.batch
+        f32 = pre["f32_check"]
+        assert f32["layers"] == 2 and f32["rows"] == 8
+        assert 4 * f32["rows_compared"] >= 3 * f32["rows"]
+        assert max(f32["prefill_err_over_bound"],
+                   f32["decode_err_over_bound"]) <= 1
+    else:
+        assert pre["compiled_bitwise_to_direct"]
+        assert list(progs) == ["serve_tp_allreduce"]
+        assert progs["serve_tp_allreduce"]["calls"] == 4    # 2 layers x 2
+    spread = pre["rank_spread"]
+    assert spread["ranks"] == 2 and spread["ticks"] == 3
+    assert max(spread["rank_vs_rank0_err_over_bound"],
+               spread["rank0_vs_decode_fn_err_over_bound"]) <= 1
+    assert pre["decode_comm_time_s"] > 0 and "cost model" in pre["cost_model"]
+    assert eng["generated_tokens"] == sum(
+        n for _, n in smoke.SERVE_TP_SMOKE.requests)
+    assert eng["program_cache"]["hits"] > 0
+    for rec in (pre, eng):
+        assert sum(rec["launches"].values()) == 0     # nothing on a CPU
+
+
+def test_tp_phase_fails_when_a_hook_drops_the_reduction(smoke, monkeypatch):
+    """A direct hook that skips its all-reduce cannot pass the dense
+    phase: compiled and direct must agree bit for bit."""
+    from repro_torch import configs
+    from repro_torch.serve import collectives as SC
+
+    monkeypatch.setattr(SC.DirectTPHook, "_all_reduce", lambda self, x: x)
+    with pytest.raises(AssertionError, match="compiled and direct"):
+        smoke.tp_serve_path(configs.get_smoke("qwen3-8b"), 0,
+                            smoke.SERVE_TP_SMOKE, device="cpu",
+                            expect_kernels=False)
+
+
+def test_rank_check_fails_when_ranks_route_apart(smoke, monkeypatch):
+    """``rank_spread`` holds every rank's logits to rank 0's.  With rank
+    1's router reading another copy of the tokens than rank 0's, rank 1
+    gathers other tokens' expert outputs, and the check fails."""
+    from repro_torch import configs, tree
+    from repro_torch.models import Model
+    from repro_torch.serve import collectives as SC
+
+    cfg = configs.get_smoke("qwen2-moe-a2.7b")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    sc = SC.ServeCollectives(cfg, 2, device="cpu",
+                             cache=SC.SwitchProgramCache())
+    split = sc.shard_params(params)
+    toks = torch.randint(0, cfg.vocab, (2, 4),
+                         generator=torch.Generator().manual_seed(1))
+    cache = sc.shard_cache(model.init_cache(2, 8, device="cpu"))
+    lg, cache = sc.prefill_fn()(split, toks, cache)
+    feed = [lg.argmax(-1)]
+    want = [sc.decode_fn()(split, feed[0],
+                           tree.tree_map(torch.clone, cache), 4)[0]]
+    ok = smoke.rank_spread(sc, split, tree.tree_map(torch.clone, cache),
+                           feed, 4, want)
+    assert ok["rank_vs_rank0_err_over_bound"] <= 1
+    monkeypatch.setattr(SC._TPBase, "moe_route_input",
+                        lambda self, xt: torch.cat([xt[:1], -xt[1:]]))
+    with pytest.raises(AssertionError, match="ranks' logits differ"):
+        smoke.rank_spread(sc, split, cache, feed, 4, want)
+
+
+def test_tp_launches_at_the_phases_full_sizes(smoke):
+    """Read off the full-size programs (compiled on meta): a qwen3-8b
+    tick at tp=8 and batch 8 is 72 bandwidth all-reduces, 7 fused_hop
+    each; a qwen2-moe tick at tp=4 and batch 4 is 24 bandwidth
+    all-reduces, 24 all-to-alls and 24 fused combines (3 fused_hop and 3
+    elementwise fused_combine per layer)."""
+    from repro_torch import configs
+    from repro_torch.serve.collectives import ServeCollectives
+
+    sc = ServeCollectives(configs.get("qwen3-8b"), 8, device="meta")
+    assert smoke.tp_launches(sc.decode_programs(8), 8) == \
+        {"fused_combine": 0, "fused_hop": 504}
+    assert smoke.tp_launches(sc.prefill_programs(8, 512), 8) == \
+        {"fused_combine": 0, "fused_hop": 504}
+    sc = ServeCollectives(configs.get("qwen2-moe-a2.7b"), 4, device="meta")
+    assert smoke.tp_launches(sc.decode_programs(4), 4) == \
+        {"fused_combine": 72, "fused_hop": 72}

@@ -30,7 +30,10 @@ def _import_all_in_a_fresh_process(report: str) -> str:
               "kernels.quant_combine", "kernels.rwkv6_recurrence",
               "kernels.topk_accum", "models.attention", "models.config",
               "models.decode", "models.layers", "models.model",
-              "models.rglru", "models.rwkv6",
+              "models.rglru", "models.rwkv6", "models.moe",
+              "models.parallel", "configs.qwen3_8b", "configs.granite_8b",
+              "configs.granite_3_8b", "configs.nemotron_4_15b",
+              "configs.qwen2_moe_a2_7b", "serve.collectives",
               "models.transformer", "serve.engine", "obs.timeline",
               "obs.drift", "obs.report", "obs.__main__", "tune.trace",
               "tune.fit", "tune.replay", "tune.search",
@@ -90,3 +93,43 @@ def test_local_mesh_rank_dims_and_transport():
                                                           x[:, 3])
     with pytest.raises(KeyError):
         mesh.axis_size("model")
+
+
+def test_import_sets_up_mkl_vml_on_one_thread():
+    """ROADMAP.md F4: importing the port runs every op torch computes
+    through MKL's VML once, on one element, on the importing thread — so
+    no VML function's first call comes from several OpenMP threads at
+    once (the race behind F4)."""
+    code = (
+        "import torch\n"
+        "from torch.profiler import ProfilerActivity, profile\n"
+        "with profile(activities=[ProfilerActivity.CPU],\n"
+        "             record_shapes=True) as prof:\n"
+        "    import repro_torch\n"
+        "seen = {(e.name, str(e.input_shapes)) for e in prof.events()}\n"
+        "print(sorted(n for n, s in seen if s == '[[1]]'))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    got = out.stdout.strip()
+    for op in ("acos", "asin", "atan", "cos", "erf", "erfc", "erfinv", "exp",
+               "log", "log10", "log2", "sin", "sqrt", "tan", "tanh", "trunc"):
+        assert f"'aten::{op}'" in got, op
+
+
+def test_set_up_covers_every_vml_op_of_this_torch():
+    """The ops ``_set_up_vml`` runs are every op the installed torch binds
+    to MKL's VML: the uncommented ``IMPLEMENT_VML_MKL(op, ...)`` lines of
+    the ``ATen/cpu/vml.h`` it ships (each for float and double, the two
+    dtypes set up).  A torch that binds another op fails here."""
+    import re
+
+    header = Path(torch.__file__).parent / "include" / "ATen" / "cpu" / \
+        "vml.h"
+    if not header.exists():
+        pytest.skip("this torch ships no ATen headers")
+    bound = set(re.findall(r"^IMPLEMENT_VML_MKL\((\w+),",
+                           header.read_text(), re.M))
+    assert "tanh" in bound
+    assert {op.__name__ for op in repro_torch._VML_OPS} == bound

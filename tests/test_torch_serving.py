@@ -189,8 +189,11 @@ def test_engine_with_slo_admission_rejects_what_cannot_finish(served, rng):
 
 def test_engine_rejects_what_the_port_does_not_run(served):
     _, _, model, tp = served
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        P.ServeEngine(model, tp, slots=2, collectives=object())
+    # tensor-parallel serving takes the dense and moe families only
+    from repro_torch.serve.collectives import ServeCollectives
+    with pytest.raises(NotImplementedError, match="dense/moe"):
+        P.ServeEngine(model, tp, slots=2, collectives=ServeCollectives(
+            model.cfg, 2, device="cpu"))
     eng = P.ServeEngine(model, tp, slots=2, max_seq=16)
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(P.Request(rid=0, prompt=np.zeros(10, np.int32),
@@ -326,3 +329,70 @@ def test_hybrid_slot_reset_clears_every_cache_kind():
                 for other in (0, 2):
                     assert bool((leaf.select(dim, other) == 5).all())
 
+
+
+# ---------------------------------------------------------------------------
+# the dense family (acis-100m), plain and tensor-parallel transports
+# ---------------------------------------------------------------------------
+
+DENSE = "acis-100m"
+
+
+@pytest.fixture(scope="module")
+def served_dense():
+    """f32-cast params: greedy tokens then compare the engines, not the
+    two frameworks' bf16 roundings at a random model's near-ties."""
+    jm = JModel(jconfigs.get_smoke(DENSE))
+    jp = jax.tree.map(lambda p: p.astype(jax.numpy.float32)
+                      if p.dtype == jax.numpy.bfloat16 else p,
+                      jm.init(jax.random.key(0)))
+    return jm, jp, Model(configs.get_smoke(DENSE)), \
+        interop.params_from_reference(jp)
+
+
+def _dense_requests(rng, shapes):
+    return [(i, rng.integers(0, 256, n).astype(np.int32), g)
+            for i, (n, g) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("slots,shapes", [
+    (3, [(5, 6), (3, 8), (7, 4)]),
+    (2, [(4, 5), (6, 3), (3, 6)]),          # the third reuses a slot
+])
+def test_dense_completions_equal_the_reference(served_dense, rng, slots,
+                                               shapes):
+    """The KV cache past a row's position is masked, so a reused slot's
+    stale keys change nothing in either engine."""
+    jm, jp, model, tp = served_dense
+    reqs = _dense_requests(rng, shapes)
+    jrec, trec = jobs.Recorder(), tobs.Recorder()
+    want, jeng = _run(J, jm, jp, reqs, slots, jrec)
+    got, teng = _run(P, model, tp, reqs, slots, trec)
+    assert got == want
+    assert teng.ticks == jeng.ticks
+    for name in ("serve.ticks", "serve.admitted", "serve.retired",
+                 "serve.host_sync"):
+        assert trec.counter(name) == jrec.counter(name), name
+
+
+def test_dense_tp_engine_equals_the_reference_tp_engine(served_dense, rng):
+    """``ServeEngine(collectives=ServeCollectives(cfg, 2))`` in both
+    packages: the same completions and ticks."""
+    from repro.serve.collectives import ServeCollectives as JSC
+    from repro.serve.collectives import SwitchProgramCache as JCache
+    from repro_torch.serve.collectives import (ServeCollectives,
+                                               SwitchProgramCache)
+    jm, jp, model, tp = served_dense
+    reqs = _dense_requests(rng, [(5, 4), (3, 6), (6, 3)])
+
+    def run(mod, m, p, sc):
+        eng = mod.ServeEngine(m, p, slots=2, max_seq=48, collectives=sc)
+        for rid, prompt, n_new in reqs:
+            eng.submit(mod.Request(rid=rid, prompt=prompt,
+                                   max_new_tokens=n_new))
+        return [c.tokens for c in eng.run_to_completion()], eng.ticks
+
+    want = run(J, jm, jp, JSC(jm.cfg, 2, cache=JCache()))
+    got = run(P, model, tp, ServeCollectives(model.cfg, 2, device="cpu",
+                                             cache=SwitchProgramCache()))
+    assert got == want
