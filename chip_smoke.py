@@ -110,7 +110,28 @@ Phases, one JSON line each:
                   reusing program and arenas; one ``sync_with_deadline``
                   over ``SwitchSim`` rank times with a straggler, masked on
                   one retry (``elastic_path``)
-  11. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
+  11. train     — acis-100m trained at full width (``train_path``): on
+                  ``LocalMesh({"data": 8})`` 3 steps each of ``acis`` and
+                  ``acis_compressed`` with int8, int8_hopquant and topk,
+                  and of ``acis_hierarchical`` on ``{"pod": 2, "data":
+                  4}``, from one seeded state: each step's per-rank
+                  gradients (one forward and one backward over
+                  rank-expanded params, ``train_e2e``'s 8 x 256 batch)
+                  synced and applied with kernels and with
+                  ``use_kernels=False``, bitwise equal (synced gradients,
+                  residuals, params, optimizer state), every rank's
+                  synced gradients equal (``rank_agreement``), launches as
+                  the plan says x steps; then ``train_e2e``'s run
+                  (``acis_compressed`` int8, AdamW with
+                  ``warmup_cosine(3e-4, 20, 200)``, ``BigramStream(seed=
+                  7)``): 200 steps, checkpointed at step 100, a fresh loop
+                  restored from it run to 200 and bitwise equal to the
+                  straight run (params, optimizer state, EF residual;
+                  deterministic algorithms on), the nll falling by more
+                  than 0.5; step ms, tokens/s, peak memory and one
+                  profiled step split into forward + backward, sync and
+                  optimizer
+  12. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
                   2048, 32 heads of 64, d_ff 7168, vocab 65,536) on seeded
                   random bf16 weights made on the card: ``Model.prefill``
                   of 8 prompts of 512 tokens and 32 greedy
@@ -124,7 +145,7 @@ Phases, one JSON line each:
                   ``F32_REL`` (``serve_path``); ``rwkv6_recurrence``
                   launched once per layer per prefill call, decode step
                   and engine tick
-  12. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
+  13. serve_hybrid — recurrentgemma-9b at full width and depth (38 layers:
                   12 x (lru, lru, window) + (lru, lru); d_model 4096, 16
                   query heads and 1 KV head of 256, lru_width 4096, conv
                   width 4, window 2048, d_ff 12288 GeGLU, vocab 256,000)
@@ -132,7 +153,7 @@ Phases, one JSON line each:
                   (past the window) and 16 decode steps, kernels against
                   plain; ``rglru_scan`` launched once per lru layer (26)
                   per prefill call, decode step and engine tick
-  13. serve_tp_dense — qwen3-8b at full width and depth (36 layers,
+  14. serve_tp_dense — qwen3-8b at full width and depth (36 layers,
                   d_model 4096, 32 query and 8 KV heads of 128, qk-norm,
                   SwiGLU d_ff 12288, vocab 151,936) served tensor-parallel
                   on ``LocalMesh({"tp": 8})`` through ``ServeCollectives``:
@@ -146,10 +167,10 @@ Phases, one JSON line each:
                   ``fused_combine`` launched as the programs predict; a
                   profile of one tick; ``ServeEngine(slots=8,
                   collectives=)`` over 16 requests (``tp_serve_path``)
-  14. serve_tp_moe — qwen2-moe-a2.7b at full width and depth (24 layers,
+  15. serve_tp_moe — qwen2-moe-a2.7b at full width and depth (24 layers,
                   d_model 2048, 16 heads of 128, 60 routed experts top-4
                   of d_ff 1408, shared experts of 5632, vocab 151,936) on
-                  ``LocalMesh({"tp": 4})``: the same with a 4 x 256
+                  ``LocalMesh({"tp": 4})``: the same with a 4 x 64
                   prefill (decode ticks, as the reference prefills a MoE
                   stack); the tick's all-to-all and its Type-4
                   ``allreduce+alltoall`` combine (shared-expert reduce
@@ -172,6 +193,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -2799,10 +2821,11 @@ TP_REQUESTS = tuple((p, 32) for p in (512, 64, 96, 128, 64, 96, 128, 160,
 SERVE_TP_DENSE = TPSizes(tp=8, batch=8, prompt=512, steps=32, slots=8,
                          requests=TP_REQUESTS)
 # qwen2-moe-a2.7b on 4 ranks (tp=8 does not divide its 60 experts): a
-# 4 x 256 prefill, which a MoE stack runs as 256 decode ticks (the
-# reference's prefill), so one turn of the five modes; the f32 semantics
-# check on a 4-layer f32 model of the same widths
-SERVE_TP_MOE = TPSizes(tp=4, batch=4, prompt=256, steps=32, slots=8,
+# 4 x 64 prefill, which a MoE stack runs as 64 decode ticks (the
+# reference's prefill; 256 until the train phase needed the time), so
+# one turn of the five modes; the f32 semantics check on a 4-layer f32
+# model of the same widths
+SERVE_TP_MOE = TPSizes(tp=4, batch=4, prompt=64, steps=32, slots=8,
                        requests=TP_REQUESTS, rounds=1, f32_layers=4)
 # the same phases at sizes a CPU runs in seconds (a rehearsal only)
 SERVE_TP_SMOKE = TPSizes(tp=2, batch=2, prompt=6, steps=3, slots=2,
@@ -3925,6 +3948,371 @@ def elastic_path(cfg, seed: int, *, device="cuda", steps: int = 3,
     return recs
 
 
+# ---------------------------------------------------------------------------
+# the train phase: acis-100m trained through the switch gradient sync
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainSizes:
+    """The train phase's sizes: ``train_e2e``'s traffic (global batch x
+    seq, ``BigramStream(seed=7)``, AdamW with ``warmup_cosine(lr, warmup,
+    e2e_steps)``), ``steps`` per backend of the kernels-vs-plain check,
+    the end-to-end run's length, its checkpoint step and its descent
+    bar."""
+    batch: int
+    seq: int
+    steps: int
+    e2e_steps: int
+    ckpt_at: int
+    log_every: int
+    lr: float
+    warmup: int
+    bar: float
+
+
+TRAIN = TrainSizes(batch=8, seq=256, steps=3, e2e_steps=200, ckpt_at=100,
+                   log_every=10, lr=3e-4, warmup=20, bar=0.5)
+TRAIN_SMOKE = TrainSizes(batch=8, seq=16, steps=2, e2e_steps=12, ckpt_at=6,
+                         log_every=2, lr=1e-2, warmup=2, bar=0.1)
+TRAIN_BACKENDS = (("acis", None, {"data": 8}),
+                  ("acis_compressed", "int8", {"data": 8}),
+                  ("acis_compressed", "int8_hopquant", {"data": 8}),
+                  ("acis_compressed", "topk", {"data": 8}),
+                  ("acis_hierarchical", None, {"pod": 2, "data": 4}))
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch import tree
+    la, lb = tree.tree_leaves(a), tree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _clone_tree(t):
+    from repro_torch import tree
+    return tree.tree_map(lambda x: x.clone(), t)
+
+
+def rank_agreement(synced, grads, residual, nd: int, exact: bool,
+                   compressor) -> float:
+    """The largest difference of any rank's synced gradients from rank
+    0's.  ``exact`` (every all-reduce stage a bandwidth ring, whose
+    all-gather hands out one copy, and no ``topk``): 0, bit for bit.
+    Else within rounding, per lane: a latency-optimal ring folds in a
+    rank-relative order (ROADMAP.md R4), each of its n-1 adds rounding by
+    half an ulp of a partial sum bounded by ``m`` (the sum over the ranks
+    of ``|g|``, plus ``|r|`` under EF), so the mean moves by ``(n-1)/2 ·
+    eps · m / n``, plus one rounding of the output; the sparse ``topk``
+    ring adds in a rank-relative order (ROADMAP.md R5), as in the
+    compressed phase (``eps·|out| + 2^-23·m``)."""
+    from repro_torch import tree
+    worst = 0.0
+    res = tree.tree_leaves(residual) if residual is not None else None
+    for i, (o, g) in enumerate(zip(tree.tree_leaves(synced),
+                                   tree.tree_leaves(grads))):
+        of = o.flatten(0, nd - 1)
+        n = of.shape[0]
+        d = (of.float() - of[0:1].float()).abs()
+        if exact:
+            check(bool((of == of[0:1]).all()),
+                  f"ranks' synced gradients differ by {d.max().item()}")
+        else:
+            eps = 2.0 ** -8 if o.dtype == torch.bfloat16 else 2.0 ** -23
+            m = g.float().abs().flatten(0, nd - 1).sum(0)
+            if res is not None:
+                m = m + res[i].abs().flatten(0, nd - 1).sum(0)
+            omax = of.float().abs().max(0).values
+            bound = eps * omax + (2.0 ** -23 * m if compressor == "topk"
+                                  else (n - 1) / 2 * eps * m / n)
+            check(bool((d <= bound).all()),
+                  f"ranks' synced gradients differ by {d.max().item()}, "
+                  "beyond the fold's rounding")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
+                     compressor, axes: dict, dev, *,
+                     expect_kernels: bool = True) -> dict:
+    """``sizes.steps`` train steps of ``cfg`` on ``LocalMesh(axes)``:
+    each step's per-rank gradients computed once, then synced and applied
+    twice from one seeded state, kernels on and ``use_kernels=False`` in
+    turns; the synced gradients, residuals and updated params and
+    optimizer state bitwise equal; every rank holding the same synced
+    gradients; each kernel launched as the compiled plan says x steps."""
+    from repro_torch.core import make_engine
+    from repro_torch.data.pipeline import BigramStream, DataConfig
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    cuda = dev.type == "cuda"
+    sync_dev = _dev_sync(dev)
+    mesh = LocalMesh(axes, device=dev)
+    outer = "pod" if "pod" in axes else None
+    kw = {} if compressor is None else {"compressor": compressor}
+    eng_k = make_engine(backend, outer_axis=outer, **kw)
+    eng_p = make_engine(backend, outer_axis=outer, use_kernels=False, **kw)
+    model = Model(cfg)
+    opt = O.adamw(O.warmup_cosine(sizes.lr, sizes.warmup, sizes.e2e_steps))
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    st_k = S.init_state(model, opt, torch.Generator(device=dev)
+                        .manual_seed(seed), eng_k, mesh=mesh, arenas=True)
+    st_p = S.TrainState(_clone_tree(st_k.params), _clone_tree(st_k.opt),
+                        st_k.step.clone(), _clone_tree(st_k.ef_residual),
+                        eng_p.init_arenas(S.grads_like(st_k.params, mesh),
+                                          mesh=mesh))
+    compiled = eng_k.last_sync_program()
+    per_sync = expected_launches(compiled, mesh)
+    exact = compressor != "topk" and all(
+        st.schedule != "latency" for st in compiled.stages)
+    stream = BigramStream(DataConfig(vocab=cfg.vocab, seq_len=sizes.seq,
+                                     global_batch=sizes.batch, seed=7))
+    reset_counts()
+    t_g, t_k, t_p, spread = [], [], [], 0.0
+    for step in range(sizes.steps):
+        batch = stream.batch(step)
+        sync_dev()
+        t0 = time.perf_counter()
+        grads, metrics = S.local_grads(model, st_k, batch, mesh)
+        sync_dev()
+        t_g.append((time.perf_counter() - t0) * 1e3)
+
+        def run(eng, st):
+            sync_dev()
+            t0 = time.perf_counter()
+            out = S.sync_and_update(eng, opt, st, grads, metrics, mesh)
+            sync_dev()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        ((new_k, m_k, syn_k), dt_k), ((new_p, m_p, syn_p), dt_p) = \
+            in_turns(step, lambda: run(eng_k, st_k), lambda: run(eng_p, st_p))
+        t_k.append(dt_k)
+        t_p.append(dt_p)
+        what = f"train {backend}/{compressor} step {step}"
+        check(_tree_equal(syn_k, syn_p), f"{what}: synced gradients differ "
+              "from use_kernels=False")
+        check(_tree_equal(new_k.ef_residual, new_p.ef_residual),
+              f"{what}: residuals differ from use_kernels=False")
+        check(_tree_equal(new_k.params, new_p.params)
+              and _tree_equal(new_k.opt, new_p.opt),
+              f"{what}: updated params or optimizer state differ")
+        check(all(math.isfinite(float(v)) for v in m_k.values()),
+              f"{what}: non-finite metrics {m_k}")
+        spread = max(spread, rank_agreement(
+            syn_k, grads, st_k.ef_residual, mesh.rank_ndim, exact,
+            compressor))
+        st_k, st_p = new_k, new_p
+        del grads, syn_k, syn_p, new_k, new_p
+    launches = read_counts()
+    if expect_kernels:
+        check_launches(launches, per_sync, sizes.steps)
+        check(any(per_sync.values()),
+              f"the {backend} sync runs none of the kernels")
+    return {"phase": "train", "program": "sync_check", "backend": backend,
+            "compressor": compressor, "mesh": dict(axes),
+            "model": cfg.name, "steps": sizes.steps,
+            "global_batch": sizes.batch, "seq": sizes.seq,
+            "launches_per_sync": per_sync, "launches": launches,
+            "grads_ms": t_g, "sync_update_ms_kernels": t_k,
+            "sync_update_ms_plain": t_p,
+            "bitwise_equal_to_plain": True,
+            "ranks_bitwise": exact, "max_rank_spread": spread,
+            "last_metrics": {k: float(v) for k, v in m_k.items()},
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if cuda else None)}
+
+
+def _timed_step(step_fn, sync_dev, times: list):
+    def run(state, batch):
+        sync_dev()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        sync_dev()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    run.mesh = step_fn.mesh
+    return run
+
+
+def train_profile(model, opt, eng, state, batch, mesh) -> dict:
+    """One more step (its result dropped) under ``torch.profiler``: the
+    whole step's device time, busy share and top device ops, then its
+    forward + backward, sync and optimizer each in a window of its own."""
+    from repro_torch.train import step as S
+
+    grads, metrics = S.local_grads(model, state, batch, mesh)
+    synced, _, *_ = eng.gradient_sync(grads, state.ef_residual,
+                                      arenas=state.sync_arenas, mesh=mesh)
+    g0 = S.rank0(synced, mesh.rank_ndim)
+    parts = {
+        "step": device_profile(lambda: S.sync_and_update(
+            eng, opt, state, *S.local_grads(model, state, batch, mesh),
+            mesh), RING_OPS),
+        "forward_backward": device_profile(
+            lambda: S.local_grads(model, state, batch, mesh)),
+        "sync": device_profile(lambda: eng.gradient_sync(
+            grads, state.ef_residual, arenas=state.sync_arenas, mesh=mesh),
+            RING_OPS),
+        "optimizer": device_profile(lambda: opt.update(
+            g0, state.opt, state.params, state.step)),
+    }
+    for k in ("forward_backward", "sync", "optimizer"):
+        parts[k].pop("top", None)
+    return parts
+
+
+def train_e2e(cfg, seed: int, sizes: TrainSizes, dev, *,
+              expect_kernels: bool = True) -> dict:
+    """``examples/train_e2e.py``'s run on the port: ``acis_compressed``
+    (int8, its default) with kernels, ``sizes.e2e_steps`` steps on
+    ``LocalMesh({"data": 8})``, checkpointed at ``sizes.ckpt_at``; the
+    nll must fall by more than ``sizes.bar``.  A fresh loop restored from
+    the checkpoint runs to the end and must match the straight run's
+    params, optimizer state and EF residual bit for bit (deterministic
+    algorithms on for both runs)."""
+    import tempfile
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import make_engine
+    from repro_torch.data.pipeline import BigramStream, DataConfig
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+
+    cuda = dev.type == "cuda"
+    sync_dev = _dev_sync(dev)
+    mesh = LocalMesh({"data": 8}, device=dev)
+    stream = BigramStream(DataConfig(vocab=cfg.vocab, seq_len=sizes.seq,
+                                     global_batch=sizes.batch, seed=7))
+
+    def fresh():
+        model = Model(cfg)
+        opt = O.adamw(O.warmup_cosine(sizes.lr, sizes.warmup,
+                                      sizes.e2e_steps))
+        eng = make_engine("acis_compressed")
+        check(eng.config.use_kernels, "use_kernels is off by default")
+        st = S.init_state(model, opt, torch.Generator(device=dev)
+                          .manual_seed(seed), eng, mesh=mesh, arenas=True)
+        return model, opt, eng, st
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    times: list = []
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_ckpt_") \
+                as d, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model, opt, eng, st = fresh()
+            per_sync = expected_launches(eng.last_sync_program(), mesh)
+            step_fn = _timed_step(S.build_train_step_acis(model, opt, mesh,
+                                                          eng),
+                                  sync_dev, times)
+            reset_counts()
+            t0 = time.perf_counter()
+            first = TrainLoop(step_fn, stream, LoopConfig(
+                total_steps=sizes.ckpt_at, ckpt_every=sizes.ckpt_at,
+                ckpt_dir=d, keep_last=1, log_every=sizes.log_every))
+            st = first.run(st)
+            t_save = time.perf_counter()
+            rest = TrainLoop(step_fn, stream, LoopConfig(
+                total_steps=sizes.e2e_steps, log_every=sizes.log_every))
+            straight = rest.run(st)
+            sync_dev()
+            t_run = time.perf_counter() - t0
+            log = first.metrics_log + rest.metrics_log
+            del st
+            # a fresh process's view: new model, engine and state, restored
+            model2, opt2, eng2, st2 = fresh()
+            resumed_loop = TrainLoop(S.build_train_step_acis(
+                model2, opt2, mesh, eng2), stream, LoopConfig(
+                total_steps=sizes.e2e_steps, ckpt_dir=d,
+                ckpt_every=sizes.e2e_steps + 1, log_every=sizes.log_every))
+            t1 = time.perf_counter()
+            st2 = resumed_loop.maybe_restore(st2)
+            t_restore = time.perf_counter() - t1
+            check(int(st2.step) == sizes.ckpt_at,
+                  f"restored step {int(st2.step)}, not {sizes.ckpt_at}")
+            resumed = resumed_loop.run(st2)
+            launches = read_counts()
+            ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                             for r, _, fs in os.walk(d) for f in fs)
+            ckpt_steps = ckpt.latest_step(d)
+            nondet = sorted({str(w.message)[:120] for w in caught
+                             if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(was)
+    check(ckpt_steps == sizes.ckpt_at, f"latest checkpoint {ckpt_steps}")
+    for name, a, b in (("params", straight.params, resumed.params),
+                       ("optimizer state", straight.opt, resumed.opt),
+                       ("EF residual", straight.ef_residual,
+                        resumed.ef_residual)):
+        check(_tree_equal(a, b), f"train_e2e: the resumed run's {name} "
+              "differ from the straight run's")
+    check(int(straight.step) == int(resumed.step) == sizes.e2e_steps,
+          "train_e2e: wrong final step")
+    curve = [[m["step"], m["nll"]] for m in log]
+    nll0, nll1 = curve[0][1], curve[-1][1]
+    check(all(math.isfinite(v) for _, v in curve), "non-finite nll")
+    check(nll1 < nll0 - sizes.bar, f"train_e2e: nll {nll0} -> {nll1} fell "
+          f"by less than {sizes.bar}")
+    if expect_kernels:
+        steps_run = sizes.e2e_steps + (sizes.e2e_steps - sizes.ckpt_at)
+        check_launches(launches, per_sync, steps_run)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    profile = train_profile(model, opt, eng, straight,
+                            stream.batch(sizes.e2e_steps), mesh) \
+        if cuda else None
+    med = statistics.median(times[1:] or times)
+    return {"phase": "train", "program": "train_e2e",
+            "backend": "acis_compressed", "compressor": "int8",
+            "mesh": {"data": 8}, "model": cfg.name,
+            "params": sum(p.numel() for p in tree.tree_leaves(
+                straight.params)),
+            "global_batch": sizes.batch, "seq": sizes.seq,
+            "steps": sizes.e2e_steps, "ckpt_at": sizes.ckpt_at,
+            "curve": curve, "entropy": stream.entropy(),
+            "nll_first": nll0, "nll_last": nll1,
+            "step_ms": times, "median_step_ms": med,
+            "tokens_per_s": sizes.batch * sizes.seq / (med * 1e-3),
+            # the first loop's wall minus its steps: the checkpoint save
+            # and the logged metrics' reads
+            "run_s": t_run,
+            "save_and_log_s": t_save - t0 - sum(times[:sizes.ckpt_at]) / 1e3,
+            "restore_s": t_restore, "ckpt_bytes": ckpt_bytes,
+            "resumed_bitwise_equal": True,
+            "deterministic_algorithms": True,
+            "nondeterministic_op_warnings": nondet,
+            "launches_per_sync": per_sync, "launches": launches,
+            "max_memory_allocated": peak, "profile": profile}
+
+
+def train_path(cfg, seed: int, sizes: TrainSizes = TRAIN, *,
+               device="cuda", expect_kernels: bool = True) -> list[dict]:
+    """The train phase: the kernels-vs-plain step check on every backend
+    of ``TRAIN_BACKENDS``, then the ``train_e2e`` run."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    recs = [train_sync_check(cfg, seed, sizes, backend, comp, axes, dev,
+                             expect_kernels=expect_kernels)
+            for backend, comp, axes in TRAIN_BACKENDS]
+    recs.append(train_e2e(cfg, seed, sizes, dev,
+                          expect_kernels=expect_kernels))
+    for r in recs:
+        r["phase_seconds"] = time.perf_counter() - t0
+    return recs
+
+
 # device kernels of a ring sync counted by name: PyTorch's rolls and its
 # index kernels (the per-rank gathers and the all-gather's puts), and the
 # hand-written hops, combines and pack
@@ -4013,6 +4401,9 @@ def main() -> int:
                     help="also write every phase's record to this JSON file")
     args = ap.parse_args()
 
+    # deterministic cuBLAS for the train phase's resume check: the
+    # workspace setting must be in place before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
               file=sys.stderr)
@@ -4094,6 +4485,10 @@ def main() -> int:
     paths.append(rec)
     emit(rec)
     for rec in elastic_path(CONFIG, args.seed):
+        paths.append(rec)
+        emit(rec)
+    for rec in train_path(CONFIG, args.seed):
+        rec["card"] = smi
         paths.append(rec)
         emit(rec)
     for rec in serve_path(RWKV6, args.seed, SERVE):

@@ -10,8 +10,9 @@ reference's side, torch on the port's), leaf by leaf for pytrees, so a
 test can feed one seeded numpy input to both packages and compare.
 Model params and serving caches have the same tree in both packages
 (:func:`params_from_reference`, :func:`cache_from_reference` and their
-inverses).  Dtypes are carried over (bfloat16 through a float32 round
-trip, which is exact).
+inverses), and so has a train state (:func:`train_state_from_reference`,
+whose EF residual is read per device).  Dtypes are carried over
+(bfloat16 through a float32 round trip, which is exact).
 """
 
 from __future__ import annotations
@@ -94,3 +95,59 @@ def params_to_reference(t: PyTree) -> PyTree:
 # a serving cache is a pytree of arrays like the params
 cache_from_reference = params_from_reference
 cache_to_reference = params_to_reference
+
+
+def _residual_from_reference(arr, mesh: LocalMesh) -> torch.Tensor:
+    """One leaf of the reference's EF residual → ``[*rank, ...]``.
+
+    The reference's acis step returns the residual with ``out_specs=P()``
+    and ``check_vma=False``: the global array claims to be replicated,
+    but each device keeps its own rank's residual.  So it is read per
+    device (``addressable_shards``), each rank's copy taken from the
+    first device at that rank's coordinates on the port mesh's axes.  An
+    array made outside the step (the initial zeros, on one device) is one
+    copy every rank holds."""
+    jmesh = getattr(arr.sharding, "mesh", None)
+    if jmesh is None:
+        one = _to_torch(arr)
+        return one.expand(mesh.rank_shape + tuple(one.shape)).contiguous() \
+            .to(mesh.device)
+    names = list(jmesh.axis_names)
+    coords = {d.id: idx for idx, d in np.ndenumerate(np.asarray(jmesh.devices))}
+    per: dict = {}
+    for shard in sorted(arr.addressable_shards, key=lambda s: s.device.id):
+        c = coords[shard.device.id]
+        key = tuple(c[names.index(a)] for a in mesh.axis_names)
+        per.setdefault(key, _to_torch(shard.data))
+    return torch.stack([per[k] for k in np.ndindex(*mesh.rank_shape)]) \
+        .reshape(mesh.rank_shape + tuple(arr.shape)).to(mesh.device)
+
+
+def train_state_from_reference(state, mesh: LocalMesh, device=None):
+    """The reference's ``TrainState`` → the port's, on ``device`` (the
+    mesh's by default): params and optimizer state through
+    :func:`params_from_reference`, the step as a 0-dim int32 tensor, the
+    EF residual per device into ``[*rank, ...]``.  The sync arenas are
+    scratch and are not carried over (allocate the port's with
+    ``init_state(arenas=True)`` or ``engine.init_arenas``)."""
+    from repro_torch.train.step import TrainState
+
+    dev = mesh.device if device is None else torch.device(device)
+    res = None if state.ef_residual is None else tree.tree_map(
+        lambda x: _residual_from_reference(x, mesh).to(dev),
+        state.ef_residual)
+    return TrainState(params_from_reference(state.params, dev),
+                      params_from_reference(state.opt, dev),
+                      torch.tensor(int(np.asarray(state.step)),
+                                   dtype=torch.int32, device=dev), res)
+
+
+def train_state_to_reference(state) -> dict:
+    """The inverse, as numpy: ``{params, opt, step, ef_residual}`` (the
+    residual keeps the port's ``[*rank, ...]``: the reference's global
+    array holds one rank's copy, so it cannot take all of them)."""
+    return {"params": params_to_reference(state.params),
+            "opt": params_to_reference(state.opt),
+            "step": _to_numpy(state.step),
+            "ef_residual": None if state.ef_residual is None
+            else params_to_reference(state.ef_residual)}

@@ -78,13 +78,62 @@ def init_rmsnorm(d: int, dtype=torch.float32, *, device="cpu",
     return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(p: PyTree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Forward of the reference's ``_rmsnorm_fwd_impl``: f32 inside, the
-    result in x's dtype."""
+def lift(p: torch.Tensor, x: torch.Tensor, own: int = 1) -> torch.Tensor:
+    """View a param ``p`` of shape ``[*rank, *own_dims]`` (``own`` dims
+    of its own after any rank dims) so that it broadcasts against an
+    activation ``x`` of ``[*rank, ..., *own_dims]`` rank by rank: size-1
+    dims go in after the rank dims.  A param without rank dims comes
+    back as it is."""
+    r = p.dim() - own
+    if r <= 0 or p.dim() >= x.dim():
+        return p
+    return p.reshape(p.shape[:r] + (1,) * (x.dim() - p.dim())
+                     + p.shape[r:])
+
+
+def _rmsnorm_fwd(scale, x, eps):
     xf = x.to(torch.float32)
     var = xf.square().mean(-1, keepdim=True)
     inv = torch.rsqrt(var + eps)
-    return (xf * inv * p["scale"].to(torch.float32)).to(x.dtype)
+    y = (xf * inv * lift(scale, xf).to(torch.float32)).to(x.dtype)
+    return y, xf, inv
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``custom_vjp`` RMSNorm (``_rmsnorm_bwd``): the
+    backward runs in f32 and the cotangent leaves in the primal dtype, so
+    a bf16 residual stream keeps a bf16 cotangent chain.  ``dscale`` sums
+    over every dim but the last and the scale's rank dims."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps):
+        y, xf, inv = _rmsnorm_fwd(scale, x, eps)
+        ctx.save_for_backward(scale, xf, inv)
+        ctx.x_dtype = x.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, xf, inv = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        sf = lift(scale, gf).to(torch.float32)
+        xhat = xf * inv
+        r = scale.dim() - 1
+        dscale = (gf * xhat).sum(tuple(range(r, gf.dim() - 1)))
+        gx = gf * sf
+        dx = inv * (gx - xhat * (gx * xhat).mean(-1, keepdim=True))
+        return dscale.to(scale.dtype), dx.to(ctx.x_dtype), None
+
+
+def rmsnorm(p: PyTree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``_rmsnorm``: f32 inside, the result in x's dtype;
+    under autograd its ``custom_vjp`` backward (:class:`_RMSNorm`).  A
+    rank-stacked scale ``[*rank, d]`` meets an ``x`` of ``[*rank, ...,
+    d]``."""
+    scale = p["scale"]
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(scale, x, eps)
+    return _rmsnorm_fwd(scale, x, eps)[0]
 
 
 def init_layernorm(d: int, dtype=torch.float32, *, device="cpu",
@@ -99,7 +148,7 @@ def layernorm(p: PyTree, x: torch.Tensor,
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    return (y * lift(p["scale"], y) + lift(p["bias"], y)).to(x.dtype)
 
 
 def init_norm(d: int, kind: str = "rms", *, device="cpu",
@@ -203,13 +252,16 @@ def init_conv1d(gen, width: int, channels: int, dtype=torch.bfloat16, *,
 
 def causal_conv1d(p: PyTree, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time, the reference's training form (a
-    sum of shifted products in x's dtype).  x: [B, T, C]."""
-    width = p["kernel"].shape[0]
+    sum of shifted products in x's dtype).  x: [..., B, T, C]; a
+    rank-stacked kernel ``[*rank, width, C]`` meets ``x`` of ``[*rank,
+    B, T, C]``."""
+    kern = p["kernel"]
+    width, t = kern.shape[-2], x.shape[-2]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):
-        out = out + pad[:, i:i + x.shape[1], :] * p["kernel"][i]
-    return out + p["bias"]
+        out = out + pad[..., i:i + t, :] * lift(kern[..., i, :], x)
+    return out + lift(p["bias"], x)
 
 
 def conv1d_prefill(p: PyTree, window: torch.Tensor, x: torch.Tensor
@@ -247,9 +299,18 @@ def conv1d_decode(p: PyTree, window: torch.Tensor, x_t: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    """``table[ids]``; a rank-stacked table ``[*rank, V, d]`` meets ids
+    of ``[*rank, ...]``, every rank gathering from its own table."""
+    r = table.dim() - 2
+    if r <= 0:
+        return table[ids]
+    grids = tuple(torch.arange(s, device=ids.device).reshape(
+        (1,) * j + (s,) + (1,) * (ids.dim() - j - 1))
+        for j, s in enumerate(table.shape[:r]))
+    return table[grids + (ids,)]
 
 
 def logits_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: [..., D] @ w: [D, V] in f32 for stable softmax/CE."""
-    return x.to(torch.float32) @ w.to(torch.float32)
+    """x: [..., D] @ w: [D, V] (or rank-stacked ``[*rank, D, V]``) in f32
+    for stable softmax/CE."""
+    return dense(x.to(torch.float32), w.to(torch.float32))

@@ -2,6 +2,8 @@
 
     model = Model(cfg)                                 # use_kernels=True
     params    = model.init(torch.Generator("cuda").manual_seed(0))
+    hidden, aux = model.forward(params, tokens)        # train path
+    logits    = model.logits(params, hidden)
     cache     = model.init_cache(batch, seq)
     lg, cache = model.prefill(params, tokens, cache)   # cache in place
     lg, cache = model.decode_step(params, token, cache, index)
@@ -16,9 +18,10 @@ gives shapes and dtypes without memory).  ``use_kernels=False`` runs every
 kernel's plain PyTorch version instead, on any device — the engine's
 convention, which ``chip_smoke.py`` uses to time both on the card.
 ``prefill`` and ``decode_step`` update the cache in place and return it;
-clone it first to keep the old one.  ``forward`` (training) waits for
-ROADMAP.md queue 1 item 7; the inference forward of the attention stacks
-is :func:`repro_torch.models.transformer.forward`.
+clone it first to keep the old one.  ``forward`` is the training forward
+(plain PyTorch under autograd, the config's remat policy; no kernel runs
+there, as none does in the reference's): tokens and params may carry
+rank dims in front (:mod:`repro_torch.train.step`).
 """
 
 from __future__ import annotations
@@ -57,10 +60,17 @@ class Model:
 
     # -- training ------------------------------------------------------------
 
-    def forward(self, params: PyTree, tokens: torch.Tensor, **_):
-        raise NotImplementedError(
-            "Model.forward (training) is not ported yet: ROADMAP.md queue 1 "
-            "item 7")
+    def forward(self, params: PyTree, tokens: torch.Tensor, *,
+                context: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens [*rank, B, T] -> (hidden [*rank, B, T, D], aux_loss
+        [*rank]).  ``context`` (encdec / vlm stub inputs) waits with
+        those families."""
+        if self.cfg.family in ("encdec", "vlm") or context is not None:
+            raise NotImplementedError(
+                f"the {self.cfg.family} family (context inputs) is not "
+                f"ported yet: ROADMAP.md queue 1 item 6")
+        return T.forward(params, self.cfg, tokens)
 
     def logits(self, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
         return T.logits(params, self.cfg, hidden)

@@ -13,9 +13,10 @@ here :func:`rglru_prefill` takes the whole prompt ``[B, T, D]`` and
 launches the ``rglru_scan`` kernel once over T from the cached state, and
 :func:`rglru_decode` is its T = 1 case.  The conv follows the decode
 arithmetic (:func:`repro_torch.models.layers.conv1d_prefill`), continued
-from the cache's window.  Both update the cache in place.  The training
-forms (``_affine_scan``, ``rglru_block``) and the sequence-parallel scan
-(``rglru_scan_sp``) wait with training (ROADMAP.md queue 1 item 7).
+from the cache's window.  Both update the cache in place.  Training runs
+the reference's plain forms under autograd (:func:`_affine_scan`,
+:func:`rglru_block`), rank dims in front; the sequence-parallel scan
+(``rglru_scan_sp``) waits for ROADMAP.md queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -55,13 +56,49 @@ def init_rglru(gen, d_model: int, cfg: HybridConfig, dtype=torch.bfloat16,
 
 def _gates(p, x1):
     x1f = x1.to(torch.float32)
-    r = torch.sigmoid(p["w_r"] * x1f + p["b_r"])
-    i = torch.sigmoid(p["w_i"] * x1f + p["b_i"])
-    log_a = -_C * F.softplus(p["lam"]) * r
+
+    def q(name):
+        return L.lift(p[name], x1f)
+    r = torch.sigmoid(q("w_r") * x1f + q("b_r"))
+    i = torch.sigmoid(q("w_i") * x1f + q("b_i"))
+    log_a = -_C * F.softplus(q("lam")) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * x1f)
     return a, b
+
+
+# ---------------------------------------------------------------------------
+# training (plain PyTorch under autograd, as the reference's jnp)
+# ---------------------------------------------------------------------------
+
+def _affine_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over dim -2 from h_{-1} = 0.  a, b: [...,
+    B, T, W].
+
+    A log-depth scan over the affine monoid (A, B)∘(A', B') = (A·A',
+    A'·B + B'), as the reference's ``lax.associative_scan`` (whose
+    association differs: equal up to rounding)."""
+    A, B = a, b
+    t, k = a.shape[-2], 1
+    while k < t:
+        A_lo = F.pad(A[..., :-k, :], (0, 0, k, 0), value=1.0)
+        B_lo = F.pad(B[..., :-k, :], (0, 0, k, 0))
+        A, B = A_lo * A, A * B_lo + B
+        k *= 2
+    return B
+
+
+def rglru_block(p: PyTree, u: torch.Tensor, *,
+                cfg: HybridConfig) -> torch.Tensor:
+    """The reference's training block: u [..., B, T, D] -> [..., B, T,
+    D]; rank-stacked params meet rank dims in front of u."""
+    x1 = L.causal_conv1d(p["conv"], L.dense(u, p["wx"]))
+    g = L.dense(u, p["wg"])
+    a, b = _gates(p, x1)
+    h = _affine_scan(a, b)
+    y = h * F.gelu(g.to(torch.float32), approximate="tanh")
+    return L.dense(y.to(u.dtype), p["wout"])
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,13 @@ launches the kernel once per layer for the token or the whole prompt.
 and computes what T calls of it compute.  Both update the cache in place
 (the reference engine donates it); a caller that needs the old cache
 clones it first.  ``shard_act`` is dropped: without activation sharding
-it is the identity (sharding is ROADMAP.md queue 1 item 9).  The chunked
-training form (``wkv_chunked``) waits with training (queue 1 item 7).
+it is the identity (sharding is ROADMAP.md queue 1 item 9).
+
+Training runs the reference's plain forms under autograd, no kernel:
+:func:`rwkv6_token_mix` with :func:`wkv_chunked` at ``T >= 64``, else
+the kernel's plain version (the reference's ``wkv``).  Every training
+function takes rank dims in front of ``[B, T, ...]`` and rank-stacked
+params (the train step's per-rank gradients).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_recurrence as RK
 from repro_torch.models import layers as L
 
@@ -61,36 +67,37 @@ def init_rwkv6(gen, d: int, dtype=torch.bfloat16, *, device="cpu",
 
 def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """x_{t-1} stream.  x: [B, T, D]; x_prev: [B, D], the token before
-    x[:, 0] (zeros when None, as at the start of a sequence)."""
+    """x_{t-1} stream.  x: [..., B, T, D]; x_prev: [..., B, D], the token
+    before x[..., 0, :] (zeros when None, as at the start of a
+    sequence)."""
     if x_prev is None:
-        x_prev = torch.zeros_like(x[:, 0])
-    if x.shape[1] == 1:
-        return x_prev[:, None, :]
-    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], 1)
+        x_prev = torch.zeros_like(x[..., 0, :])
+    if x.shape[-2] == 1:
+        return x_prev[..., None, :]
+    return torch.cat([x_prev[..., None, :], x[..., :-1, :]], -2)
 
 
 def _mix(mu: torch.Tensor, x: torch.Tensor,
          xs: torch.Tensor) -> torch.Tensor:
-    return x + (xs - x) * mu.to(x.dtype)
+    return x + (xs - x) * L.lift(mu, x).to(x.dtype)
 
 
 def _wkv_inputs(p, x, xs):
-    b, t, d = x.shape
+    d = x.shape[-1]
     h = d // HEAD
-    r = _mix(p["mu"]["r"], x, xs) @ p["wr"]
-    k = _mix(p["mu"]["k"], x, xs) @ p["wk"]
-    v = _mix(p["mu"]["v"], x, xs) @ p["wv"]
-    g = _mix(p["mu"]["g"], x, xs) @ p["wg"]
+    r = L.dense(_mix(p["mu"]["r"], x, xs), p["wr"])
+    k = L.dense(_mix(p["mu"]["k"], x, xs), p["wk"])
+    v = L.dense(_mix(p["mu"]["v"], x, xs), p["wv"])
+    g = L.dense(_mix(p["mu"]["g"], x, xs), p["wg"])
     # the decay LoRA runs in the activation dtype, as in the reference;
     # only the exponentials are f32, and w stays f32 into the kernel
     xw = _mix(p["mu"]["w"], x, xs)
-    dw = torch.tanh(xw @ p["w_lora_a"].to(xw.dtype)) \
-        @ p["w_lora_b"].to(xw.dtype)
-    w = torch.exp(-torch.exp(p["w0"] + dw.to(torch.float32)))
+    dw = L.dense(torch.tanh(L.dense(xw, p["w_lora_a"].to(xw.dtype))),
+                 p["w_lora_b"].to(xw.dtype))
+    w = torch.exp(-torch.exp(L.lift(p["w0"], dw) + dw.to(torch.float32)))
 
     def hd(z):
-        return z.reshape(b, t, h, HEAD)
+        return z.reshape(z.shape[:-1] + (h, HEAD))
     return hd(r), hd(k), hd(v), g, hd(w)
 
 
@@ -116,6 +123,86 @@ def wkv(r, k, v, w, u, s0=None, *, kv_bf16: bool = False,
     return o.transpose(1, 2), s
 
 
+# ---------------------------------------------------------------------------
+# training forms (plain PyTorch under autograd, as the reference's jnp)
+# ---------------------------------------------------------------------------
+
+def wkv_chunked(r, k, v, w, u, *, chunk: int = 32):
+    """The reference's chunked-parallel WKV6 (its MXU training path),
+    equal to the plain recurrence up to rounding: time runs in chunks,
+    intra-chunk interactions are masked [C, C] products with the decay
+    factored around the chunk's midpoint (``L`` the cumulative log-decay,
+    ``L_h`` its value at the midpoint), inter-chunk flows through the
+    carried state with non-positive exponents.  r,k,w [..., B, T, H, K],
+    v [..., B, T, H, V], u [..., H, K] (rank dims in front, or none);
+    returns (o [..., B, T, H, V] in v's dtype, s_final [..., B, H, K, V]
+    f32).  Extreme decays (w → 0) need a smaller ``chunk``."""
+    lead = r.shape[:-3]
+    t, h, kk = r.shape[-3:]
+    vv = v.shape[-1]
+    c = min(chunk, t)
+    pad = (-t) % c
+    f32 = [z.to(torch.float32) for z in (r, k, v, w)]
+    if pad:
+        f32 = [F.pad(z, (0, 0, 0, 0, 0, pad), value=1.0 if i == 3 else 0.0)
+               for i, z in enumerate(f32)]
+    tp = t + pad
+    nc = tp // c
+
+    def resh(z):                              # -> [NC, ..., H, C, dd]
+        return z.reshape(lead + (nc, c, h, z.shape[-1])) \
+            .movedim(-4, 0).transpose(-3, -2)
+
+    rc, kc, vc, wc = (resh(z) for z in f32)
+    uu = L.lift(u, r[..., 0, :, :], own=2)[..., None, :]  # [.., H, 1, K]
+    S = torch.zeros(lead + (h, kk, vv), dtype=torch.float32,
+                    device=r.device)
+    mask_lt = torch.tril(torch.ones((c, c), dtype=torch.float32,
+                                    device=r.device), diagonal=-1)
+    outs = []
+    for i in range(nc):
+        rr, kk_, vv_, ww = rc[i], kc[i], vc[i], wc[i]       # [.., H, C, ·]
+        lw = torch.log(torch.clamp_min(ww, 1e-30))
+        Lc = torch.cumsum(lw, dim=-2)                      # inclusive
+        L_prev = Lc - lw                                   # exclusive
+        L_half = Lc[..., c // 2:c // 2 + 1, :]
+        q_in = rr * torch.exp(L_prev - L_half)
+        k_in = kk_ * torch.exp(L_half - Lc)
+        A = torch.einsum("...tk,...sk->...ts", q_in, k_in) * mask_lt
+        o = torch.einsum("...ts,...sv->...tv", A, vv_)
+        # diagonal (current-token u-boosted) term
+        o = o + torch.einsum("...tk,...tv->...tv", rr * uu * kk_, vv_)
+        # inter-chunk: state contribution (exponents <= 0)
+        o = o + torch.einsum("...tk,...kv->...tv", rr * torch.exp(L_prev), S)
+        # state update
+        k_dec = kk_ * torch.exp(Lc[..., -1:, :] - Lc)
+        S = torch.exp(Lc[..., -1, :])[..., None] * S + \
+            torch.einsum("...tk,...tv->...kv", k_dec, vv_)
+        outs.append(o)
+    o = torch.stack(outs, 0).transpose(-3, -2).movedim(0, -4) \
+        .reshape(lead + (tp, h, vv))[..., :t, :, :]
+    return o.to(v.dtype), S
+
+
+def rwkv6_token_mix(p: PyTree, x: torch.Tensor, *,
+                    chunk: int = 32) -> torch.Tensor:
+    """The reference's training token mix over x [..., B, T, D]: the
+    chunked WKV at ``T >= 64``, else the kernel's plain version (a loop
+    over T in f32, the reference's ``wkv``) on the ``[..., H, T, ·]``
+    views, u lifted past the batch dim."""
+    xs = _token_shift(x)
+    r, k, v, g, w = _wkv_inputs(p, x, xs)
+    if x.shape[-2] >= 64:
+        o, _ = wkv_chunked(r, k, v, w, p["u"], chunk=chunk)
+    else:
+        o, _ = ref.rwkv6_recurrence(
+            *(z.transpose(-3, -2) for z in (r, k, v, w)),
+            L.lift(p["u"], r[..., 0, :, :], own=2))
+        o = o.transpose(-3, -2)
+    o = L.rmsnorm(p["ln_o"], o.reshape(x.shape))
+    return L.dense(o * F.silu(g.to(o.dtype)), p["wo"])
+
+
 def init_channel_mix(gen, d: int, f: int, dtype=torch.bfloat16, *,
                      device="cpu", lead: tuple[int, ...] = ()) -> PyTree:
     dense = dict(device=device, lead=lead)
@@ -131,12 +218,12 @@ def init_channel_mix(gen, d: int, f: int, dtype=torch.bfloat16, *,
 def rwkv6_channel_mix(p: PyTree, x: torch.Tensor,
                       x_prev: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """``x_prev`` ([B, D]) continues the token shift from a cache."""
+    """``x_prev`` ([..., B, D]) continues the token shift from a cache."""
     xs = _token_shift(x, x_prev)
-    kk = torch.relu(_mix(p["mu"]["k"], x, xs) @ p["wk"]).square()
-    rr = torch.sigmoid((_mix(p["mu"]["r"], x, xs) @ p["wr"])
+    kk = torch.relu(L.dense(_mix(p["mu"]["k"], x, xs), p["wk"])).square()
+    rr = torch.sigmoid(L.dense(_mix(p["mu"]["r"], x, xs), p["wr"])
                        .to(torch.float32)).to(x.dtype)
-    return rr * (kk @ p["wv"])
+    return rr * L.dense(kk, p["wv"])
 
 
 # ---------------------------------------------------------------------------

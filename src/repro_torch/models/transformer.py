@@ -12,19 +12,27 @@ an explicit ``torch.Generator`` and a device; the stacked leaves are
 drawn in one go (``lead=(n,)``), with the reference's distributions and
 dtypes leaf by leaf.
 
-:func:`apply_block` and :func:`forward` are the inference forms of the
-reference's (no autograd, no remat) for the ``self``, ``dense_self`` and
-``moe_self`` kinds; they consult the tensor-parallel hook
-(:mod:`repro_torch.models.parallel`) where the reference does.  MLA
-attention (deepseek-v2), the ``encdec`` and ``vlm`` kinds, and the
-training forward wait for ROADMAP.md queue 1 items 6 and 7.
+:func:`apply_block` and :func:`forward` are the reference's training
+forward (and the inference one, when nothing requires grad) for every
+ported kind; they consult the tensor-parallel hook
+(:mod:`repro_torch.models.parallel`) where the reference does.
+``cfg.remat`` is the reference's ``_remat`` policy per period: ``"full"``
+checkpoints each period, ``"dots"`` saves its matmul outputs and
+recomputes the rest.
+Tokens may carry rank dims in front (``[*rank, B, T]``) with every param
+rank-stacked: the train step's per-rank gradients come from one forward
+and one backward that way.  MLA attention (deepseek-v2) and the
+``encdec`` and ``vlm`` kinds wait for ROADMAP.md queue 1 item 6.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import tree
 from repro_torch.mesh import ambient
@@ -120,17 +128,25 @@ def _attn_kw(cfg: ModelConfig) -> dict:
 
 def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """One attention block over x [..., B, T, D] from position
-    ``q_offset``: causal GQA attention, then the dense FFN or the MoE
-    FFN.  Returns (x, aux_loss)."""
+    """One block over x [..., B, T, D] from position ``q_offset``: RWKV-6
+    token and channel mix (``rwkv``), the RG-LRU block and its FFN
+    (``lru``), or attention (causal GQA; ``window`` with the local
+    window) then the dense FFN or the MoE FFN.  Returns (x, aux_loss);
+    the aux loss is the MoE's, one per rank under rank dims."""
     _check_kind(cfg, kind)
-    if kind not in ATTENTION_KINDS:
-        raise NotImplementedError(
-            f"apply_block over {kind!r} is the training forward: ROADMAP.md "
-            f"queue 1 item 7 (its serving path is models.decode)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        x = x + RW.rwkv6_token_mix(p["tok"], _norm(p["ln1"], x, cfg),
+                                   chunk=cfg.wkv_chunk)
+        return x + RW.rwkv6_channel_mix(p["ch"], _norm(p["ln2"], x, cfg)), aux
+    if kind == "lru":
+        x = x + RG.rglru_block(p["mixer"], _norm(p["ln1"], x, cfg),
+                               cfg=cfg.hybrid)
+        return x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg),
+                         cfg.activation), aux
     tp = TP.current()
     h = A.gqa_attention(p["attn"], _norm(p["ln1"], x, cfg), causal=True,
+                        window=cfg.hybrid.window if kind == "window" else None,
                         chunk=cfg.attn_chunk, q_offset=q_offset,
                         use_rope=cfg.family != "encdec", **_attn_kw(cfg))
     if tp is not None:
@@ -219,19 +235,22 @@ def init_stack(gen, cfg: ModelConfig, *, device="cpu") -> PyTree:
 
 def logits(params: PyTree, cfg: ModelConfig,
            hidden: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
+        else params["lm_head"]
     return L.logits_head(hidden, w)
 
 
 # ---------------------------------------------------------------------------
-# forward (inference)
+# forward (training / inference)
 # ---------------------------------------------------------------------------
 
-def layer_views(stacked: PyTree) -> list[PyTree]:
-    """Per-layer views of a stacked ``[n, ...]`` tree: writes through a
-    view land in the stacked tensors."""
+def layer_views(stacked: PyTree, dim: int = 0) -> list[PyTree]:
+    """Per-layer views of a stacked tree (the layer dim at ``dim``, after
+    any rank dims): writes through a view land in the stacked tensors,
+    and under autograd the layers' gradients stack back in one
+    ``unbind`` backward."""
     leaves, td = tree.tree_flatten(stacked)
-    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    per_leaf = [leaf.unbind(dim) for leaf in leaves]
     return [tree.tree_unflatten(td, [q[i] for q in per_leaf])
             for i in range(len(per_leaf[0]))]
 
@@ -242,23 +261,75 @@ def rem_first(cfg: ModelConfig) -> bool:
     return cfg.family == "moe" and bool(_period_of(cfg)[2])
 
 
-@torch.no_grad()
+# the matmul outputs the "dots" policy keeps (the reference saves its
+# dots; every dense product here is one of these ops)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """The reference's ``_remat``: ``none`` as it is, ``full`` recomputes
+    the whole period in the backward, ``dots`` keeps matmul outputs."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    if policy != "full":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, T] -> (hidden [..., B, T, D] after the final norm,
-    aux_loss): the reference's forward for the attention stacks, as
-    inference (no autograd, no remat).  Under a tensor-parallel hook
-    inside a mesh the hidden states carry the rank dims."""
+    """tokens [*rank, B, T] -> (hidden [*rank, B, T, D] after the final
+    norm, aux_loss [*rank]): the reference's ``forward``/``_scan_stack``
+    (a MoE stack's remainder first, every other's last; the periods'
+    aux losses summed as one stack, as its scan sums them).  With rank
+    dims every param carries them too (``[*rank, ...]``, the stacked
+    layers ``[*rank, n_periods, ...]``).  Under a tensor-parallel hook
+    inside a mesh (serving) the hidden states carry the rank dims."""
+    nd = tokens.dim() - 2
     x = ranked(L.embed_lookup(params["embed"], tokens))
     period, _, _ = _period_of(cfg)
+
+    def period_body(x, pp):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, kind in enumerate(period):
+            x, a = apply_block(pp[f"pos{j}_{kind}"], x, cfg, kind,
+                               q_offset=q_offset)
+            aux = aux + a
+        return x, aux
+
+    def run_rem(x, aux_total):
+        for name in sorted(params["rem"]):
+            x, a = apply_block(params["rem"][name], x, cfg,
+                               name.split("_", 1)[1], q_offset=q_offset)
+            aux_total = aux_total + a
+        return x, aux_total
+
+    body = _remat(period_body, cfg.remat)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    rem = [(params["rem"][name], name.split("_", 1)[1])
-           for name in sorted(params["rem"])]
-    blocks = [(pp[f"pos{j}_{kind}"], kind)
-              for pp in layer_views(params["layers"])
-              for j, kind in enumerate(period)]
-    order = rem + blocks if rem_first(cfg) else blocks + rem
-    for blk, kind in order:
-        x, aux = apply_block(blk, x, cfg, kind, q_offset=q_offset)
-        aux_total = aux_total + aux
+    if rem_first(cfg):
+        x, aux_total = run_rem(x, aux_total)
+    auxs = []
+    for pp in layer_views(params["layers"], dim=nd):
+        x, a = body(x, pp)
+        auxs.append(a)
+    if auxs and cfg.scan_layers:
+        aux_total = aux_total + torch.stack(
+            torch.broadcast_tensors(*auxs)).sum(0)
+    else:
+        for a in auxs:
+            aux_total = aux_total + a
+    if not rem_first(cfg):
+        x, aux_total = run_rem(x, aux_total)
     return _norm(params["final_norm"], x, cfg), aux_total

@@ -641,3 +641,52 @@ def test_tp_launches_at_the_phases_full_sizes(smoke):
     sc = ServeCollectives(configs.get("qwen2-moe-a2.7b"), 4, device="meta")
     assert smoke.tp_launches(sc.decode_programs(4), 4) == \
         {"fused_combine": 72, "fused_hop": 72}
+
+
+def test_train_path_rehearsed_on_the_cpu(smoke):
+    """The train phase at SMOKE: the kernels-vs-plain step check on every
+    backend, then the train_e2e run with its checkpoint, resume and
+    descent checks (deterministic algorithms on, as on the card)."""
+    from repro_torch.configs.acis_100m import SMOKE
+
+    recs = smoke.train_path(SMOKE, 0, smoke.TRAIN_SMOKE, device="cpu",
+                            expect_kernels=False)
+    by = [(r["program"], r["backend"], r["compressor"]) for r in recs]
+    assert by == [("sync_check", b, c) for b, c, _ in smoke.TRAIN_BACKENDS] \
+        + [("train_e2e", "acis_compressed", "int8")]
+    for r in recs[:-1]:
+        assert r["bitwise_equal_to_plain"] and len(r["grads_ms"]) == 2
+        assert any(r["launches_per_sync"].values())
+        assert not any(r["launches"].values())        # CPU: plain versions
+        # the smoke sizes' small leaves ride latency rings (R4): ranks
+        # within rounding; at full width every ring is a bandwidth ring
+        if r["ranks_bitwise"]:
+            assert r["max_rank_spread"] == 0.0
+    assert not recs[0]["ranks_bitwise"]
+    e2e = recs[-1]
+    assert e2e["resumed_bitwise_equal"] and e2e["steps"] == 12
+    # every log_every-th step and each loop's last (the checkpoint's loop
+    # ends at step 5)
+    assert [s for s, _ in e2e["curve"]] == [0, 2, 4, 5, 6, 8, 10, 11]
+    assert e2e["nll_last"] < e2e["nll_first"] - smoke.TRAIN_SMOKE.bar
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_train_phase_fails_when_the_resume_drops_the_residual(smoke,
+                                                              monkeypatch):
+    """The resume check is tight: a restore that loses the EF residual
+    (the look-aside memory) is caught."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.acis_100m import SMOKE
+
+    real = ckpt.restore
+
+    def lossy(d, like, **kw):
+        st, step, extra = real(d, like, **kw)
+        st.ef_residual = like.ef_residual           # zeros: mass lost
+        return st, step, extra
+
+    monkeypatch.setattr(ckpt, "restore", lossy)
+    with pytest.raises(AssertionError, match="resumed run.s"):
+        smoke.train_e2e(SMOKE, 0, smoke.TRAIN_SMOKE, torch.device("cpu"),
+                        expect_kernels=False)

@@ -37,7 +37,9 @@ def _import_all_in_a_fresh_process(report: str) -> str:
               "models.transformer", "serve.engine", "obs.timeline",
               "obs.drift", "obs.report", "obs.__main__", "tune.trace",
               "tune.fit", "tune.replay", "tune.search",
-              "elastic.membership", "elastic.sync"):
+              "elastic.membership", "elastic.sync", "data.pipeline",
+              "train.loss", "train.optimizer", "train.step", "train.loop",
+              "checkpoint.checkpoint"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, sys\n"
