@@ -167,14 +167,63 @@ Phases, one JSON line each:
                   ``fused_combine`` launched as the programs predict; a
                   profile of one tick; ``ServeEngine(slots=8,
                   collectives=)`` over 16 requests (``tp_serve_path``)
-  15. serve_tp_moe — qwen2-moe-a2.7b at full width and depth (24 layers,
-                  d_model 2048, 16 heads of 128, 60 routed experts top-4
-                  of d_ff 1408, shared experts of 5632, vocab 151,936) on
+  15. serve_tp_moe — qwen2-moe-a2.7b at full width (d_model 2048, 16
+                  heads of 128, 60 routed experts top-4 of d_ff 1408,
+                  shared experts of 5632, vocab 151,936), 12 of its 24
+                  layers (cut for the run's time), on
                   ``LocalMesh({"tp": 4})``: the same with a 4 x 64
                   prefill (decode ticks, as the reference prefills a MoE
                   stack); the tick's all-to-all and its Type-4
                   ``allreduce+alltoall`` combine (shared-expert reduce
                   and the expert all-to-all in one stage)
+  16. serve_mla — deepseek-v2-236b at full width (d_model 5120, 128
+                  heads, MLA kv_lora 512 / q_lora 1536 / rope 64 / nope
+                  128 / v 128, 160 routed experts top-6 of d_ff 1536, 2
+                  shared of 3072, the dense layer's d_ff 12288, vocab
+                  102,400) cut to 2 layers (1 dense + 1 MoE, bf16; the
+                  config's 60 are about 472 GB): an 8 x 32 prefill (decode
+                  ticks, the reference's prefill of a MoE stack) and 32
+                  greedy decode steps, ``Model.forward`` (no MoE drops)
+                  against prefill + decode within ``BF16_REL``, a profile
+                  of one decode step, ``ServeEngine(slots=4)`` over 8
+                  requests held against fresh one-slot engines; then on a
+                  fresh f32 model of the same depth forward vs
+                  decode within ``F32_REL``, the engine again (f32 has
+                  few near-ties to stop its comparison), one MLA layer's
+                  absorbed
+                  attention against per-head keys and values
+                  materialized from the latents, and the latent cache's
+                  bytes a token against a 128-head GQA cache's
+                  (``zoo_serve_path``)
+  17. serve_encdec — whisper-small at full width and depth (12 + 12
+                  layers, d_model 768, 12 heads, GELU 3072, LayerNorm,
+                  vocab 51,865) with a 1,500-frame ``synthetic_context``
+                  in bf16: the same traffic and checks (no engine: the
+                  reference's reads no context, ROADMAP.md R6), a second
+                  context moving the logits by more than ``BF16_REL``,
+                  decode steps timed re-encoding the context (as the
+                  reference's ``Model`` does on every call) and encoded
+                  once; the f32 check on the weights cast in place
+  18. serve_vlm — llama-3.2-vision-11b at full width and depth (40
+                  layers = 8 x (cross, self x 4), d_model 4096, 32 / 8
+                  heads of 128, SwiGLU 14336, vocab 128,256, 1,601 image
+                  tokens), its cross gates drawn non-zero: as serve_encdec
+                  with a 4 x 32 prefill; f32 by casting the weights in
+                  place (about 42 GB)
+  19. train_encdec — whisper-small trained at full width on
+                  ``LocalMesh({"data": 8})``, one 256-token sequence and
+                  its [1500, 768] bf16 context a rank: 3 steps each of
+                  ``acis`` and ``acis_compressed`` int8_hopquant, kernels
+                  against ``use_kernels=False`` bitwise, the ranks
+                  agreeing, launches as the plan says x steps; then 20
+                  steps of ``acis`` with AdamW ``warmup_cosine(3e-4, 5,
+                  20)``, the nll of step 20 below step 1, step ms,
+                  tokens/s, peak memory and one profiled step
+                  (``train_encdec_path``)
+
+The serving phases 16-18 launch none of the ported kernels (the
+reference's paths for these families reach no Pallas kernel): their
+launches are checked to be zero.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
@@ -189,6 +238,7 @@ script stops before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -2436,17 +2486,20 @@ def hold_cache(want, got, rel: float) -> float:
     return worst
 
 
-def run_model(model, params, toks, steps: int, dev, feed=None) -> dict:
+def run_model(model, params, toks, steps: int, dev, feed=None,
+              context=None) -> dict:
     """``Model.prefill`` of ``toks`` then ``steps`` greedy
     ``decode_step``s (or the tokens in ``feed``), each bracketed by a
     device sync and timed on the host clock (the argmax is outside); the
-    cache in the params' dtype."""
+    cache in the params' dtype.  ``context`` (encdec / vlm) goes to every
+    call, which re-encodes it as the reference's ``Model`` does."""
     b, t = toks.shape
+    kw = {} if context is None else {"context": context}
     cache = model.init_cache(b, t + steps + 1, params["embed"].dtype,
                              device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    lg, cache = model.prefill(params, toks, cache)
+    lg, cache = model.prefill(params, toks, cache, **kw)
     _sync(dev)
     out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [],
            "logits": [lg], "tokens": []}
@@ -2455,7 +2508,7 @@ def run_model(model, params, toks, steps: int, dev, feed=None) -> dict:
         out["tokens"].append(tok)
         _sync(dev)
         t0 = time.perf_counter()
-        lg, cache = model.decode_step(params, tok, cache, t + i)
+        lg, cache = model.decode_step(params, tok, cache, t + i, **kw)
         _sync(dev)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["logits"].append(lg)
@@ -2500,11 +2553,13 @@ def serve_kernel(cfg) -> tuple[str, int]:
     """The recurrence kernel a serving model launches and how often per
     prefill call, decode step and engine tick: once per layer of its
     kind (``rwkv6_recurrence`` per rwkv layer, ``rglru_scan`` per lru
-    layer)."""
+    layer); ``(None, 0)`` for the attention families, which launch
+    none."""
     from repro_torch.models.transformer import layer_schedule
 
     kind, kernel = {"ssm": ("rwkv", "rwkv6_recurrence"),
-                    "hybrid": ("lru", "rglru_scan")}[cfg.family]
+                    "hybrid": ("lru", "rglru_scan")}.get(cfg.family,
+                                                         (None, None))
     return kernel, layer_schedule(cfg).count(kind)
 
 
@@ -3981,6 +4036,21 @@ TRAIN_BACKENDS = (("acis", None, {"data": 8}),
                   ("acis_hierarchical", None, {"pod": 2, "data": 4}))
 
 
+def train_batch(model, stream, step: int, dev) -> dict:
+    """``stream``'s batch at ``step``; for an encdec or vlm model also its
+    stub context, ``synthetic_context`` at the step made into the
+    served bf16 (:meth:`Model.context_inputs`) on ``dev``."""
+    from repro_torch.data.pipeline import synthetic_context
+
+    batch = stream.batch(step)
+    spec = model.context_inputs(len(batch["tokens"]))
+    if spec is not None:
+        (b, t, d), dt = spec
+        batch["context"] = torch.from_numpy(
+            synthetic_context(step, b, t, d)).to(dev, dt)
+    return batch
+
+
 def _tree_equal(a, b) -> bool:
     from repro_torch import tree
     la, lb = tree.tree_leaves(a), tree.tree_leaves(b)
@@ -3991,6 +4061,22 @@ def _tree_equal(a, b) -> bool:
 def _clone_tree(t):
     from repro_torch import tree
     return tree.tree_map(lambda x: x.clone(), t)
+
+
+def _to_device(t, dev):
+    """Every leaf of ``t`` (None stays None) on ``dev``."""
+    from repro_torch import tree
+    return None if t is None else tree.tree_map(lambda x: x.to(dev), t)
+
+
+def _fresh_peak(dev) -> Optional[int]:
+    """Release the allocator's cache and restart the peak count; returns
+    the bytes still allocated (None off the card)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def rank_agreement(synced, grads, residual, nd: int, exact: bool,
@@ -4039,7 +4125,8 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
     twice from one seeded state, kernels on and ``use_kernels=False`` in
     turns; the synced gradients, residuals and updated params and
     optimizer state bitwise equal; every rank holding the same synced
-    gradients; each kernel launched as the compiled plan says x steps."""
+    gradients; each kernel launched as the compiled plan says x steps;
+    the peak device memory under ``PEAK_LIMIT`` (:func:`check_peak`)."""
     from repro_torch.core import make_engine
     from repro_torch.data.pipeline import BigramStream, DataConfig
     from repro_torch.mesh import LocalMesh
@@ -4047,7 +4134,6 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
     from repro_torch.train import optimizer as O
     from repro_torch.train import step as S
 
-    cuda = dev.type == "cuda"
     sync_dev = _dev_sync(dev)
     mesh = LocalMesh(axes, device=dev)
     outer = "pod" if "pod" in axes else None
@@ -4056,9 +4142,7 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
     eng_p = make_engine(backend, outer_axis=outer, use_kernels=False, **kw)
     model = Model(cfg)
     opt = O.adamw(O.warmup_cosine(sizes.lr, sizes.warmup, sizes.e2e_steps))
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    at_start = _fresh_peak(dev)
     st_k = S.init_state(model, opt, torch.Generator(device=dev)
                         .manual_seed(seed), eng_k, mesh=mesh, arenas=True)
     st_p = S.TrainState(_clone_tree(st_k.params), _clone_tree(st_k.opt),
@@ -4074,22 +4158,41 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
     reset_counts()
     t_g, t_k, t_p, spread = [], [], [], 0.0
     for step in range(sizes.steps):
-        batch = stream.batch(step)
+        batch = train_batch(model, stream, step, dev)
         sync_dev()
         t0 = time.perf_counter()
         grads, metrics = S.local_grads(model, st_k, batch, mesh)
         sync_dev()
         t_g.append((time.perf_counter() - t0) * 1e3)
 
-        def run(eng, st):
+        # each path's old state is dropped once that path has run, and
+        # the first path's new EF residual waits on the host while the
+        # second runs, so no more than two residuals share the card
+        # (whisper's [8, 304M] f32 residuals are 9.7 GB each)
+        old = {"k": st_k, "p": st_p}
+        st_k = st_p = None
+
+        def run(which, eng):
+            st = old.pop(which)
             sync_dev()
             t0 = time.perf_counter()
             out = S.sync_and_update(eng, opt, st, grads, metrics, mesh)
             sync_dev()
-            return out, (time.perf_counter() - t0) * 1e3
+            dt = (time.perf_counter() - t0) * 1e3
+            if which == "k":
+                agree.append(rank_agreement(out[2], grads, st.ef_residual,
+                                            mesh.rank_ndim, exact,
+                                            compressor))
+            if old:                         # the first path of the step
+                out[0].ef_residual = _to_device(out[0].ef_residual, "cpu")
+            return out, dt
 
+        agree: list = []
         ((new_k, m_k, syn_k), dt_k), ((new_p, m_p, syn_p), dt_p) = \
-            in_turns(step, lambda: run(eng_k, st_k), lambda: run(eng_p, st_p))
+            in_turns(step, lambda: run("k", eng_k), lambda: run("p", eng_p))
+        spread = max([spread] + agree)
+        new_k.ef_residual = _to_device(new_k.ef_residual, dev)
+        new_p.ef_residual = _to_device(new_p.ef_residual, dev)
         t_k.append(dt_k)
         t_p.append(dt_p)
         what = f"train {backend}/{compressor} step {step}"
@@ -4102,9 +4205,6 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
               f"{what}: updated params or optimizer state differ")
         check(all(math.isfinite(float(v)) for v in m_k.values()),
               f"{what}: non-finite metrics {m_k}")
-        spread = max(spread, rank_agreement(
-            syn_k, grads, st_k.ef_residual, mesh.rank_ndim, exact,
-            compressor))
         st_k, st_p = new_k, new_p
         del grads, syn_k, syn_p, new_k, new_p
     launches = read_counts()
@@ -4122,8 +4222,9 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
             "bitwise_equal_to_plain": True,
             "ranks_bitwise": exact, "max_rank_spread": spread,
             "last_metrics": {k: float(v) for k, v in m_k.items()},
-            "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                     if cuda else None)}
+            "allocated_at_start": at_start,
+            "max_memory_allocated": check_peak(
+                dev, f"train {backend}/{compressor} step check")}
 
 
 def _timed_step(step_fn, sync_dev, times: list):
@@ -4313,6 +4414,485 @@ def train_path(cfg, seed: int, sizes: TrainSizes = TRAIN, *,
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phases 16-19: MLA, encdec and vlm served at full width, whisper trained
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ZooSizes:
+    """A serve phase of the MLA, encdec or vlm family: its traffic, the
+    depth it runs at (``layers``; None = the config's) and the depth of
+    its f32 check (``f32_layers``: a fresh f32 model of that depth, where
+    the served depth in f32 would not fit; None = the served weights cast
+    to f32 in place), and the engine's mix (none for encdec and vlm,
+    whose engine reads no context: ROADMAP.md R6)."""
+    batch: int                 # prefill / decode batch
+    prompt: int                # prefill tokens (decode ticks, as the
+                               # reference prefills these stacks)
+    steps: int                 # greedy decode steps after it
+    check_steps: int           # decode steps held against Model.forward
+    timed_steps: int           # encdec: decode steps timed with the
+                               # context re-encoded and encoded once
+    layers: Optional[int] = None
+    f32_layers: Optional[int] = None
+    slots: int = 0
+    requests: tuple = ()
+
+
+# deepseek-v2-236b at full width cut to 1 dense + 3 MoE layers (26.8 GB
+# of bf16 weights, 1.3e10 parameters; the config's 60 layers are about
+# 472 GB), its f32 check on a fresh 1 dense + 1 MoE model (21.4 GB; the
+# four layers would be 53.6 GB in f32)
+SERVE_MLA = ZooSizes(batch=8, prompt=32, steps=32, check_steps=8,
+                     timed_steps=8, layers=4, f32_layers=2, slots=4,
+                     requests=((8, 16), (48, 16), (16, 16), (40, 16),
+                               (24, 16), (32, 16), (12, 16), (44, 16)))
+SERVE_ENCDEC = ZooSizes(batch=8, prompt=32, steps=32, check_steps=8,
+                        timed_steps=8)
+SERVE_VLM = ZooSizes(batch=4, prompt=32, steps=32, check_steps=8,
+                     timed_steps=8)
+# the same paths at sizes a CPU runs in seconds (a rehearsal only)
+SERVE_MLA_SMOKE = ZooSizes(batch=2, prompt=5, steps=3, check_steps=3,
+                           timed_steps=2, layers=3, f32_layers=2, slots=2,
+                           requests=((3, 4), (6, 3), (2, 5)))
+SERVE_ZOO_SMOKE = ZooSizes(batch=2, prompt=5, steps=3, check_steps=3,
+                           timed_steps=2)
+
+
+# no phase of this slice may hold more device memory than this
+PEAK_LIMIT = 75e9
+
+
+def check_peak(dev, what: str) -> Optional[int]:
+    """The device's peak allocation since the last reset, held under
+    ``PEAK_LIMIT``; None off the card."""
+    if dev.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < PEAK_LIMIT, f"{what}: peak device memory {peak / 1e9:.1f} "
+          f"GB (limit {PEAK_LIMIT / 1e9:.0f} GB)")
+    return peak
+
+
+def check_no_launches(got: dict, what: str) -> None:
+    """None of the ported kernels launched: the MLA, encdec and vlm
+    serving paths reach no Pallas kernel in the reference, and none
+    here."""
+    check(not any(got.values()), f"{what}: kernels launched {got}")
+
+
+def no_drop(cfg):
+    """``cfg`` with a MoE capacity that drops no token of a batched
+    forward (every expert's slots at least its group's tokens): the
+    forward then computes what single-token decode does, which never
+    drops.  Non-MoE configs come back as they are."""
+    if cfg.family != "moe":
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=(m.n_experts + 1) / m.top_k))
+
+
+def forward_vs_decode(model, params, toks, steps: int, dev, rel: float,
+                      context=None, replay: bool = False) -> dict:
+    """``Model.forward`` over ``toks`` [B, T + steps] (a MoE config
+    without drops, :func:`no_drop`) against ``prefill`` of the first T
+    tokens and ``steps`` decode steps fed the rest: the logits of
+    positions T-1 .. T+steps-1 within ``rel`` (:func:`hold_logits`).
+    With ``replay`` a MoE stack's decode steps take the forward's expert
+    choices, token by token (:class:`RoutingReplay`: a random bf16 router
+    sits one rounding from a tie often, and a flipped choice computes
+    another function); the record counts the rows whose own choice
+    differed."""
+    from repro_torch.models import Model
+
+    b, n = toks.shape
+    t = n - steps
+    kw = {} if context is None else {"context": context}
+    fwd = Model(no_drop(model.cfg), use_kernels=model.use_kernels)
+    replay = replay and model.cfg.family == "moe"
+    with torch.no_grad(), RoutingLog() as log:
+        hidden, _ = fwd.forward(params, toks, **kw)
+        want = fwd.logits(params, hidden[:, t - 1:])
+    del hidden
+    # the forward routes all B x n tokens at once, a decode step one
+    # position of every row: per position, each MoE layer's choices
+    routes = [r.reshape(b, n, -1)[:, i] for i in range(n)
+              for r in log.calls]
+    cache = model.init_cache(b, n + 1, params["embed"].dtype, device=dev)
+    with RoutingReplay(routes) if replay else contextlib.nullcontext() as rr:
+        lg, cache = model.prefill(params, toks[:, :t], cache, **kw)
+        got = [lg]
+        for i in range(steps):
+            lg, cache = model.decode_step(params, toks[:, t + i], cache,
+                                          t + i, **kw)
+            got.append(lg)
+    _sync(dev)
+    out = hold_logits(list(want.unbind(1)), got, rel)
+    if replay:
+        out.update(routing_replayed=True, routing_rows_apart=rr.apart,
+                   routing_rows=rr.rows)
+    return out
+
+
+def draw_gates_(params, gen) -> list:
+    """Every vlm ``cross`` gate drawn in place from ``gen``: uniform in
+    ±[0.3, 1.2] (the reference starts them at 0, where tanh(0) = 0 hides
+    the cross attention).  Returns the drawn values."""
+    drawn = []
+    for name, blk in params["layers"].items():
+        if not name.endswith("_cross"):
+            continue
+        for g in ("gate_attn", "gate_ffn"):
+            x = blk[g]
+            mag = 0.3 + 0.9 * torch.rand(x.shape, generator=gen,
+                                         device=x.device)
+            sign = torch.randint(0, 2, x.shape, generator=gen,
+                                 device=x.device) * 2 - 1
+            blk[g] = (mag * sign).to(x.dtype)
+            drawn += blk[g].tolist()
+    return drawn
+
+
+def materialized_mla(p, x, cfg, n_heads: int, theta: float):
+    """Causal MLA with every head's keys and values formed from the
+    latents (``W_uk c ⊕ k_rope``, ``W_uv c``) and a plain softmax: what
+    the absorbed-projection trick must equal."""
+    from repro_torch.models import mla as MLA
+
+    t = x.shape[1]
+    pos = torch.arange(t, device=x.device)[None]
+    q_nope, q_rope = MLA._queries(p, x, n_heads, cfg, pos, theta)
+    c_kv, k_rope = MLA._latents(p, x, cfg, pos, theta)
+    b = x.shape[0]
+    k = torch.cat([(c_kv @ p["w_uk"]).reshape(b, t, n_heads,
+                                              cfg.nope_head_dim),
+                   k_rope[:, :, None].expand(b, t, n_heads, -1)], -1)
+    v = (c_kv @ p["w_uv"]).reshape(b, t, n_heads, cfg.v_head_dim)
+    s = torch.einsum("bqhd,bkhd->bhqk", torch.cat([q_nope, q_rope], -1),
+                     k) / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    o = torch.einsum("bhqk,bkhv->bqhv", s.masked_fill(~causal, -1e30)
+                     .softmax(-1), v)
+    return o.reshape(b, t, -1) @ p["wo"]
+
+
+def mla_checks(params, cfg, gen, dev, t: int = 64) -> dict:
+    """One MLA layer's absorbed attention (``mla_attention``) against
+    :func:`materialized_mla` on random f32 inputs within ``F32_REL`` of
+    the largest |output|; and the latent cache's bytes a token against a
+    128-head GQA cache's."""
+    from repro_torch.models import mla as MLA
+
+    p = params["rem"]["rem0_dense_self"]["attn"]
+    x = torch.randn((2, t, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        got = MLA.mla_attention(p, x, n_heads=cfg.n_heads, cfg=cfg.mla,
+                                rope_theta=cfg.rope_theta)
+        want = materialized_mla(p, x, cfg.mla, cfg.n_heads, cfg.rope_theta)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    check(err <= F32_REL, f"absorbed MLA differs from the materialized "
+          f"heads by {err:.3g} of the largest |output| (> {F32_REL})")
+    m = cfg.mla
+    latent = (m.kv_lora + m.rope_head_dim) * 2
+    per_head = 2 * cfg.n_heads * (m.nope_head_dim + m.rope_head_dim) * 2
+    return {"absorbed_vs_materialized_rel": err, "rel": F32_REL,
+            "tokens": t, "cache_bytes_per_token_layer": latent,
+            "gqa_cache_bytes_per_token_layer": 2 * cfg.n_heads * 128 * 2,
+            "mha_192_cache_bytes_per_token_layer": per_head,
+            "reduction_vs_gqa": 2 * cfg.n_heads * 128 * 2 / latent}
+
+
+def encode_costs(model, params, toks, ctx, dev, steps: int) -> dict:
+    """What re-encoding an encdec model's context on every call costs:
+    ``steps`` decode steps after a prefill, timed with
+    ``Model.decode_step`` (which re-encodes, as the reference's does) and
+    with the context encoded once and passed to ``decode.decode_step``;
+    the encoder alone."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    b, t = toks.shape
+    cfg = model.cfg
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        enc = T.encode(params, cfg, ctx)
+        _sync(dev)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        times = {"reencoded": [], "encoded_once": []}
+        for how in times:
+            cache = model.init_cache(b, t + steps + 1,
+                                     params["embed"].dtype, device=dev)
+            lg, cache = model.prefill(params, toks, cache, context=ctx)
+            for i in range(steps):
+                tok = lg.argmax(-1)
+                _sync(dev)
+                t0 = time.perf_counter()
+                if how == "reencoded":
+                    lg, cache = model.decode_step(params, tok, cache, t + i,
+                                                  context=ctx)
+                else:
+                    lg, cache = D.decode_step(params, cfg, tok, cache, t + i,
+                                              context=enc)
+                _sync(dev)
+                times[how].append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median
+    return {"encode_ms": encode_ms,
+            "decode_step_ms_reencoded": med(times["reencoded"]),
+            "decode_step_ms_encoded_once": med(times["encoded_once"]),
+            "step_ms": times}
+
+
+def zoo_serve_path(cfg, seed: int, sizes: ZooSizes, *, device="cuda",
+                   phase: str = "serve_mla") -> list[dict]:
+    """An MLA, encdec or vlm model at full width on seeded random bf16
+    weights made on the device (``sizes.layers`` cuts the depth), the
+    served configuration, with its stub context (``synthetic_context``
+    in bf16) where the family takes one; vlm gates drawn non-zero
+    (:func:`draw_gates_`):
+
+      * ``prefill`` of ``batch`` prompts of ``prompt`` tokens (decode
+        ticks, the reference's prefill of these stacks), then ``steps``
+        greedy ``decode_step``s, timed
+      * with context: a second context gives logits apart by more than
+        ``BF16_REL`` of the largest |logit| (encoder and cross attention
+        live)
+      * :func:`forward_vs_decode` over ``check_steps`` within ``BF16_REL``
+      * encdec: :func:`encode_costs`
+      * a profile of one decode step
+      * MLA: :func:`engine_path` over ``requests`` (fresh one-slot
+        engines to hold the completions)
+
+    then the f32 check: :func:`forward_vs_decode` within ``F32_REL`` on
+    the weights cast to f32 in place, or on a fresh f32 model of
+    ``f32_layers``; MLA: :func:`mla_checks` and the engine again, where
+    f32 leaves few near-ties to stop the comparison.  No ported kernel
+    launches on these paths (:func:`check_no_launches`); each part's
+    peak device memory stays under ``PEAK_LIMIT``."""
+    from repro_torch import tree
+    from repro_torch.models import Model
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    run_cfg = cfg if sizes.layers is None else \
+        dataclasses.replace(cfg, n_layers=sizes.layers)
+    model = Model(run_cfg)
+    at_start = _fresh_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    gates = draw_gates_(params, gen) if cfg.family == "vlm" else []
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree.tree_leaves(params))
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree.tree_leaves(params))
+    n = sizes.prompt + sizes.check_steps
+    toks = torch.randint(0, cfg.vocab, (sizes.batch, n), device=dev,
+                         generator=gen)
+    prompt = toks[:, :sizes.prompt]
+    spec = model.context_inputs(sizes.batch)
+    ctx = alt = None
+    if spec is not None:
+        from repro_torch.data.pipeline import synthetic_context
+
+        (b, tc, d), dt = spec
+        ctx, alt = (torch.from_numpy(synthetic_context(s, b, tc, d))
+                    .to(dev, dt) for s in (seed, seed + 1))
+    reset_counts()
+    run_model(model, params, prompt[:, :2], 1, dev, context=ctx)  # warm-up
+    run = run_model(model, params, prompt, sizes.steps, dev, context=ctx)
+    if ctx is not None:
+        other = run_model(model, params, prompt, 1, dev,
+                          feed=run["tokens"], context=alt)
+        apart = max(((a.float() - b.float()).abs().amax(-1)
+                     / a.float().abs().amax(-1)).max().item()
+                    for a, b in zip(run["logits"], other["logits"]))
+        check(apart > BF16_REL, f"a second context moves the logits by "
+              f"{apart:.3g} of the largest |logit| (<= {BF16_REL}): the "
+              "context is not read")
+    vs_fwd = forward_vs_decode(model, params, toks, sizes.check_steps, dev,
+                               BF16_REL, context=ctx, replay=True)
+    record = {
+        "phase": phase, "program": "prefill_decode", "model": cfg.name,
+        "layers": run_cfg.n_layers, "config_layers": cfg.n_layers,
+        "allocated_at_start": at_start,
+        "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+        "batch": sizes.batch, "prompt": sizes.prompt, "steps": sizes.steps,
+        "prefill_ms": run["prefill_ms"],
+        "prefill_ms_per_tick": run["prefill_ms"] / sizes.prompt,
+        "decode_ms_per_step": statistics.median(run["step_ms"]),
+        "decode_tokens_per_s": sizes.batch
+        / statistics.median(run["step_ms"]) * 1e3,
+        "bf16_rel": BF16_REL, "prefill_vs_decode": vs_fwd,
+        "top2_gap_rel_median": torch.cat(
+            [_top2_gap(lg) / lg.float().abs().amax(-1)
+             for lg in run["logits"]]).median().item(),
+    }
+    if gates:
+        record["gates"] = gates
+    if ctx is not None:
+        record["context_b_vs_a_rel"] = apart
+        record["context"] = list(ctx.shape)
+    if cfg.family == "encdec":
+        record["encode"] = encode_costs(model, params, prompt[:, :4], ctx,
+                                        dev, sizes.timed_steps)
+    launches = read_counts()
+    check_no_launches(launches, f"{phase} prefill and decode")
+    if cuda:
+        cache = model.init_cache(sizes.batch, sizes.prompt + 2, device=dev)
+        kw = {} if ctx is None else {"context": ctx}
+        record["profile"] = {"decode_step": device_profile(
+            lambda: model.decode_step(params, prompt[:, 0], cache,
+                                      sizes.prompt, **kw))}
+        del cache
+    recs = [record]
+    if sizes.requests:
+        eng = engine_path(model, params, cfg, sizes, seed, dev, BF16_REL,
+                          expect_kernels=False, phase=phase)
+        check_no_launches(eng["launches"], f"{phase} engine")
+        recs.append(eng)
+    record["max_memory_allocated"] = check_peak(dev, phase)
+
+    # the semantics check in f32
+    model32 = model
+    if sizes.f32_layers is not None:
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+        model32 = Model(dataclasses.replace(cfg, n_layers=sizes.f32_layers))
+        params = model32.init(gen, device=dev)
+    cast_params_(params, torch.float32)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    f32 = {"rel": F32_REL, "layers": model32.cfg.n_layers,
+           "params": sum(x.numel() for x in tree.tree_leaves(params))}
+    reset_counts()
+    f32["prefill_vs_decode"] = forward_vs_decode(
+        model32, params, toks, sizes.check_steps, dev, F32_REL,
+        context=None if ctx is None else ctx.float())
+    if cfg.mla is not None:
+        record["mla"] = mla_checks(params, model32.cfg, gen, dev)
+    check_no_launches(read_counts(), f"{phase} f32 check")
+    if sizes.requests:
+        # bf16 near-ties leave the fresh engines little to compare
+        eng32 = engine_path(model32, params, model32.cfg, sizes, seed, dev,
+                            F32_REL, expect_kernels=False, phase=phase)
+        check_no_launches(eng32["launches"], f"{phase} f32 engine")
+        check(eng32["fresh_engine_tokens_compared"] > 0,
+              f"{phase}: the f32 engine compared no token")
+        eng32["program"] = "engine_f32"
+        recs.append(eng32)
+    f32["max_memory_allocated"] = check_peak(dev, f"{phase} f32")
+    record["f32_check"] = f32
+    record["launches"] = launches
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    for r in recs:
+        r["phase_seconds"] = time.perf_counter() - t_phase
+    return recs
+
+
+# whisper-small trained on {"data": 8}: one 256-token sequence and its
+# 1,500-frame context a rank; 3 checked steps a backend, then 20 steps of
+# acis with AdamW warmup_cosine(3e-4, 5, 20)
+TRAIN_ENCDEC = TrainSizes(batch=8, seq=256, steps=3, e2e_steps=20, ckpt_at=0,
+                          log_every=1, lr=3e-4, warmup=5, bar=0.0)
+TRAIN_ENCDEC_SMOKE = TrainSizes(batch=8, seq=16, steps=1, e2e_steps=4,
+                                ckpt_at=0, log_every=1, lr=1e-2, warmup=1,
+                                bar=0.0)
+TRAIN_ENCDEC_BACKENDS = (("acis", None, {"data": 8}),
+                         ("acis_compressed", "int8_hopquant", {"data": 8}))
+
+
+def train_descent(cfg, seed: int, sizes: TrainSizes, dev, *,
+                  expect_kernels: bool = True) -> dict:
+    """``sizes.e2e_steps`` steps of ``acis`` with kernels on
+    ``LocalMesh({"data": 8})``, AdamW with ``warmup_cosine(lr, warmup,
+    e2e_steps)``, the batch and its context split over the ranks: the
+    nll of the last step below the first (the reference's
+    ``test_smoke_train_step_loss_decreases`` bar), ``fused_hop`` /
+    ``fused_pack`` launched as the plan says x steps; step ms, tokens/s,
+    peak memory and one profiled step split into forward + backward,
+    sync and optimizer."""
+    from repro_torch import tree
+    from repro_torch.core import make_engine
+    from repro_torch.data.pipeline import BigramStream, DataConfig
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    cuda = dev.type == "cuda"
+    sync_dev = _dev_sync(dev)
+    mesh = LocalMesh({"data": 8}, device=dev)
+    stream = BigramStream(DataConfig(vocab=cfg.vocab, seq_len=sizes.seq,
+                                     global_batch=sizes.batch, seed=7))
+    model = Model(cfg)
+    opt = O.adamw(O.warmup_cosine(sizes.lr, sizes.warmup, sizes.e2e_steps))
+    eng = make_engine("acis")
+    _fresh_peak(dev)
+    st = S.init_state(model, opt, torch.Generator(device=dev)
+                      .manual_seed(seed), eng, mesh=mesh, arenas=True)
+    per_sync = expected_launches(eng.last_sync_program(), mesh)
+    times: list = []
+    step_fn = _timed_step(S.build_train_step_acis(model, opt, mesh, eng),
+                          sync_dev, times)
+    reset_counts()
+    curve = []
+    for step in range(sizes.e2e_steps):
+        st, m = step_fn(st, train_batch(model, stream, step, dev))
+        curve.append([step, float(m["nll"])])
+    launches = read_counts()
+    nll0, nll1 = curve[0][1], curve[-1][1]
+    check(all(math.isfinite(v) for _, v in curve), "non-finite nll")
+    check(nll1 < nll0 - sizes.bar, f"train_encdec: nll {nll0} -> {nll1} "
+          "did not fall")
+    if expect_kernels:
+        check_launches(launches, per_sync, sizes.e2e_steps)
+    peak = check_peak(dev, "train_encdec descent")
+    profile = train_profile(model, opt, eng, st, train_batch(
+        model, stream, sizes.e2e_steps, dev), mesh) if cuda else None
+    med = statistics.median(times[1:] or times)
+    return {"phase": "train_encdec", "program": "descent",
+            "backend": "acis", "mesh": {"data": 8}, "model": cfg.name,
+            "params": sum(p.numel() for p in tree.tree_leaves(st.params)),
+            "global_batch": sizes.batch, "seq": sizes.seq,
+            "context": [sizes.batch, cfg.encdec.encoder_seq, cfg.d_model],
+            "steps": sizes.e2e_steps, "curve": curve,
+            "nll_first": nll0, "nll_last": nll1,
+            "step_ms": times, "median_step_ms": med,
+            "tokens_per_s": sizes.batch * sizes.seq / (med * 1e-3),
+            "launches_per_sync": per_sync, "launches": launches,
+            "max_memory_allocated": peak, "profile": profile}
+
+
+def train_encdec_path(cfg, seed: int, sizes: TrainSizes = TRAIN_ENCDEC, *,
+                      device="cuda", expect_kernels: bool = True
+                      ) -> list[dict]:
+    """The train_encdec phase: the kernels-vs-plain step check
+    (:func:`train_sync_check`, the batch's context split over the ranks
+    with its tokens) on each backend of ``TRAIN_ENCDEC_BACKENDS``, then
+    :func:`train_descent`."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    recs = [train_sync_check(cfg, seed, sizes, backend, comp, axes, dev,
+                             expect_kernels=expect_kernels)
+            for backend, comp, axes in TRAIN_ENCDEC_BACKENDS]
+    recs.append(train_descent(cfg, seed, sizes, dev,
+                              expect_kernels=expect_kernels))
+    for r in recs:
+        r["phase"] = "train_encdec"
+        r["phase_seconds"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return recs
+
+
 # device kernels of a ring sync counted by name: PyTorch's rolls and its
 # index kernels (the per-rank gathers and the all-gather's puts), and the
 # hand-written hops, combines and pack
@@ -4415,10 +4995,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.configs.acis_100m import CONFIG
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
+    from repro_torch.configs.llama_3_2_vision_11b import CONFIG as VISION
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
     from repro_torch.configs.qwen3_8b import CONFIG as QWEN3
     from repro_torch.configs.recurrentgemma_9b import CONFIG as RGEMMA
     from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
+    from repro_torch.configs.whisper_small import CONFIG as WHISPER
     from repro_torch.kernels import build
     from repro_torch.mesh import LocalMesh
 
@@ -4507,6 +5090,17 @@ def main() -> int:
             rec["phase_seconds"] = time.perf_counter() - t0
             paths.append(rec)
             emit(rec)
+    for cfg, sizes, phase in ((DEEPSEEK, SERVE_MLA, "serve_mla"),
+                              (WHISPER, SERVE_ENCDEC, "serve_encdec"),
+                              (VISION, SERVE_VLM, "serve_vlm")):
+        for rec in zoo_serve_path(cfg, args.seed, sizes, phase=phase):
+            rec["card"] = smi
+            paths.append(rec)
+            emit(rec)
+    for rec in train_encdec_path(WHISPER, args.seed):
+        rec["card"] = smi
+        paths.append(rec)
+        emit(rec)
     records.extend(paths)
 
     kernels = []

@@ -2,15 +2,13 @@
 
 ``get(name)`` returns the full published config and ``get_smoke(name)``
 the reduced same-family config of the CPU tests, as
-:mod:`repro.configs` does.  The port holds a config once it runs the
-model's path: the dense models (``acis-100m`` — its model path and its
-gradient leaves, for the sync paths — ``granite-8b``, ``granite-3-8b``,
-``qwen3-8b``, ``nemotron-4-15b``), the GQA MoE ``qwen2-moe-a2.7b``,
-``rwkv6-1.6b`` and ``recurrentgemma-9b`` (serving).  Every other name of
-the reference's registry raises ``NotImplementedError`` naming the
-ROADMAP.md item it waits for.  Names resolve as the reference resolves
-them: a canonical dashed id, or its module name with ``-`` and ``.``
-spelled ``_`` (``qwen2-moe-a2-7b`` is ``qwen2-moe-a2.7b``).
+:mod:`repro.configs` does.  The port holds every config of the
+reference's registry, and runs each model's path: the ten assigned
+architectures and ``acis-100m`` (the paper's example model, whose
+gradient leaves the sync paths use).  Names resolve as the reference
+resolves them: a canonical dashed id, or its module name with ``-`` and
+``.`` spelled ``_`` (``qwen2-moe-a2-7b`` is ``qwen2-moe-a2.7b``); any
+other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -26,23 +24,19 @@ PORTED = {
     "qwen3-8b": "qwen3_8b",
     "granite-3-8b": "granite_3_8b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
-    "rwkv6-1.6b": "rwkv6_1_6b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "whisper-small": "whisper_small",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "acis-100m": "acis_100m",
-}
-
-# the reference's other ids -> the ROADMAP.md item that ports their path
-WAITING = {
-    "deepseek-v2-236b": "queue 1 item 6 (models: MLA attention)",
-    "whisper-small": "queue 1 item 6 (models: the encdec family)",
-    "llama-3.2-vision-11b": "queue 1 item 6 (models: the vlm family)",
 }
 
 
 def _canonical(name: str) -> str:
     """The dashed id of ``name`` (a dashed id or its module spelling)."""
     key = name.replace("-", "_").replace(".", "_")
-    for known in (*PORTED, *WAITING):
+    for known in PORTED:
         if known.replace("-", "_").replace(".", "_") == key:
             return known
     return name
@@ -50,10 +44,6 @@ def _canonical(name: str) -> str:
 
 def _module(name: str):
     name = _canonical(name)
-    if name in WAITING:
-        raise NotImplementedError(
-            f"{name} is not ported yet: it waits for ROADMAP.md "
-            f"{WAITING[name]}")
     if name not in PORTED:
         raise KeyError(f"unknown model {name!r}; the port carries "
                        f"{sorted(PORTED)}")
@@ -69,6 +59,6 @@ def get_smoke(name: str) -> ModelConfig:
 
 
 def names() -> list[str]:
-    """The ids of the reference's ``names()`` the port runs a model path
-    for (``acis-100m`` is left out, as there)."""
+    """The reference's ``names()``: every id but ``acis-100m``, in the
+    reference's order."""
     return [k for k in PORTED if k != "acis-100m"]

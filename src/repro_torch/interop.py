@@ -10,7 +10,9 @@ reference's side, torch on the port's), leaf by leaf for pytrees, so a
 test can feed one seeded numpy input to both packages and compare.
 Model params and serving caches have the same tree in both packages
 (:func:`params_from_reference`, :func:`cache_from_reference` and their
-inverses), and so has a train state (:func:`train_state_from_reference`,
+inverses: every family's, an encdec model's ``enc`` and ``dec_pos``, MLA
+leaves and the 0-dim cross gates of a vlm model included), and so has a
+train state (:func:`train_state_from_reference`,
 whose EF residual is read per device).  Dtypes are carried over
 (bfloat16 through a float32 round trip, which is exact).
 """

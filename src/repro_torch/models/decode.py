@@ -1,12 +1,15 @@
 """Serving paths: cache init, prefill, and single-token decode.
 
-The port of :mod:`repro.models.decode` for the ``dense`` and ``moe`` (GQA
-attention), ``ssm`` and ``hybrid`` families.  Caches mirror the
-stacked-layer structure: one stacked cache per period position
-(``[n_periods, B, ...]``) plus unstacked caches for remainder layers.
-Cache kinds per block:
+The port of :mod:`repro.models.decode`.  Caches mirror the stacked-layer
+structure: one stacked cache per period position (``[n_periods, B,
+...]``) plus unstacked caches for remainder layers.  Cache kinds per
+block:
 
-  self/dense_self/moe_self — {k, v: [B, S, Hkv, dh]}, the full KV cache
+  self/dense_self/moe_self (GQA), dec_self_cross — {k, v: [B, S, Hkv,
+           dh]}, the full KV cache
+  dense_self/moe_self (MLA) — {c_kv: [B, S, kv_lora], k_rope: [B, S,
+           rope]}, the latent cache
+  cross  — {} (the context is static: nothing cached)
   rwkv   — {s: [B, H, K, V] f32, x_tok, x_ch: [B, D]}
   lru    — {h: [B, W] f32, conv: [B, cw-1, W]}
   window — ring buffer {k, v: [B, S, Hkv, dh], pos: [B, S] int32 (-1 =
@@ -14,25 +17,25 @@ Cache kinds per block:
 
 ``decode_step`` walks the stacked layers in a Python loop (the reference
 scans them); a MoE stack runs its remainder (the leading dense layers)
-first, every other stack last, as the reference does.  ``prefill`` takes
-the reference's routes: a pure-GQA stack one batched forward pass
-(:func:`_prefill_gqa_fast`) that also writes every layer's keys and
-values; a stack with MoE layers T decode steps (the reference's loop:
-capacity and drops are those of single-token decode).  The ``ssm`` and
-``hybrid`` stacks take the whole prompt through each layer in turn — one
-``rwkv6_recurrence`` or ``rglru_scan`` launch per recurrent layer, the
-causal + window mask over the prompt for a window layer — which computes
-what the reference's T decode steps from position 0 compute.  Both
-update the cache IN PLACE and return it: the counterpart of the
-reference engine's donated cache.  A caller that needs the cache as it
-was clones it first (``tree_map(torch.clone, cache)``).
+first, every other stack last, as the reference does.  An encdec
+decoder adds its learned position at ``index``; the cross attentions
+read ``context`` (the encoded audio, the image embeddings) at every
+step.  ``prefill`` takes the reference's routes: a pure-GQA stack one
+batched forward pass (:func:`_prefill_gqa_fast`) that also writes every
+layer's keys and values; a stack with MoE, MLA or cross layers T decode
+steps (the reference's loop).  The ``ssm`` and ``hybrid`` stacks take the
+whole prompt through each layer in turn — one ``rwkv6_recurrence`` or
+``rglru_scan`` launch per recurrent layer, the causal + window mask over
+the prompt for a window layer — which computes what the reference's T
+decode steps from position 0 compute.  Both update the cache IN PLACE
+and return it: the counterpart of the reference engine's donated cache.
+A caller that needs the cache as it was clones it first
+(``tree_map(torch.clone, cache)``).
 
 Under a tensor-parallel hook inside a mesh (:mod:`repro_torch.serve.
 collectives`) params and caches are rank-stacked slices and the
 activations carry the rank dims; ``rank0=True`` takes rank 0's hidden
 state before the final norm and head, so the logits are one ``[B, V]``.
-MLA caches (deepseek-v2) and the encdec and vlm kinds wait for ROADMAP.md
-queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -43,13 +46,14 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import parallel as TP
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
-    ATTENTION_KINDS, _attn_kw, _check_kind, _norm, _period_of, apply_block,
+    ATTENTION_KINDS, _attn_kw, _gated, _norm, _period_of, apply_block,
     layer_views, logits, rank0, ranked, rem_first)
 
 PyTree = Any
@@ -58,10 +62,14 @@ PyTree = Any
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, seq: int,
                  dtype=torch.bfloat16, *, device="cpu",
                  lead: tuple[int, ...] = ()) -> PyTree:
-    _check_kind(cfg, kind)
-    if kind in ATTENTION_KINDS:
+    if kind in ("dense_self", "moe_self") and cfg.mla is not None:
+        return MLA.init_mla_cache(batch, seq, cfg.mla, dtype, device=device,
+                                  lead=lead)
+    if kind in ATTENTION_KINDS + ("enc_self", "dec_self_cross"):
         return A.init_gqa_cache(batch, seq, cfg.n_kv_heads, cfg.head_dim,
                                 dtype, device=device, lead=lead)
+    if kind == "cross":
+        return {}                   # the context is static: nothing cached
     if kind == "rwkv":
         return RW.init_rwkv6_cache(batch, cfg.d_model, dtype, device=device,
                                    lead=lead)
@@ -84,14 +92,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
             "rem": {f"rem{j}_{kind}": _block_cache(
                 cfg, kind, batch, seq, dtype, device=device)
                 for j, kind in enumerate(rem)}}
-
-
-def _ported_stack(cfg: ModelConfig) -> tuple[list[str], int, list[str]]:
-    """:func:`_period_of`, raising for a kind the port does not run."""
-    period, n_periods, rem = _period_of(cfg)
-    for kind in period + rem:
-        _check_kind(cfg, kind)
-    return period, n_periods, rem
 
 
 def _layers(params: PyTree, cache: PyTree, cfg: ModelConfig):
@@ -146,15 +146,22 @@ def _norms(p, cfg):
 # ---------------------------------------------------------------------------
 
 def block_decode(p: PyTree, x: torch.Tensor, cache: PyTree, index,
-                 cfg: ModelConfig, kind: str, *, use_kernels: bool = True
-                 ) -> tuple[torch.Tensor, PyTree]:
+                 cfg: ModelConfig, kind: str, *, context=None,
+                 use_kernels: bool = True) -> tuple[torch.Tensor, PyTree]:
     """One token x [..., B, 1, D] through one block; ``index`` (scalar or
-    per-row [B]) is read by the attention and window layers."""
+    per-row [B]) is read by the attention and window layers, ``context``
+    by the cross attentions (``cross``, ``dec_self_cross``: without one
+    they attend to the token itself, as the reference's do)."""
+    akw = _attn_kw(cfg)
     if kind in ATTENTION_KINDS:
-        _check_kind(cfg, kind)
         tp = TP.current()
-        h, cache = A.gqa_decode(p["attn"], _norm(p["ln1"], x, cfg), cache,
-                                index, **_attn_kw(cfg))
+        xin = _norm(p["ln1"], x, cfg)
+        if kind != "self" and cfg.mla is not None:
+            h, cache = MLA.mla_decode(p["attn"], xin, cache, index,
+                                      n_heads=cfg.n_heads, cfg=cfg.mla,
+                                      rope_theta=cfg.rope_theta)
+        else:
+            h, cache = A.gqa_decode(p["attn"], xin, cache, index, **akw)
         if tp is not None:
             h = tp.attn_reduce(h)
         x = x + h
@@ -169,14 +176,27 @@ def block_decode(p: PyTree, x: torch.Tensor, cache: PyTree, index,
     if kind == "rwkv":
         return RW.rwkv6_decode(p["tok"], p["ch"], x, cache, *_norms(p, cfg),
                                use_kernels=use_kernels)
-    if kind == "window":
+    if kind == "cross":
+        h = A.gqa_attention(p["attn"], _norm(p["ln1"], x, cfg),
+                            context=context, causal=False,
+                            chunk=cfg.attn_chunk, **akw)
+        x = x + _gated(p["gate_attn"], h, x.dtype)
+        f = L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
+        return x + _gated(p["gate_ffn"], f, x.dtype), cache
+    if kind == "dec_self_cross":
+        h, cache = A.gqa_decode(p["attn"], _norm(p["ln1"], x, cfg), cache,
+                                index, use_rope=False, **akw)
+        x = x + h
+        h = A.gqa_attention(p["xattn"], _norm(p["ln_x"], x, cfg),
+                            context=context, causal=False, use_rope=False,
+                            chunk=cfg.attn_chunk, **akw)
+    elif kind == "window":
         h, cache = A.window_decode(p["attn"], _norm(p["ln1"], x, cfg), cache,
                                    index, **_window_kw(cfg))
     elif kind == "lru":
         h, cache = RG.rglru_decode(p["mixer"], _norm(p["ln1"], x, cfg),
                                    cache, use_kernels=use_kernels)
     else:
-        _check_kind(cfg, kind)
         raise ValueError(kind)
     x = x + h
     x = x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
@@ -220,49 +240,68 @@ def _head(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     return logits(params, cfg, _norm(params["final_norm"], x, cfg))[..., 0, :]
 
 
+def _dec_pos(table: torch.Tensor, index, dev) -> torch.Tensor:
+    """An encdec decoder's learned positions at ``index``: [B, 1, D] for a
+    per-row [B] index, [1, 1, D] for a scalar."""
+    if isinstance(index, int):
+        return table[index:index + 1][None]
+    idx = torch.as_tensor(index, device=dev).to(torch.int64)
+    if idx.dim():
+        return table[idx][:, None, :]
+    return table.index_select(0, idx.reshape(1))[None]
+
+
 def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
-                cache: PyTree, index, *, use_kernels: bool = True,
-                rank0: bool = False) -> tuple[torch.Tensor, PyTree]:
+                cache: PyTree, index, *, context=None,
+                use_kernels: bool = True, rank0: bool = False
+                ) -> tuple[torch.Tensor, PyTree]:
     """token: [B] int; ``index`` scalar or per-row [B] (RoPE, cache slot
-    and mask are per row).  Returns (logits [B, V] f32, cache), the cache
-    updated in place; under a tensor-parallel hook in a mesh the logits
-    are every rank's ``[*rank, B, V]``, or rank 0's with ``rank0``."""
-    period, _, rem = _ported_stack(cfg)
+    and mask are per row); ``context`` the cross attentions' memory
+    (encdec: already encoded).  Returns (logits [B, V] f32, cache), the
+    cache updated in place; under a tensor-parallel hook in a mesh the
+    logits are every rank's ``[*rank, B, V]``, or rank 0's with
+    ``rank0``."""
+    period, _, rem = _period_of(cfg)
     x = ranked(L.embed_lookup(params["embed"], token[:, None]))
+    if cfg.family == "encdec":
+        x = x + _dec_pos(params["dec_pos"], index, x.device).to(x.dtype)
     _follow_activations_(cache, x.dtype)
     if "window" in period + rem:           # one copy to the device
         index = torch.as_tensor(index, device=x.device)
     for p, c, kind in _layers(params, cache, cfg):
-        x, _ = block_decode(p, x, c, index, cfg, kind,
+        x, _ = block_decode(p, x, c, index, cfg, kind, context=context,
                             use_kernels=use_kernels)
     return _head(params, cfg, x, rank0), cache
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: PyTree, *, use_kernels: bool = True, rank0: bool = False
-            ) -> tuple[torch.Tensor, PyTree]:
+            cache: PyTree, *, context=None, use_kernels: bool = True,
+            rank0: bool = False) -> tuple[torch.Tensor, PyTree]:
     """Fill the caches with a whole prompt [B, T] from position 0;
     returns (last_logits, cache), the cache updated in place.
 
-    A pure-GQA stack takes :func:`_prefill_gqa_fast` (the reference's
-    batched pass); a stack with MoE layers T decode steps (the
-    reference's loop).  In the recurrent and window stacks each layer
-    takes the whole prompt at once (:func:`block_prefill`): recurrent
-    layers continue their cached state with one kernel launch over T,
-    window layers attend from position 0 (the reference's prefill starts
-    every sequence there); it computes what T decode steps from position
-    0 compute.
+    The reference's routes: a pure-GQA stack (``self``/``dense_self``, no
+    MLA) takes :func:`_prefill_gqa_fast`, its batched pass; every stack
+    with MoE, MLA or cross layers T decode steps (the reference's loop:
+    MoE capacity and drops are those of single-token decode, and every
+    step reads ``context``).  In the recurrent and window stacks each
+    layer takes the whole prompt at once (:func:`block_prefill`):
+    recurrent layers continue their cached state with one kernel launch
+    over T, window layers attend from position 0 (the reference's prefill
+    starts every sequence there); it computes what T decode steps from
+    position 0 compute.
     """
-    period, _, rem = _ported_stack(cfg)
+    period, _, rem = _period_of(cfg)
     kinds = set(period) | set(rem)
-    if kinds <= {"self", "dense_self"}:
+    if kinds <= {"self", "dense_self"} and cfg.mla is None:
         return _prefill_gqa_fast(params, cfg, tokens, cache, rank0=rank0)
-    if kinds & set(ATTENTION_KINDS):
+    if not kinds <= {"rwkv", "lru", "window"}:
         b, t = tokens.shape
         lg = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
         for i in range(t):
             lg, cache = decode_step(params, cfg, tokens[:, i], cache, i,
+                                    context=context,
                                     use_kernels=use_kernels, rank0=rank0)
         return lg, cache
     x = L.embed_lookup(params["embed"], tokens)

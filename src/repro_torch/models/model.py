@@ -8,11 +8,14 @@
     lg, cache = model.prefill(params, tokens, cache)   # cache in place
     lg, cache = model.decode_step(params, token, cache, index)
 
-The counterpart of :class:`repro.models.model.Model` for the families the
-port runs: the serving paths of ``dense`` and ``moe`` (GQA attention),
-``ssm`` (RWKV-6) and ``hybrid`` (RG-LRU + window attention,
-recurrentgemma); MLA attention (deepseek-v2), ``encdec`` and ``vlm`` wait
-for ROADMAP.md queue 1 item 6.  Params and caches live on the card
+The counterpart of :class:`repro.models.model.Model` for every family
+of the reference's zoo: ``dense``, ``moe`` (GQA or MLA attention),
+``ssm`` (RWKV-6), ``hybrid`` (RG-LRU + window attention), ``encdec``
+(whisper) and ``vlm`` (llama vision).  The last two take a ``context``:
+stub frame or patch embeddings of :meth:`Model.context_inputs`' shape,
+which an encdec model runs through its encoder and a vlm model reads as
+they are.  As the reference does, ``prefill`` and ``decode_step``
+re-encode the context on every call.  Params and caches live on the card
 unless the caller passes ``device=`` (the tests pass ``"cpu"``; ``"meta"``
 gives shapes and dtypes without memory).  ``use_kernels=False`` runs every
 kernel's plain PyTorch version instead, on any device — the engine's
@@ -20,8 +23,8 @@ convention, which ``chip_smoke.py`` uses to time both on the card.
 ``prefill`` and ``decode_step`` update the cache in place and return it;
 clone it first to keep the old one.  ``forward`` is the training forward
 (plain PyTorch under autograd, the config's remat policy; no kernel runs
-there, as none does in the reference's): tokens and params may carry
-rank dims in front (:mod:`repro_torch.train.step`).
+there, as none does in the reference's): tokens, context and params may
+carry rank dims in front (:mod:`repro_torch.train.step`).
 """
 
 from __future__ import annotations
@@ -58,19 +61,37 @@ class Model:
     def param_shapes(self) -> PyTree:
         return self.init(None, device="meta")
 
+    # -- stub modality frontends (the backbone only) --------------------
+
+    def context_inputs(self, batch: int
+                       ) -> Optional[tuple[tuple[int, ...], torch.dtype]]:
+        """The stub context's (shape, dtype): whisper's frame embeddings
+        ``[B, encoder_seq, D]`` or the vision patch embeddings ``[B,
+        image_tokens, D]``, bf16; ``None`` for a family without one."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return (batch, cfg.encdec.encoder_seq, cfg.d_model), \
+                torch.bfloat16
+        if cfg.family == "vlm":
+            return (batch, cfg.vlm.image_tokens, cfg.d_model), torch.bfloat16
+        return None
+
+    def _context(self, params: PyTree, context):
+        """encdec runs its encoder over the stub embeddings; vlm reads the
+        patch embeddings as they are."""
+        if context is None or self.cfg.family != "encdec":
+            return context
+        return T.encode(params, self.cfg, context)
+
     # -- training ------------------------------------------------------------
 
     def forward(self, params: PyTree, tokens: torch.Tensor, *,
                 context: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens [*rank, B, T] -> (hidden [*rank, B, T, D], aux_loss
-        [*rank]).  ``context`` (encdec / vlm stub inputs) waits with
-        those families."""
-        if self.cfg.family in ("encdec", "vlm") or context is not None:
-            raise NotImplementedError(
-                f"the {self.cfg.family} family (context inputs) is not "
-                f"ported yet: ROADMAP.md queue 1 item 6")
-        return T.forward(params, self.cfg, tokens)
+        [*rank]); ``context`` [*rank, B, Tc, D] for encdec and vlm."""
+        return T.forward(params, self.cfg, tokens,
+                         context=self._context(params, context))
 
     def logits(self, params: PyTree, hidden: torch.Tensor) -> torch.Tensor:
         return T.logits(params, self.cfg, hidden)
@@ -83,13 +104,18 @@ class Model:
                             device=_device(device))
 
     @torch.no_grad()
-    def prefill(self, params: PyTree, tokens: torch.Tensor,
-                cache: PyTree) -> tuple[torch.Tensor, PyTree]:
+    def prefill(self, params: PyTree, tokens: torch.Tensor, cache: PyTree,
+                *, context: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, PyTree]:
         return D.prefill(params, self.cfg, tokens, cache,
+                         context=self._context(params, context),
                          use_kernels=self.use_kernels)
 
     @torch.no_grad()
     def decode_step(self, params: PyTree, token: torch.Tensor,
-                    cache: PyTree, index) -> tuple[torch.Tensor, PyTree]:
+                    cache: PyTree, index, *,
+                    context: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, PyTree]:
         return D.decode_step(params, self.cfg, token, cache, index,
+                             context=self._context(params, context),
                              use_kernels=self.use_kernels)

@@ -1,28 +1,33 @@
 """Model assembly: blocks per family, the stacked layer layout, logits,
-and the inference forward of the attention stacks.
+the encoder, and the forward of every family.
 
-The part of :mod:`repro.models.transformer` the serving paths of the
-``dense`` and ``moe`` (GQA attention) families, ``ssm`` (RWKV-6) and
-``hybrid`` (RG-LRU + window attention) need.  Params keep the
+The port of :mod:`repro.models.transformer`.  Params keep the
 reference's tree: ``embed``, ``final_norm``, ``lm_head`` (untied),
 ``layers`` — one entry per position of the repeating period, each leaf
 stacked ``[n_periods, ...]`` — and ``rem``, the unstacked remainder (a
-MoE stack's leading dense layers, run *before* the periods).  Init takes
-an explicit ``torch.Generator`` and a device; the stacked leaves are
-drawn in one go (``lead=(n,)``), with the reference's distributions and
-dtypes leaf by leaf.
+MoE stack's leading dense layers, run *before* the periods); an encdec
+stack adds ``enc`` (``pos [encoder_seq, D]``, the stacked
+``layers.pos0_enc_self``, ``final_norm``) and ``dec_pos [max_seq, D]``.
+Init takes an explicit ``torch.Generator`` and a device; the stacked
+leaves are drawn in one go (``lead=(n,)``), with the reference's
+distributions and dtypes leaf by leaf.
+
+Families: dense ``[self] × L``; moe ``[dense_self] × lead + [moe_self]``
+(GQA or MLA attention); hybrid (``lru``, ``window``); ssm (``rwkv``);
+encdec, an encoder ``[enc_self] × Le`` (non-causal) and a decoder
+``[dec_self_cross] × L`` (no RoPE on either); vlm, periods of ``[cross,
+self × (k-1)]`` whose ``cross`` layers add ``tanh(gate)``-gated cross
+attention and FFN over the image embeddings.
 
 :func:`apply_block` and :func:`forward` are the reference's training
 forward (and the inference one, when nothing requires grad) for every
-ported kind; they consult the tensor-parallel hook
+kind; they consult the tensor-parallel hook
 (:mod:`repro_torch.models.parallel`) where the reference does.
 ``cfg.remat`` is the reference's ``_remat`` policy per period: ``"full"``
 checkpoints each period, ``"dots"`` saves its matmul outputs and
-recomputes the rest.
-Tokens may carry rank dims in front (``[*rank, B, T]``) with every param
-rank-stacked: the train step's per-rank gradients come from one forward
-and one backward that way.  MLA attention (deepseek-v2) and the
-``encdec`` and ``vlm`` kinds wait for ROADMAP.md queue 1 item 6.
+recomputes the rest.  Tokens and context may carry rank dims in front
+(``[*rank, B, T]``) with every param rank-stacked: the train step's
+per-rank gradients come from one forward and one backward that way.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch import tree
 from repro_torch.mesh import ambient
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import parallel as TP
 from repro_torch.models import rglru as RG
@@ -47,37 +53,26 @@ from repro_torch.models.config import ModelConfig
 PyTree = Any
 
 
-PORTED_KINDS = ("rwkv", "lru", "window", "self", "dense_self", "moe_self")
 ATTENTION_KINDS = ("self", "dense_self", "moe_self")
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: the port runs the dense "
-        f"and moe families with GQA attention ('self', 'dense_self', "
-        f"'moe_self'), ssm ('rwkv') and hybrid ('lru', 'window'); MLA "
-        f"attention (deepseek-v2), encdec (whisper) and vlm (llama "
-        f"vision) wait for ROADMAP.md queue 1 item 6")
-
-
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
-    if kind in ("dense_self", "moe_self") and cfg.mla is not None:
-        raise _not_ported(f"{kind} (MLA)")
 
 
 # ---------------------------------------------------------------------------
 # block init (one layer, or n stacked with lead=(n,))
 # ---------------------------------------------------------------------------
 
+def _init_attn(gen, cfg: ModelConfig, dt, qk_norm: bool, **kw) -> PyTree:
+    return A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, qk_norm, dt, **kw)
+
+
 def init_block(gen, cfg: ModelConfig, kind: str, *, device="cpu",
                lead: tuple[int, ...] = ()) -> PyTree:
-    """kind ∈ {self, dense_self, moe_self (GQA), rwkv, lru, window}; the
-    reference's other kinds raise."""
+    """kind ∈ {self, window, enc_self, cross, lru, moe_self, dense_self,
+    rwkv, dec_self_cross}; ``dense_self`` and ``moe_self`` attend by MLA
+    when the config has one.  A ``cross`` block's two gates are 0-dim f32
+    zeros (``[*lead]`` stacked), as the reference's."""
     dt = L._dtype(cfg.param_dtype)
     d = cfg.d_model
-    _check_kind(cfg, kind)
     norm = dict(device=device, lead=lead)
     p = {"ln1": L.init_norm(d, cfg.norm, **norm),
          "ln2": L.init_norm(d, cfg.norm, **norm)}
@@ -87,15 +82,26 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device="cpu",
         return p
     if kind == "lru":
         p["mixer"] = RG.init_rglru(gen, d, cfg.hybrid, dt, **norm)
+    elif kind in ("dense_self", "moe_self") and cfg.mla is not None:
+        p["attn"] = MLA.init_mla(gen, d, cfg.n_heads, cfg.mla, dt, **norm)
+    elif kind in ("self", "window", "enc_self", "cross", "dense_self",
+                  "moe_self", "dec_self_cross"):
+        p["attn"] = _init_attn(gen, cfg, dt, cfg.qk_norm, **norm)
     else:
-        p["attn"] = A.init_gqa(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim, cfg.qk_norm, dt, **norm)
+        raise ValueError(f"unknown block kind {kind}")
+    if kind == "dec_self_cross":
+        p["ln_x"] = L.init_norm(d, cfg.norm, **norm)
+        p["xattn"] = _init_attn(gen, cfg, dt, False, **norm)
     if kind == "moe_self":
         p["moe"] = MOE.init_moe(gen, d, cfg.moe, cfg.activation, dt, **norm)
     else:
         d_ff = cfg.moe.d_ff_dense or cfg.d_ff if kind == "dense_self" \
             else cfg.d_ff
         p["ffn"] = L.init_ffn(gen, d, d_ff, cfg.activation, dt, **norm)
+    if kind == "cross":
+        p["gate_attn"] = torch.zeros(lead, dtype=torch.float32,
+                                     device=device)
+        p["gate_ffn"] = torch.zeros(lead, dtype=torch.float32, device=device)
     return p
 
 
@@ -126,14 +132,27 @@ def _attn_kw(cfg: ModelConfig) -> dict:
                 rope_theta=cfg.rope_theta)
 
 
+def _gated(gate: torch.Tensor, h: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``tanh(gate)·h``, the f32 gate's tanh (0-dim, or ``[*rank]`` under
+    rank dims) rounded to the stream's ``dtype`` first, as the
+    reference's ``tanh(gate).astype(x.dtype) * h``."""
+    return L.lift(torch.tanh(gate).to(dtype), h, own=0) * h
+
+
 def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                context=None, q_offset: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One block over x [..., B, T, D] from position ``q_offset``: RWKV-6
     token and channel mix (``rwkv``), the RG-LRU block and its FFN
-    (``lru``), or attention (causal GQA; ``window`` with the local
-    window) then the dense FFN or the MoE FFN.  Returns (x, aux_loss);
-    the aux loss is the MoE's, one per rank under rank dims."""
-    _check_kind(cfg, kind)
+    (``lru``), attention then the dense FFN or the MoE FFN (``self``,
+    ``window``, ``dense_self``, ``moe_self``; MLA where the config has
+    it; ``enc_self`` without the causal mask), the gated cross-attention
+    layer over ``context`` (``cross``), or the decoder's causal self
+    attention, cross attention over ``context`` and FFN
+    (``dec_self_cross``, no RoPE).  The encdec family uses no RoPE.
+    Returns (x, aux_loss); the aux loss is the MoE's, one per rank under
+    rank dims."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         x = x + RW.rwkv6_token_mix(p["tok"], _norm(p["ln1"], x, cfg),
@@ -144,11 +163,34 @@ def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                                cfg=cfg.hybrid)
         return x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg),
                          cfg.activation), aux
+    akw = dict(_attn_kw(cfg), chunk=cfg.attn_chunk, q_offset=q_offset)
+    if kind == "cross":
+        h = A.gqa_attention(p["attn"], _norm(p["ln1"], x, cfg),
+                            context=context, causal=False, **akw)
+        x = x + _gated(p["gate_attn"], h, x.dtype)
+        f = L.ffn(p["ffn"], _norm(p["ln2"], x, cfg), cfg.activation)
+        return x + _gated(p["gate_ffn"], f, x.dtype), aux
+    if kind == "dec_self_cross":
+        x = x + A.gqa_attention(p["attn"], _norm(p["ln1"], x, cfg),
+                                causal=True, use_rope=False, **akw)
+        x = x + A.gqa_attention(p["xattn"], _norm(p["ln_x"], x, cfg),
+                                context=context, causal=False,
+                                use_rope=False, **akw)
+        return x + L.ffn(p["ffn"], _norm(p["ln2"], x, cfg),
+                         cfg.activation), aux
+    if kind not in ATTENTION_KINDS + ("window", "enc_self"):
+        raise ValueError(kind)
     tp = TP.current()
-    h = A.gqa_attention(p["attn"], _norm(p["ln1"], x, cfg), causal=True,
-                        window=cfg.hybrid.window if kind == "window" else None,
-                        chunk=cfg.attn_chunk, q_offset=q_offset,
-                        use_rope=cfg.family != "encdec", **_attn_kw(cfg))
+    if cfg.mla is not None and kind in ("dense_self", "moe_self"):
+        h = MLA.mla_attention(p["attn"], _norm(p["ln1"], x, cfg),
+                              n_heads=cfg.n_heads, cfg=cfg.mla,
+                              rope_theta=cfg.rope_theta, q_offset=q_offset,
+                              chunk=cfg.attn_chunk)
+    else:
+        h = A.gqa_attention(
+            p["attn"], _norm(p["ln1"], x, cfg), causal=kind != "enc_self",
+            window=cfg.hybrid.window if kind == "window" else None,
+            use_rope=cfg.family != "encdec", **akw)
     if tp is not None:
         h = tp.attn_reduce(h)
     x = x + h
@@ -229,7 +271,17 @@ def init_stack(gen, cfg: ModelConfig, *, device="cpu") -> PyTree:
     p["rem"] = {f"rem{j}_{kind}": init_block(gen, cfg, kind, device=device)
                 for j, kind in enumerate(rem)}
     if cfg.family == "encdec":
-        raise _not_ported("enc_self")
+        e = cfg.encdec
+        p["enc"] = {
+            "pos": (0.02 * L.normal(gen, (e.encoder_seq, cfg.d_model),
+                                    device)).to(dt),
+            "layers": {"pos0_enc_self": init_block(
+                gen, cfg, "enc_self", device=device,
+                lead=(e.n_encoder_layers,))},
+            "final_norm": L.init_norm(cfg.d_model, cfg.norm, device=device),
+        }
+        p["dec_pos"] = (0.02 * L.normal(gen, (cfg.max_seq, cfg.d_model),
+                                        device)).to(dt)
     return p
 
 
@@ -288,48 +340,83 @@ def _remat(fn, policy: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
-            q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [*rank, B, T] -> (hidden [*rank, B, T, D] after the final
-    norm, aux_loss [*rank]): the reference's ``forward``/``_scan_stack``
-    (a MoE stack's remainder first, every other's last; the periods'
-    aux losses summed as one stack, as its scan sums them).  With rank
-    dims every param carries them too (``[*rank, ...]``, the stacked
-    layers ``[*rank, n_periods, ...]``).  Under a tensor-parallel hook
-    inside a mesh (serving) the hidden states carry the rank dims."""
-    nd = tokens.dim() - 2
-    x = ranked(L.embed_lookup(params["embed"], tokens))
-    period, _, _ = _period_of(cfg)
+def _scan_stack(p_layers: PyTree, x: torch.Tensor, cfg: ModelConfig,
+                period: list[str], *, nd: int, context=None,
+                q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_scan_stack``: the stacked periods (the layer dim
+    after ``nd`` rank dims) in depth order, each period under the
+    config's remat policy; the periods' aux losses summed as one stack,
+    as its scan sums them."""
 
     def period_body(x, pp):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(period):
             x, a = apply_block(pp[f"pos{j}_{kind}"], x, cfg, kind,
-                               q_offset=q_offset)
+                               context=context, q_offset=q_offset)
             aux = aux + a
         return x, aux
+
+    body = _remat(period_body, cfg.remat)
+    auxs = []
+    for pp in layer_views(p_layers, dim=nd):
+        x, a = body(x, pp)
+        auxs.append(a)
+    if auxs and cfg.scan_layers:
+        return x, torch.stack(torch.broadcast_tensors(*auxs)).sum(0)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxs:
+        aux_total = aux_total + a
+    return x, aux_total
+
+
+def encode(params: PyTree, cfg: ModelConfig,
+           enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings [*rank, B, Te, D]:
+    the learned positions in the embeddings' dtype, the non-causal
+    ``enc_self`` stack without RoPE, the encoder's final norm."""
+    e = params["enc"]
+    nd = enc_embeds.dim() - 3
+    te = enc_embeds.shape[-2]
+    x = enc_embeds + L.lift(e["pos"][..., :te, :], enc_embeds, own=2).to(
+        enc_embeds.dtype)
+    x, _ = _scan_stack(e["layers"], x, cfg, ["enc_self"], nd=nd)
+    return _norm(e["final_norm"], x, cfg)
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            context=None, q_offset: int = 0
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [*rank, B, T] -> (hidden [*rank, B, T, D] after the final
+    norm, aux_loss [*rank]): the reference's ``forward``/``_scan_stack``
+    (a MoE stack's remainder first, every other's last).  ``context``
+    [*rank, B, Tc, D] is the encoder memory (encdec, after
+    :func:`encode`) or the image embeddings (vlm) the cross attentions
+    read; an encdec stack adds its learned decoder positions from
+    ``q_offset``.  With rank dims every param carries them too
+    (``[*rank, ...]``, the stacked layers ``[*rank, n_periods, ...]``).
+    Under a tensor-parallel hook inside a mesh (serving) the hidden
+    states carry the rank dims."""
+    nd = tokens.dim() - 2
+    x = ranked(L.embed_lookup(params["embed"], tokens))
+    if cfg.family == "encdec":
+        pos = params["dec_pos"][..., q_offset:q_offset + tokens.shape[-1], :]
+        x = x + L.lift(pos, x, own=2).to(x.dtype)
+    period, _, _ = _period_of(cfg)
 
     def run_rem(x, aux_total):
         for name in sorted(params["rem"]):
             x, a = apply_block(params["rem"][name], x, cfg,
-                               name.split("_", 1)[1], q_offset=q_offset)
+                               name.split("_", 1)[1], context=context,
+                               q_offset=q_offset)
             aux_total = aux_total + a
         return x, aux_total
 
-    body = _remat(period_body, cfg.remat)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if rem_first(cfg):
         x, aux_total = run_rem(x, aux_total)
-    auxs = []
-    for pp in layer_views(params["layers"], dim=nd):
-        x, a = body(x, pp)
-        auxs.append(a)
-    if auxs and cfg.scan_layers:
-        aux_total = aux_total + torch.stack(
-            torch.broadcast_tensors(*auxs)).sum(0)
-    else:
-        for a in auxs:
-            aux_total = aux_total + a
+    x, aux = _scan_stack(params["layers"], x, cfg, period, nd=nd,
+                         context=context, q_offset=q_offset)
+    aux_total = aux_total + aux
     if not rem_first(cfg):
         x, aux_total = run_rem(x, aux_total)
     return _norm(params["final_norm"], x, cfg), aux_total

@@ -113,23 +113,26 @@ def adamw(lr: Callable | float = 1e-3, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init, update, "adamw")
 
 
+def _collect(node, d, out: list) -> None:
+    # a module function, not a recursive closure over ``out``: that would
+    # be a reference cycle keeping the found tensors alive (as in
+    # ``repro_torch.tree``)
+    if d == "*":
+        out.append(node)
+        return
+    (kind, meta), kids = d
+    if kind == "dict":
+        for key, sub in zip(meta, kids):
+            _collect(node[key], sub, out)
+    elif kind in ("list", "tuple"):
+        for x, sub in zip(node, kids):
+            _collect(x, sub, out)
+
+
 def _leaves_at(t: PyTree, td) -> list:
     """The nodes of ``t`` found where ``td`` has its leaves."""
     out: list = []
-
-    def walk(node, d):
-        if d == "*":
-            out.append(node)
-            return
-        (kind, meta), kids = d
-        if kind == "dict":
-            for key, sub in zip(meta, kids):
-                walk(node[key], sub)
-        elif kind in ("list", "tuple"):
-            for x, sub in zip(node, kids):
-                walk(x, sub)
-
-    walk(t, td)
+    _collect(t, td, out)
     return out
 
 

@@ -8,7 +8,8 @@ transport changes.  The reference runs the step in a ``shard_map``
 region manual over the DP axes; here every DP rank is a leading dim:
 
   * tokens ``[B, T+1]`` are split over the mesh's axes (outer major) into
-    ``[*rank, B / n, T+1]``;
+    ``[*rank, B / n, T+1]``, and an encdec or vlm batch's context ``[B,
+    Tc, D]`` into ``[*rank, B / n, Tc, D]``;
   * **per-rank gradients in one forward and one backward**: the params
     enter the model as rank-expanded views (``p.expand(*rank, *p.shape)``,
     no copy), each rank's mean loss (plus its aux loss) is summed over
@@ -59,12 +60,11 @@ class TrainState:
     sync_arenas: Optional[tuple] = None
 
 
-def _loss_fn(model: Model, params, tokens):
+def _loss_fn(model: Model, params, tokens, context=None):
     """tokens: [..., b, T+1] — inputs tokens[..., :-1], targets
-    tokens[..., 1:].  Returns (loss + aux, metrics), one per rank.  (The
-    reference's ``context`` input waits with the encdec and vlm families,
-    ROADMAP.md queue 1 item 6.)"""
-    hidden, aux = model.forward(params, tokens[..., :-1])
+    tokens[..., 1:]; ``context`` [..., b, Tc, D] the encdec / vlm stub
+    input.  Returns (loss + aux, metrics), one per rank."""
+    hidden, aux = model.forward(params, tokens[..., :-1], context=context)
     logits = model.logits(params, hidden)
     loss, metrics = cross_entropy(logits, tokens[..., 1:])
     metrics["aux"] = aux.expand(loss.shape)
@@ -81,11 +81,12 @@ def rank_views(params: PyTree, rank_shape: tuple) -> PyTree:
 
 
 def _accumulate_grads(model: Model, views: PyTree, tokens: torch.Tensor,
-                      microbatches: int):
+                      microbatches: int, context=None):
     """Per-rank gradients of each rank's mean loss over its microbatches,
     in f32 when ``microbatches > 1`` (the reference's ``lax.scan``
     accumulation: a running f32 sum, then ``* (1 / microbatches)``), and
-    the per-rank metrics."""
+    the per-rank metrics.  ``context`` splits into the microbatches with
+    the tokens."""
     b = tokens.shape[-2]
     if b % microbatches:
         raise ValueError(f"a rank's batch of {b} does not split into "
@@ -93,8 +94,8 @@ def _accumulate_grads(model: Model, views: PyTree, tokens: torch.Tensor,
     mb = b // microbatches
     leaves, td = tree.tree_flatten(views)
 
-    def grads_of(tok):
-        loss, m = _loss_fn(model, views, tok)
+    def grads_of(tok, ctx):
+        loss, m = _loss_fn(model, views, tok, ctx)
         g = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
         g = [torch.zeros(p.shape, dtype=p.dtype, device=p.device)
              if x is None else x for x, p in zip(g, leaves)]
@@ -102,11 +103,13 @@ def _accumulate_grads(model: Model, views: PyTree, tokens: torch.Tensor,
 
     with torch.enable_grad():
         if microbatches == 1:
-            g, m = grads_of(tokens)
+            g, m = grads_of(tokens, context)
             return tree.tree_unflatten(td, g), m
         acc_g = acc_m = None
         for i in range(microbatches):
-            g, m = grads_of(tokens[..., i * mb:(i + 1) * mb, :])
+            rows = slice(i * mb, (i + 1) * mb)
+            g, m = grads_of(tokens[..., rows, :], None if context is None
+                            else context[..., rows, :, :])
             if acc_g is None:
                 acc_g = [torch.zeros(x.shape, dtype=torch.float32,
                                      device=x.device) for x in g]
@@ -128,10 +131,15 @@ def dp_spec(mesh: LocalMesh) -> P:
 def local_grads(model: Model, state: TrainState, batch: dict,
                 mesh: LocalMesh, *, microbatches: int = 1):
     """Every rank's gradients ``[*rank, ...]`` and metrics ``[*rank]``
-    for the global ``batch`` (numpy or tensors, ``tokens [B, T+1]``)."""
+    for the global ``batch`` (numpy or tensors, ``tokens [B, T+1]`` and,
+    for encdec / vlm, ``context [B, Tc, D]``, both split over the ranks
+    by the batch dim)."""
     tokens = mesh.shard(torch.as_tensor(batch["tokens"]), dp_spec(mesh))
+    context = batch.get("context")
+    if context is not None:
+        context = mesh.shard(torch.as_tensor(context), dp_spec(mesh))
     views = rank_views(state.params, mesh.rank_shape)
-    return _accumulate_grads(model, views, tokens, microbatches)
+    return _accumulate_grads(model, views, tokens, microbatches, context)
 
 
 def rank0(t: PyTree, nd: int) -> PyTree:
@@ -171,7 +179,9 @@ def build_train_step_acis(model: Model, optimizer: Optimizer,
     """(state, batch) -> (state, metrics) over ``mesh``'s ranks, the
     gradient sync through ``engine`` (any backend; ``xla`` is the
     passive-network baseline).  ``batch["tokens"]`` is the global
-    ``[B, T+1]`` batch, numpy or a tensor.
+    ``[B, T+1]`` batch, numpy or a tensor; an encdec or vlm model's
+    ``batch["context"]`` (``[B, Tc, D]``) is split over the data ranks
+    the way the tokens are.
 
     When the state carries ``sync_arenas`` (:func:`init_state` with
     ``arenas=True``) the bucket packs write into them in place and the

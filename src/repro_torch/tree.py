@@ -24,38 +24,43 @@ def _children(t):
     return None, None
 
 
+# The walks are module functions, not closures over ``leaves``: a
+# recursive closure refers to itself through its cell, and that cycle
+# would keep every leaf it saw (a gradient tree's tensors) alive until
+# the cyclic collector ran.
+
+def _walk(node, leaves: list):
+    kind, kids = _children(node)
+    if kind is None:
+        leaves.append(node)
+        return "*"
+    return (kind, tuple(_walk(k, leaves) for k in kids))
+
+
+def _build(d, it):
+    if d == "*":
+        return next(it)
+    (kind, meta), kids = d
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(meta, vals))
+    if kind == "list":
+        return vals
+    if kind == "tuple":
+        return tuple(vals)
+    return None
+
+
 def tree_flatten(t: PyTree) -> tuple[list, tuple]:
     """``(leaves, treedef)``; ``treedef`` is hashable and only
     describes the structure."""
     leaves: list = []
-
-    def walk(node):
-        kind, kids = _children(node)
-        if kind is None:
-            leaves.append(node)
-            return "*"
-        return (kind, tuple(walk(k) for k in kids))
-
-    return leaves, walk(t)
+    return leaves, _walk(t, leaves)
 
 
 def tree_unflatten(treedef: tuple, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(d):
-        if d == "*":
-            return next(it)
-        (kind, meta), kids = d
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(meta, vals))
-        if kind == "list":
-            return vals
-        if kind == "tuple":
-            return tuple(vals)
-        return None
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree structure holds")
     return out

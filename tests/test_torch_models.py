@@ -18,7 +18,6 @@ reference's.
   carried into the shifts and the state), and the greedy tokens equal.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +29,7 @@ from repro import configs as jconfigs
 from repro.models import Model as JModel
 from repro_torch import configs, interop, tree
 from repro_torch.models import Model
-from repro_torch.models.config import MLAConfig, ModelConfig
+from repro_torch.models.config import ModelConfig
 
 ARCH = "rwkv6-1.6b"
 
@@ -85,32 +84,24 @@ def test_config_copy_matches_the_reference():
             assert mine.param_count() == ref.param_count()
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-236b", "whisper-small",
-                                  "llama-3.2-vision-11b"])
-def test_unported_configs_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        configs.get(name)
-    with pytest.raises(KeyError):
-        configs.get("no-such-model")
+def test_unknown_names_raise_key_error():
+    for name in ("no-such-model", "deepseek-v3", ""):
+        with pytest.raises(KeyError, match="unknown model"):
+            configs.get(name)
+        with pytest.raises(KeyError, match="unknown model"):
+            configs.get_smoke(name)
 
 
-def test_forward_and_other_families_wait_for_their_items():
-    # the training forward runs (tests/test_torch_train*.py); the encdec
-    # and vlm families and their context inputs wait for item 6
-    smoke = configs.get_smoke(ARCH)
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Model(dataclasses.replace(smoke, family=fam)).forward(
-                {}, torch.zeros(1, 1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Model(smoke).forward({}, torch.zeros(1, 1, dtype=torch.int64),
-                             context=torch.zeros(1, 1, 1))
-    # MLA attention (deepseek-v2) is the moe family's unported part
-    mla = dataclasses.replace(configs.get_smoke("qwen2-moe-a2.7b"),
-                              mla=MLAConfig(kv_lora=16, rope_head_dim=8,
-                                            nope_head_dim=8, v_head_dim=8))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Model(mla).init(None, device="meta")
+def test_every_reference_name_resolves():
+    """All ten names of the reference's registry and ``acis-100m``, by
+    their dashed ids and their module spellings, give the reference's
+    config; ``names()`` is the reference's list in its order."""
+    assert configs.names() == jconfigs.names()
+    for name in jconfigs.names() + ["acis-100m"]:
+        for spelling in (name, name.replace("-", "_").replace(".", "_")):
+            assert configs.get(spelling) == configs.get(name)
+            assert repr(configs.get(spelling)).replace(
+                "repro_torch.", "repro.") == repr(jconfigs.get(name))
 
 
 @pytest.fixture(scope="module")

@@ -477,3 +477,34 @@ def test_train_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         S.init_state(Model(cfg), topt.adamw(1e-3), None, make_engine("acis"),
                      mesh=LocalMesh({"data": 2}))
+
+
+def test_tree_walks_leave_no_reference_cycle():
+    """Flattening and rebuilding a tree (every sync and update does) and
+    the optimizer's walk over its state keep no tensor alive once the
+    caller drops it: with the cyclic collector off, each leaf is freed at
+    once.  (A recursive closure over the leaves was a reference cycle
+    that held a whole step's gradients and residuals until a collection,
+    up to 5 GB more peak memory in a whisper-small sync on the card.)"""
+    import gc
+    import weakref
+
+    from repro_torch import tree
+    from repro_torch.train import optimizer as O
+
+    def fresh():
+        return {"w": torch.ones(4), "b": [torch.zeros(2), (torch.ones(1),)]}
+
+    gc.collect()
+    gc.disable()
+    try:
+        t = fresh()
+        refs = [weakref.ref(x) for x in tree.tree_leaves(t)]
+        leaves, td = tree.tree_flatten(t)
+        back = tree.tree_unflatten(td, leaves)
+        found = O._leaves_at(back, td)
+        assert len(found) == 3
+        del t, leaves, back, found
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
