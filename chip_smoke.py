@@ -153,9 +153,10 @@ Phases, one JSON line each:
                   (past the window) and 16 decode steps, kernels against
                   plain; ``rglru_scan`` launched once per lru layer (26)
                   per prefill call, decode step and engine tick
-  14. serve_tp_dense — qwen3-8b at full width and depth (36 layers,
-                  d_model 4096, 32 query and 8 KV heads of 128, qk-norm,
-                  SwiGLU d_ff 12288, vocab 151,936) served tensor-parallel
+  14. serve_tp_dense — qwen3-8b at full width, cut to 18 of its 36 layers
+                  (for the run's time, PERF.md §4; d_model 4096, 32 query
+                  and 8 KV heads of 128, qk-norm, SwiGLU d_ff 12288,
+                  vocab 151,936) served tensor-parallel
                   on ``LocalMesh({"tp": 8})`` through ``ServeCollectives``:
                   the params split once, a batched 8 x 512 prefill and 32
                   greedy decode ticks in five modes in turns (compiled
@@ -220,10 +221,48 @@ Phases, one JSON line each:
                   20)``, the nll of step 20 below step 1, step ms,
                   tokens/s, peak memory and one profiled step
                   (``train_encdec_path``)
+  20. train_gspmd — acis-100m at full width and depth through
+                  ``build_train_step_gspmd`` on ``LocalMesh({"data": 4,
+                  "model": 2})`` (train_e2e's ``--backend xla`` mesh; FSDP
+                  over data, wq/wk/wv/wi column- and wo row-split over
+                  model, native gathers, sums and slices): every leaf's
+                  shard shape as ``param_specs`` says; 3 f32 steps against
+                  the acis step with ``make_engine("xla")`` on ``{"data":
+                  4}`` (nll within 1e-3, params within 2.5e-2); 60 steps
+                  of train_e2e's traffic with ``warmup_cosine(3e-4, 20,
+                  60)`` whose nll must fall by 0.5; one step's collective
+                  log by kind equal to ``launch.cells.build_train``'s count
+                  of the same step on the meta device; step ms, tokens/s
+                  and one profiled step (forward + backward, collectives,
+                  optimizer) (``train_gspmd_path``)
+  21. pipeline  — acis-100m's 12 blocks in 4 stages of 3 through
+                  ``run_pipeline`` on ``LocalMesh({"pipe": 4})``, 8
+                  embedded microbatches of 1 x 256 (11 ticks): bf16 and
+                  f32 against the blocks in sequence (``BF16_REL`` /
+                  ``F32_REL`` of the largest magnitude), then the int8
+                  wire codec with every handoff within half the codec's
+                  per-block absmax step and every stage's output the
+                  stage applied to what it received (``pipeline_path``)
+  22. seq_parallel — ``rglru_scan_sp`` over ``LocalMesh({"data": 8})`` at
+                  recurrentgemma-9b's lru_width 4,096, f32, batch 1, T =
+                  524,288 (65,536 steps a rank, 8.6 GB each for a and b):
+                  one ``rglru_scan`` launch for every rank's chunk, held
+                  against one launch over the whole T and, on 64 lanes,
+                  a float64 recurrence within ``sp_tolerance``; ms
+                  against the whole launch (``seq_parallel_path``)
+  23. dryrun    — ``python -m repro_torch.launch.dryrun`` for qwen3-8b x
+                  train_4k on the single-pod mesh (probes composed) and
+                  the multi-pod mesh, on the host's CPU in two processes
+                  started after the build and read at the end: the
+                  bottleneck, the three roofline terms (the cost model's
+                  against one H100's published peaks, not card times),
+                  ``useful_flops_ratio`` and the seconds each took
+                  (``dryrun_start`` / ``dryrun_finish``)
 
 The serving phases 16-18 launch none of the ported kernels (the
 reference's paths for these families reach no Pallas kernel): their
-launches are checked to be zero.
+launches are checked to be zero.  Phases 20, 21 and 23 launch none either;
+phase 22's ``rglru_scan`` launch counts toward the kernels line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
@@ -2863,6 +2902,7 @@ class TPSizes:
     requests: tuple            # ServeEngine: (prompt tokens, new tokens)
     rounds: int = 2            # turns of the five modes (timed, checked)
     f32_layers: Optional[int] = None  # the f32 semantics check's depth
+    layers: Optional[int] = None      # a depth cut (None: the config's)
 
 
 # 16 requests, prompts 64-512 and 32 new tokens each, over 8 slots: the
@@ -2872,9 +2912,11 @@ TP_REQUESTS = tuple((p, 32) for p in (512, 64, 96, 128, 64, 96, 128, 160,
                                       64, 96, 128, 160, 192, 224, 256,
                                       288))
 # qwen3-8b on 8 ranks: a batched 8 x 512 prefill, 32 greedy ticks at
-# batch 8, two turns of the five modes, then the engine
+# batch 8, two turns of the five modes, then the engine; 18 of its 36
+# layers at full width since the run went over its ceiling on slow hosts
+# with the GSPMD slice's own cut in place (PERF.md §4, §6)
 SERVE_TP_DENSE = TPSizes(tp=8, batch=8, prompt=512, steps=32, slots=8,
-                         requests=TP_REQUESTS)
+                         requests=TP_REQUESTS, layers=18)
 # qwen2-moe-a2.7b on 4 ranks (tp=8 does not divide its 60 experts): a
 # 4 x 64 prefill, which a MoE stack runs as 64 decode ticks (the
 # reference's prefill; 256 until the train phase needed the time), so
@@ -3159,6 +3201,9 @@ def tp_serve_path(cfg, seed: int, sizes: TPSizes, *, device="cuda",
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    config_layers = cfg.n_layers
+    if sizes.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=sizes.layers)
     model = Model(cfg)
     n_params = sum(x.numel() for x in tree.tree_leaves(model.param_shapes()))
     if cuda:
@@ -3294,7 +3339,8 @@ def tp_serve_path(cfg, seed: int, sizes: TPSizes, *, device="cuda",
     med = statistics.median
     record = {
         "phase": phase, "program": "prefill_decode", "model": cfg.name,
-        "family": cfg.family, "layers": cfg.n_layers, "params": n_params,
+        "family": cfg.family, "layers": cfg.n_layers,
+        "config_layers": config_layers, "params": n_params,
         "param_bytes": sum(x.numel() * x.element_size()
                            for x in tree.tree_leaves(params)),
         "split_param_bytes": sum(
@@ -4476,8 +4522,8 @@ def check_peak(dev, what: str) -> Optional[int]:
 
 def check_no_launches(got: dict, what: str) -> None:
     """None of the ported kernels launched: the MLA, encdec and vlm
-    serving paths reach no Pallas kernel in the reference, and none
-    here."""
+    serving paths, the GSPMD step and GPipe reach no Pallas kernel in
+    the reference, and none here."""
     check(not any(got.values()), f"{what}: kernels launched {got}")
 
 
@@ -4893,6 +4939,623 @@ def train_encdec_path(cfg, seed: int, sizes: TrainSizes = TRAIN_ENCDEC, *,
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phases 20-23: the GSPMD train step, GPipe over "pipe", the
+# sequence-parallel RG-LRU scan and the shape-only dry run
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GspmdSizes:
+    """train_gspmd's sizes: ``train_e2e``'s traffic (global batch x seq,
+    ``BigramStream(seed=7)``) on ``{"data": data, "model": model}``;
+    ``checked`` f32 steps (AdamW at ``check_lr``) held to the acis step
+    with the ``xla`` engine on ``{"data": data}``, then ``steps`` steps
+    with ``warmup_cosine(lr, warmup, steps)`` whose nll must fall by
+    ``bar``."""
+    data: int
+    model: int
+    batch: int
+    seq: int
+    checked: int
+    check_lr: float
+    steps: int
+    lr: float
+    warmup: int
+    bar: float
+
+
+# 60 descent steps, cut from 100: the run went over its ceiling on slow
+# hosts (PERF.md §4); the nll still has to fall by 0.5
+TRAIN_GSPMD = GspmdSizes(data=4, model=2, batch=8, seq=256, checked=3,
+                         check_lr=1e-2, steps=60, lr=3e-4, warmup=20,
+                         bar=0.5)
+TRAIN_GSPMD_SMOKE = GspmdSizes(data=2, model=2, batch=8, seq=16, checked=2,
+                               check_lr=1e-2, steps=12, lr=1e-2, warmup=2,
+                               bar=0.1)
+# the f32 check against the acis xla step.  On every checked step the
+# GSPMD step taken from the acis step's own state gives its nll and
+# grad_norm within GSPMD_RTOL (grad_norm catches a replicated leaf's
+# gradient summed where it should be averaged, or the reverse, which
+# AdamW's scale invariance hides from the params and the nll), and its
+# params every element within 2·lr and, in every leaf, more than
+# GSPMD_CLOSE_SHARE of them within 1e-3·lr of the acis step's (the
+# one-step rule of test_torch_train.py).  Along the two trajectories
+# the nll stays within GSPMD_RTOL and the params end within the
+# reference's own acis-vs-xla atol (test_train_substrate.py).  The
+# trajectories' grad_norm and close share are recorded, not held: Adam
+# moves an element with a near-zero gradient by up to ~lr on a rounding
+# difference, and the next steps compound it
+GSPMD_RTOL = 1e-5
+GSPMD_PARAM_ATOL = 2.5e-2
+GSPMD_CLOSE_SHARE = 0.99
+
+
+def param_diffs(got, want, atol: float) -> dict:
+    """Two param trees: the largest difference, each leaf's share of
+    elements within ``atol`` (the smallest, the mean) and the three
+    leaves with the smallest share."""
+    from repro_torch import tree
+    from repro_torch.sharding import rules
+
+    paths = [rules._path_str(p) for p, _ in rules.leaves_with_paths(want)]
+    worst, share = 0.0, []
+    for path, p, q in zip(paths, tree.tree_leaves(got),
+                          tree.tree_leaves(want)):
+        d = (p.float() - q.float()).abs()
+        worst = max(worst, float(d.max()))
+        share.append((float((d <= atol).float().mean()), path))
+    return {"max_abs_diff": worst, "atol": atol,
+            "min_leaf_share": min(share)[0],
+            "mean_leaf_share": statistics.fmean(s for s, _ in share),
+            "lowest": sorted(share)[:3]}
+
+
+def gspmd_profile(step, state, batch) -> dict:
+    """One more step (its result dropped) under ``torch.profiler``, then
+    its forward + backward and its optimizer each in a window of their
+    own, and the collectives' device ms inside the forward + backward
+    (CUDA events around each native collective)."""
+    from repro_torch.sharding import native
+
+    g, m = step.grads(state, batch)
+    parts = {
+        "step": device_profile(lambda: step(state, batch)),
+        "forward_backward": device_profile(lambda: step.grads(state,
+                                                              batch)),
+        "optimizer": device_profile(lambda: step.update(state, g, m)),
+    }
+    for k in ("forward_backward", "optimizer"):
+        parts[k].pop("top", None)
+    with native.counting(timed=True) as log:
+        step.grads(state, batch)
+    parts["collectives"] = {"device_ms": log.device_ms(),
+                            "count": len(log.entries),
+                            "note": "CUDA events around each collective "
+                                    "inside one forward + backward"}
+    return parts
+
+
+def train_gspmd_path(cfg, seed: int, sizes: GspmdSizes = TRAIN_GSPMD, *,
+                     device="cuda") -> list[dict]:
+    """The train_gspmd phase: ``build_train_step_gspmd`` (FSDP x TP, native
+    collectives) on ``LocalMesh({"data": 4, "model": 2})``: every leaf's
+    shard shape as ``param_specs`` says; ``sizes.checked`` f32 steps
+    against the acis step with ``make_engine("xla")`` on ``{"data": 4}``
+    (on every step the GSPMD step from the acis state: nll and grad_norm
+    within ``GSPMD_RTOL`` relative, params within 2·lr and in every leaf
+    more than ``GSPMD_CLOSE_SHARE`` of them within 1e-3·lr; the
+    trajectories' nll within ``GSPMD_RTOL`` and params within
+    ``GSPMD_PARAM_ATOL``); no kernel launched;
+    ``sizes.steps`` bf16 steps whose nll must fall by ``sizes.bar``; one
+    step's collective log by kind against ``build_train``'s count of the
+    same step on the meta device (equal); step ms, tokens/s, peak memory
+    and one profiled step."""
+    from repro_torch import tree
+    from repro_torch.core import make_engine
+    from repro_torch.data.pipeline import BigramStream, DataConfig
+    from repro_torch.launch import cells
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.models import Model
+    from repro_torch.sharding import native, rules
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    sync_dev = _dev_sync(dev)
+    axes = {"data": sizes.data, "model": sizes.model}
+    mesh = LocalMesh(axes, device=dev)
+    stream = BigramStream(DataConfig(vocab=cfg.vocab, seq_len=sizes.seq,
+                                     global_batch=sizes.batch, seed=7))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    _fresh_peak(dev)
+    reset_counts()
+    # 1. f32: the baseline against the acis step with the xla engine
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
+    m32 = Model(cfg32)
+    opt = O.adamw(lr=sizes.check_lr)
+    gstep = S.build_train_step_gspmd(m32, opt, mesh)
+    gst = gstep.place_state(S.init_state(m32, opt, gen(), device=dev))
+    for x, s, y in zip(tree.tree_leaves(m32.param_shapes()),
+                       rules.spec_leaves(gstep.state_specs.params),
+                       tree.tree_leaves(gst.params)):
+        rules.constrain(y, mesh, s, tuple(x.shape))   # raises if wrong
+    astep = S.build_train_step_acis(m32, opt, LocalMesh(
+        {"data": sizes.data}, device=dev), make_engine("xla"))
+    ast = S.init_state(m32, opt, gen(), device=dev)
+    def rel(pairs):
+        return max(abs(x - y) / abs(y) for x, y in pairs)
+
+    traj = {"nll": [], "grad_norm": []}     # [gspmd, acis] a step
+    same = {"nll": [], "grad_norm": []}     # gspmd from the acis state
+    steps = []                              # its params against acis's
+    lr = sizes.check_lr
+    for i in range(sizes.checked):
+        b = stream.batch(i)
+        sst, sm = gstep(gstep.place_state(ast), b)
+        gst, gm = gstep(gst, b)
+        ast, am = astep(ast, b)
+        for k in traj:
+            traj[k].append([float(gm[k]), float(am[k])])
+            same[k].append([float(sm[k]), float(am[k])])
+            check(rel(same[k][-1:]) <= GSPMD_RTOL, f"train_gspmd: step "
+                  f"{i} from the same state: {k} {same[k][-1]} differ "
+                  f"from the acis xla step's by {rel(same[k][-1:])} "
+                  f"relative (limit {GSPMD_RTOL})")
+        d = param_diffs(gstep.unshard_state(sst).params, ast.params,
+                        1e-3 * lr)
+        del sst
+        steps.append(d)
+        check(d["max_abs_diff"] <= 2 * lr, f"train_gspmd: step {i} from "
+              f"the same state moved a param {d['max_abs_diff']} from the "
+              f"acis xla step's (limit {2 * lr})")
+        check(d["min_leaf_share"] > GSPMD_CLOSE_SHARE, f"train_gspmd: "
+              f"step {i} from the same state: leaves {d['lowest']} have "
+              f"fewer than {GSPMD_CLOSE_SHARE} of their elements within "
+              f"{1e-3 * lr} of the acis xla step's")
+    rel_err = {"nll": rel(traj["nll"]),
+               "same_state_nll": rel(same["nll"]),
+               "same_state_grad_norm": rel(same["grad_norm"])}
+    check(rel_err["nll"] <= GSPMD_RTOL, f"train_gspmd: nll {traj['nll']} "
+          f"differ from the acis xla step's by {rel_err['nll']} relative "
+          f"(limit {GSPMD_RTOL})")
+    whole = gstep.unshard_state(gst)
+    end = param_diffs(whole.params, ast.params, 1e-3 * lr)
+    param_err = end["max_abs_diff"]
+    check(param_err <= GSPMD_PARAM_ATOL, f"train_gspmd: params differ from "
+          f"the acis xla step's by {param_err}")
+    del gst, ast, whole, gstep, astep
+    # 2. the descent in the config's dtypes
+    model = Model(cfg)
+    opt = O.adamw(O.warmup_cosine(sizes.lr, sizes.warmup, sizes.steps))
+    step = S.build_train_step_gspmd(model, opt, mesh)
+    st = step.place_state(S.init_state(model, opt, gen(), device=dev))
+    times: list = []
+    run = _timed_step(step, sync_dev, times)
+    curve = []
+    for i in range(sizes.steps):
+        st, m = run(st, stream.batch(i))
+        curve.append([i, float(m["nll"])])
+    nll0, nll1 = curve[0][1], curve[-1][1]
+    check(all(math.isfinite(v) for _, v in curve), "non-finite nll")
+    check(nll1 < nll0 - sizes.bar, f"train_gspmd: nll {nll0} -> {nll1} "
+          f"fell by less than {sizes.bar}")
+    # 3. one step's collectives against the meta-device count
+    batch = stream.batch(sizes.steps)
+    with native.counting() as log:
+        step(st, batch)
+    t_meta = time.perf_counter()
+    built = cells.build_train(
+        cfg, ShapeCell("train_e2e", sizes.seq, sizes.batch, "train"),
+        LocalMesh(axes, device="meta"), microbatches=1, optimizer=opt)
+    t_meta = time.perf_counter() - t_meta
+    check(log.summary() == built.log.summary(), "train_gspmd: the step's "
+          f"collectives {log.summary()} are not the meta-device count "
+          f"{built.log.summary()}")
+    launches = read_counts()
+    check_no_launches(launches, "train_gspmd")
+    peak = check_peak(dev, "train_gspmd")
+    profile = gspmd_profile(step, st, batch) if cuda else None
+    med = statistics.median(times[1:] or times)
+    return [{"phase": "train_gspmd", "program": "build_train_step_gspmd",
+             "mesh": axes, "model": cfg.name,
+             "params": sum(p.numel() for p in tree.tree_leaves(
+                 model.param_shapes())),
+             "tp_plan": {"attention": step.tp_plan[0],
+                         "ffn": step.tp_plan[1]},
+             "global_batch": sizes.batch, "seq": sizes.seq,
+             "f32_check": {"steps": sizes.checked, **traj,
+                           "same_state": same,
+                           "max_rel_diff": rel_err, "rtol": GSPMD_RTOL,
+                           "grad_norm_max_rel_diff": rel(traj["grad_norm"]),
+                           "same_state_params": steps,
+                           "param_max_abs_diff": param_err,
+                           "param_atol": GSPMD_PARAM_ATOL,
+                           "trajectory_params": end,
+                           "against": "build_train_step_acis(make_engine("
+                                      f"'xla')) on {{'data': {sizes.data}}}"},
+             "steps": sizes.steps, "curve": curve[::10] + [curve[-1]],
+             "nll_first": nll0, "nll_last": nll1,
+             "step_ms": times, "median_step_ms": med,
+             "tokens_per_s": sizes.batch * sizes.seq / (med * 1e-3),
+             "collectives": {"per_rank_bytes_by_kind": log.bytes_by_kind(),
+                             "by_kind_and_direction": log.summary(),
+                             "meta_count_equal": True,
+                             "meta_build_s": t_meta},
+             "activation_pins": step.last["act"].summary(),
+             "launches": launches, "max_memory_allocated": peak,
+             "profile": profile,
+             "phase_seconds": time.perf_counter() - t0}]
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeSizes:
+    """The pipeline phase's sizes: ``stages`` stages of the model's blocks
+    on ``LocalMesh({"pipe": stages})``, ``microbatches`` of ``mb x seq``
+    embedded tokens."""
+    stages: int
+    microbatches: int
+    mb: int
+    seq: int
+    reps: int
+
+
+PIPELINE = PipeSizes(stages=4, microbatches=8, mb=1, seq=256, reps=3)
+PIPELINE_SMOKE = PipeSizes(stages=2, microbatches=3, mb=1, seq=8, reps=1)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (the serving phases' rule)."""
+    top = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / top if top \
+        else float((got.float() - want.float()).abs().max())
+
+
+def _int8_half_step(sent: torch.Tensor, nd: int) -> torch.Tensor:
+    """Half the int8 codec's step for every element of ``sent`` (each
+    rank's payload flattened into blocks of ``QBLOCK``, step = block
+    absmax / 127), plus the two roundings of y / step and q * step."""
+    from repro_torch.core.wire import QBLOCK
+
+    flat = sent.float().reshape(sent.shape[:nd] + (-1,))
+    size = flat.shape[-1]
+    pad = (-size) % QBLOCK
+    blocks = torch.nn.functional.pad(flat, (0, pad)).reshape(
+        flat.shape[:-1] + (-1, QBLOCK))
+    amax = blocks.abs().amax(-1, keepdim=True)
+    step = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    half = (step / 2).expand(blocks.shape).reshape(flat.shape[:-1] + (-1,))
+    return (half[..., :size] + flat.abs() * 2.0 ** -22).reshape(sent.shape)
+
+
+def pipeline_path(cfg, seed: int, sizes: PipeSizes = PIPELINE, *,
+                  device="cuda") -> list[dict]:
+    """The pipeline phase: the model's blocks in ``sizes.stages`` stages
+    through ``run_pipeline`` (GPipe, ``M + S - 1`` ticks) on
+    ``LocalMesh({"pipe": S})``, over embedded microbatches: with
+    ``IDENTITY`` held against the blocks applied in sequence (within
+    ``F32_REL`` of the largest magnitude in f32, ``BF16_REL`` in bf16);
+    with the int8 wire codec every handoff within half the codec's
+    per-block absmax step of what was sent, and every stage's output
+    the stage applied to what it received (``F32_REL``)."""
+    from repro_torch import tree
+    from repro_torch.core.wire import WireCodec, int8_codec
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.pipeline import run_pipeline
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    sync_dev = _dev_sync(dev)
+    _fresh_peak(dev)
+    reset_counts()
+    s = sizes.stages
+    per = cfg.n_layers // s
+    check(per * s == cfg.n_layers, f"{cfg.n_layers} layers in {s} stages")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    blocks = params["layers"]["pos0_self"]            # leaves [L, ...]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (sizes.microbatches, sizes.mb,
+                                        sizes.seq), generator=gen,
+                         device=dev)
+    x = L.embed_lookup(params["embed"], toks)       # [M, mb, T, D]
+    del params
+    mesh = LocalMesh({"pipe": s}, device=dev)
+
+    def stage_fn(p, xin):            # p [S, 1, per, ...]; xin [S, mb, T, D]
+        for lp in T.layer_views(tree.tree_map(lambda q: q[:, 0], p), dim=1):
+            xin, _ = T.apply_block(lp, xin, cfg, "self")
+        return xin
+
+    def one_stage(bl, k, xin):        # stage k alone, no rank dims
+        for lp in T.layer_views(tree.tree_map(
+                lambda q: q[k * per:(k + 1) * per], bl)):
+            xin, _ = T.apply_block(lp, xin, cfg, "self")
+        return xin
+
+    def stacked(bl):
+        return tree.tree_map(lambda p: p.reshape((s, per) + p.shape[1:]), bl)
+
+    def sequential(bl, xin):
+        y = xin.reshape((-1,) + xin.shape[2:])
+        for k in range(s):
+            y = one_stage(bl, k, y)
+        return y.reshape(xin.shape)
+
+    out: dict = {"phase": "pipeline", "program": "run_pipeline",
+                 "model": cfg.name, "stages": s, "layers_per_stage": per,
+                 "microbatches": sizes.microbatches, "mb": sizes.mb,
+                 "seq": sizes.seq, "ticks": sizes.microbatches + s - 1}
+    with torch.no_grad():
+        for name, dt, rel in (("bf16", torch.bfloat16, BF16_REL),
+                              ("f32", torch.float32, F32_REL)):
+            bl = tree.tree_map(lambda p: p.to(dt) if p.is_floating_point()
+                               else p, blocks)
+            xd = x.to(dt)
+            times = []
+            for _ in range(sizes.reps):
+                sync_dev()
+                t1 = time.perf_counter()
+                got = run_pipeline(mesh, stage_fn, stacked(bl), xd)
+                sync_dev()
+                times.append((time.perf_counter() - t1) * 1e3)
+            want = sequential(bl, xd)
+            err = _rel_err(got, want)
+            check(bool(torch.isfinite(got).all()), f"pipeline {name}: "
+                  "non-finite output")
+            check(err <= rel, f"pipeline {name}: {err} of the largest "
+                  f"magnitude from the sequential blocks (limit {rel})")
+            out[name] = {"rel_err": err, "limit": rel, "ms": times,
+                         "median_ms": statistics.median(times),
+                         "bitwise": bool(torch.equal(got, want))}
+        # the int8 wire codec on the handoffs, recorded
+        bl = tree.tree_map(lambda p: p.float() if p.is_floating_point()
+                           else p, blocks)
+        base = int8_codec()
+        sent, recv = [], []
+
+        def enc(y):
+            sent.append(y)
+            return base.encode(y)
+
+        def dec(p):
+            r = base.decode(p)
+            recv.append(r)
+            return r
+
+        codec = WireCodec("int8_recorded", enc, dec,
+                          wire_ratio=base.wire_ratio)
+        got = run_pipeline(mesh, stage_fn, stacked(bl), x.float(), codec)
+        check(len(sent) == out["ticks"], f"{len(sent)} handoffs")
+        step_err = max(float(((r - y).abs() / _int8_half_step(y, 1)).max())
+                       for y, r in zip(sent, recv))
+        check(step_err <= 1.0, f"pipeline int8: a handoff moved a value by "
+              f"{step_err} of half the codec's step")
+        stage_err, replayed = 0.0, 0
+        for t in range(out["ticks"] - 1):
+            for k in range(1, s):
+                mb_id = t + 1 - k
+                if not 0 <= mb_id < sizes.microbatches:
+                    continue
+                y = one_stage(bl, k, recv[t][k - 1])
+                stage_err = max(stage_err, _rel_err(sent[t + 1][k], y))
+                replayed += 1
+        check(stage_err <= F32_REL, f"pipeline int8: a stage's output is "
+              f"{stage_err} from the stage applied to what it received")
+        last = torch.stack([sent[j + s - 1][s - 1]
+                            for j in range(sizes.microbatches)])
+        check(torch.equal(got, last), "pipeline int8: the output is not "
+              "the last stage's")
+        ident = sequential(bl, x.float())
+        out["int8"] = {"handoff_err_over_half_step": step_err,
+                       "stage_replay_rel_err": stage_err,
+                       "stages_replayed": replayed,
+                       "vs_identity_rel": _rel_err(got, ident)}
+    out["launches"] = read_counts()
+    check_no_launches(out["launches"], "pipeline")
+    out["max_memory_allocated"] = check_peak(dev, "pipeline")
+    out["phase_seconds"] = time.perf_counter() - t0
+    return [out]
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSizes:
+    """The seq_parallel phase's sizes: ``rglru_scan_sp`` over ``ranks``
+    chunks of a ``[batch, seq, width]`` f32 recurrence, the float64 check
+    on ``lanes`` lanes, ``reps`` timed calls each way."""
+    ranks: int
+    batch: int
+    seq: int
+    width: int
+    lanes: int
+    reps: int
+
+
+SEQ_PARALLEL = SeqSizes(ranks=8, batch=1, seq=524288, width=4096, lanes=64,
+                        reps=3)
+SEQ_PARALLEL_SMOKE = SeqSizes(ranks=8, batch=1, seq=2048, width=32,
+                              lanes=8, reps=1)
+
+
+def seq_parallel_path(seed: int, sizes: SeqSizes = SEQ_PARALLEL, *,
+                      device="cuda", expect_kernels: bool = True
+                      ) -> list[dict]:
+    """The seq_parallel phase: ``rglru_scan_sp`` at recurrentgemma-9b's
+    ``lru_width`` over ``LocalMesh({"data": 8})``, every rank a chunk of
+    T: decays ``a = 1 - 10^u`` (u uniform in [-6, -1], so some lanes
+    carry state across whole chunks) and normal ``b``, f32.  One call,
+    one ``rglru_scan`` launch (every rank's chunk in it); held against
+    one launch over the whole T and, on ``sizes.lanes`` lanes, against
+    the float64 recurrence within ``sp_tolerance`` (the split) and the
+    time-order bound (the whole); timed against the whole launch."""
+    from repro_torch.kernels import chunk_scan as CS
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.models import rglru as RG
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    _fresh_peak(dev)
+    n, tc = sizes.ranks, sizes.seq // sizes.ranks
+    check(n * tc == sizes.seq, "T does not split over the ranks")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # rank-stacked: [ranks, B, T/n, W] is P(None, "data", None) of [B, T, W]
+    shape = (n, sizes.batch, tc, sizes.width)
+    a = torch.empty(shape, device=dev).uniform_(-6.0, -1.0, generator=gen)
+    a.mul_(math.log(10.0)).exp_().neg_().add_(1.0)
+    b = torch.randn(shape, generator=gen, device=dev)
+    mesh = LocalMesh({"data": n}, device=dev)
+
+    def whole_view(x):        # [ranks, B, T/n, W] -> [B, T, W]
+        return x.transpose(0, 1).reshape(sizes.batch, sizes.seq,
+                                         sizes.width)
+
+    def split():
+        with torch.no_grad(), mesh:
+            return RG.rglru_scan_sp(a, b, "data")
+
+    reset_counts()
+    h = split()
+    launches = read_counts()
+    if expect_kernels:
+        check(launches["rglru_scan"] == 1, f"rglru_scan_sp launched "
+              f"rglru_scan {launches['rglru_scan']} times, not once")
+    peak_sp = torch.cuda.max_memory_allocated() if cuda else None
+    # the comparison launch over the whole T (not counted)
+    aw, bw = whole_view(a), whole_view(b)
+    whole = CS.rglru_scan(aw, bw)
+    hw = whole_view(h)
+    diff_all = float((hw - whole).abs().max())
+    top_all = float(whole.abs().max())
+    lanes = torch.randperm(sizes.width, generator=gen, device=dev)[
+        :sizes.lanes].sort().values
+    al, bl = aw[..., lanes], bw[..., lanes]
+    exact, tol = RG.sp_tolerance(al, bl, n)
+    _, tol_whole = RG.scan_bound(al.double(), bl.double())
+    sp_ratio = float(((hw[..., lanes].double() - exact).abs() / tol).max())
+    whole_ratio = float(((whole[..., lanes].double() - exact).abs()
+                         / tol_whole).max())
+    check(sp_ratio <= 1.0, f"seq_parallel: the split scan is {sp_ratio} "
+          "of sp_tolerance from the float64 recurrence")
+    check(whole_ratio <= 1.0, f"seq_parallel: the whole launch is "
+          f"{whole_ratio} of its bound from the float64 recurrence")
+    lane_diff = float((hw[..., lanes].double()
+                       - whole[..., lanes].double()).abs().max())
+    check(lane_diff <= float((tol + tol_whole).max()), "seq_parallel: split "
+          "and whole differ beyond their bounds")
+    del exact, tol, tol_whole, h, whole, hw
+    out = {"phase": "seq_parallel", "program": "rglru_scan_sp",
+           "mesh": {"data": n}, "shape": [sizes.batch, sizes.seq,
+                                          sizes.width],
+           "steps_per_rank": tc, "dtype": "float32",
+           "lanes_checked": sizes.lanes,
+           "sp_err_over_bound": sp_ratio, "whole_err_over_bound": whole_ratio,
+           "all_lanes_max_abs_diff_vs_whole": diff_all,
+           "all_lanes_max_abs": top_all, "launches": launches,
+           "peak_after_split_call": peak_sp}
+    if cuda:
+        def whole_call():
+            return CS.rglru_scan(aw, bw)
+        out["ms"] = time_ms(split, reps=sizes.reps, inner=1)
+        out["whole_ms"] = time_ms(whole_call, reps=sizes.reps, inner=1)
+        # the split call's one launch alone (its chunks' local scans)
+        out["local_scan_ms"] = time_ms(lambda: CS.rglru_scan(a, b),
+                                       reps=sizes.reps, inner=1)
+        # bytes the split call must move: a and b read, h written
+        out["bound_ms"] = 3 * a.numel() * 4 / device_peaks(
+            torch.cuda.get_device_name(dev))[0] * 1e3
+    out["max_memory_allocated"] = check_peak(dev, "seq_parallel")
+    del a, b, aw, bw
+    if cuda:
+        torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t0
+    return [out]
+
+
+# the dry run's cells on the card's host: qwen3-8b x train_4k on the
+# single-pod mesh (probes composed) and the multi-pod mesh (no probes)
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False),
+                ("qwen3-8b", "train_4k", True))
+
+
+def dryrun_start(cells=DRYRUN_CELLS) -> dict:
+    """Start ``python -m repro_torch.launch.dryrun`` for each cell, one
+    process each, on the CPU (no card visible to them): they run while
+    the card's phases do."""
+    import tempfile
+
+    d = tempfile.mkdtemp(dir=ROOT, prefix=".chip_smoke_dryrun_")
+    # one thread each, at a lower priority: the card's phases keep the
+    # host's cores they dispatch from
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", PYTHONPATH=str(ROOT / "src"))
+    jobs = []
+    for arch, shape, mp in cells:
+        out = os.path.join(d, f"{arch}__{shape}__{'mp' if mp else 'sp'}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--out", out + ".json"]
+        if mp:
+            cmd.append("--multi-pod")
+        log = open(out + ".log", "w")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, cwd=str(ROOT),
+                                preexec_fn=lambda: os.nice(10))
+        jobs.append({"cell": [arch, shape, mp], "out": out, "log": log,
+                     "t0": time.perf_counter(), "proc": proc})
+    return {"dir": d, "jobs": jobs}
+
+
+def dryrun_stop(started: dict) -> None:
+    """Kill whatever is still running and remove the records' directory."""
+    for j in started["jobs"]:
+        if j["proc"].poll() is None:
+            j["proc"].kill()
+        j["proc"].wait()
+        j["log"].close()
+    shutil.rmtree(started["dir"], ignore_errors=True)
+
+
+def dryrun_finish(started: dict, timeout: float = 600.0) -> list[dict]:
+    """Wait for the dry-run processes and read their records: the
+    bottleneck, the three roofline terms (the cost model's against one
+    H100's published peaks, not card times), ``useful_flops_ratio``,
+    the per-rank memory and the seconds each took."""
+    recs = []
+    try:
+        for j in started["jobs"]:
+            rc = j["proc"].wait(timeout=max(1.0, timeout - (
+                time.perf_counter() - j["t0"])))
+            j["log"].flush()
+            tail = Path(j["out"] + ".log").read_text()[-2000:]
+            check(rc == 0, f"dryrun {j['cell']} failed:\n{tail}")
+            r = json.loads(Path(j["out"] + ".json").read_text())
+            rec = {"phase": "dryrun", "cell": j["cell"], "mesh": r["mesh"],
+                   "seconds": r["seconds"], "build_s": r["build_s"],
+                   "memory_analysis": r["memory_analysis"],
+                   "tp_plan": r["tp_plan"],
+                   "activation_pins": r["activation_pins"]}
+            if "bottleneck" in r:
+                rec.update({k: r[k] for k in (
+                    "bottleneck", "bottleneck_cc", "t_compute_s",
+                    "t_memory_s", "t_collective_s", "useful_flops_ratio",
+                    "roofline_fraction", "probe_composition", "peaks")})
+                rec["note"] = ("roofline terms are the cost model's, "
+                               "not times on the card")
+            recs.append(rec)
+    finally:
+        dryrun_stop(started)
+    return recs
+
+
 # device kernels of a ring sync counted by name: PyTorch's rolls and its
 # index kernels (the per-rank gathers and the all-gather's puts), and the
 # hand-written hops, combines and pack
@@ -4994,16 +5657,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.configs.acis_100m import CONFIG
-    from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
-    from repro_torch.configs.llama_3_2_vision_11b import CONFIG as VISION
-    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
-    from repro_torch.configs.qwen3_8b import CONFIG as QWEN3
-    from repro_torch.configs.recurrentgemma_9b import CONFIG as RGEMMA
-    from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
-    from repro_torch.configs.whisper_small import CONFIG as WHISPER
     from repro_torch.kernels import build
-    from repro_torch.mesh import LocalMesh
 
     # full float32 matmuls (the GCN and PowerSGD programs, and their
     # float64-held bounds), stated and set rather than left to defaults
@@ -5039,6 +5693,25 @@ def main() -> int:
     records.append(rec)
 
     dev = torch.device("cuda")
+    # the dry run (phase 23) runs on the host's CPU while the card works
+    dry = dryrun_start()
+    try:
+        return _phases(args, smi, name, peak, f32_peak, records, dev, dry)
+    finally:
+        dryrun_stop(dry)
+
+
+def _phases(args, smi, name, peak, f32_peak, records, dev, dry) -> int:
+    from repro_torch.configs.acis_100m import CONFIG
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
+    from repro_torch.configs.llama_3_2_vision_11b import CONFIG as VISION
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
+    from repro_torch.configs.qwen3_8b import CONFIG as QWEN3
+    from repro_torch.configs.recurrentgemma_9b import CONFIG as RGEMMA
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6
+    from repro_torch.configs.whisper_small import CONFIG as WHISPER
+    from repro_torch.mesh import LocalMesh
+
     checks = kernel_checks(dev)
     timings = kernel_timings(dev, peak, f32_peak, CONFIG, RWKV6, RGEMMA)
     rec = {"phase": "kernels", "checks": checks, "timings": timings}
@@ -5101,7 +5774,18 @@ def main() -> int:
         rec["card"] = smi
         paths.append(rec)
         emit(rec)
+    for rec in (train_gspmd_path(CONFIG, args.seed)
+                + pipeline_path(CONFIG, args.seed)
+                + seq_parallel_path(args.seed)):
+        rec["card"] = smi
+        paths.append(rec)
+        emit(rec)
     records.extend(paths)
+    # the dry run's records: CPU processes, no launch of the card's
+    for rec in dryrun_finish(dry):
+        rec["card"] = smi
+        records.append(rec)
+        emit(rec)
 
     kernels = []
     for k, (src, replaces) in SOURCES.items():

@@ -125,7 +125,14 @@ def _checksum(arr: np.ndarray) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: PyTree, *, keep_last: int = 3,
-         extra: Optional[dict] = None) -> str:
+         extra: Optional[dict] = None, specs: Optional[PyTree] = None,
+         mesh=None) -> str:
+    """Write ``tree`` as global arrays.  A tree of rank-stacked shards
+    (the GSPMD step's layout) comes with its ``specs`` and ``mesh`` and is
+    gathered first, so any layout restores it."""
+    if specs is not None:
+        from repro_torch.sharding.rules import unshard_tree
+        tree = unshard_tree(tree, specs, mesh)
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _leaf_paths(tree)
     step_name = f"step_{step:08d}"
@@ -182,10 +189,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, like: PyTree, *, step: Optional[int] = None,
-            device=None, verify: bool = True) -> tuple[PyTree, int, dict]:
-    """Restore into the structure of ``like`` (its leaves' shapes are
-    checked).  Leaves go to ``device``, else to the device of ``like``'s
-    leaf (the CPU for a ``meta`` one).  Returns (tree, step, extra)."""
+            device=None, verify: bool = True, specs: Optional[PyTree] = None,
+            mesh=None) -> tuple[PyTree, int, dict]:
+    """Restore into the structure of ``like`` (its leaves' global shapes
+    are checked).  Leaves go to ``device``, else to the device of
+    ``like``'s leaf (the CPU for a ``meta`` one).  With ``specs`` and
+    ``mesh`` (the reference's ``shardings=``) every leaf is then split
+    into that layout on the mesh's device (``LocalMesh.shard``).
+    Returns (tree, step, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -211,5 +222,8 @@ def restore(ckpt_dir: str, like: PyTree, *, step: Optional[int] = None,
         if torch.device(dev).type == "meta":
             dev = "cpu"
         leaves[ps] = t.to(dev)
-    return _rebuild(like, leaves), manifest["step"], \
-        manifest.get("extra", {})
+    out = _rebuild(like, leaves)
+    if specs is not None:
+        from repro_torch.sharding.rules import shard_tree
+        out = shard_tree(out, specs, mesh)
+    return out, manifest["step"], manifest.get("extra", {})

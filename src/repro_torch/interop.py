@@ -125,21 +125,31 @@ def _residual_from_reference(arr, mesh: LocalMesh) -> torch.Tensor:
         .reshape(mesh.rank_shape + tuple(arr.shape)).to(mesh.device)
 
 
-def train_state_from_reference(state, mesh: LocalMesh, device=None):
+def train_state_from_reference(state, mesh: LocalMesh, device=None, *,
+                               specs=None):
     """The reference's ``TrainState`` → the port's, on ``device`` (the
     mesh's by default): params and optimizer state through
     :func:`params_from_reference`, the step as a 0-dim int32 tensor, the
     EF residual per device into ``[*rank, ...]``.  The sync arenas are
     scratch and are not carried over (allocate the port's with
-    ``init_state(arenas=True)`` or ``engine.init_arenas``)."""
+    ``init_state(arenas=True)`` or ``engine.init_arenas``).
+
+    A GSPMD state (global arrays) goes into the port's sharded layout
+    with ``specs``, the port step's ``state_specs``: every param and
+    optimizer leaf split over ``mesh`` (``LocalMesh.shard``)."""
+    from repro_torch.sharding.rules import shard_tree
     from repro_torch.train.step import TrainState
 
     dev = mesh.device if device is None else torch.device(device)
     res = None if state.ef_residual is None else tree.tree_map(
         lambda x: _residual_from_reference(x, mesh).to(dev),
         state.ef_residual)
-    return TrainState(params_from_reference(state.params, dev),
-                      params_from_reference(state.opt, dev),
+    params = params_from_reference(state.params, dev)
+    opt = params_from_reference(state.opt, dev)
+    if specs is not None:
+        params = shard_tree(params, specs.params, mesh)
+        opt = shard_tree(opt, specs.opt, mesh)
+    return TrainState(params, opt,
                       torch.tensor(int(np.asarray(state.step)),
                                    dtype=torch.int32, device=dev), res)
 

@@ -202,6 +202,11 @@ class LocalMesh(Transport):
     def n_ranks(self) -> int:
         return math.prod(self.rank_shape)
 
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}`` in axis order (``jax.sharding.Mesh.shape``)."""
+        return dict(self.axes)
+
     def dim(self, axis: str) -> int:
         try:
             return self.axis_names.index(axis)

@@ -33,6 +33,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.act import shard_act
 
 PyTree = Any
 NEG_INF = -1e30
@@ -149,6 +150,9 @@ def _project_qkv(p, x, xc, n_heads, n_kv, d_head, qk_norm, rope_theta,
     if use_rope:
         q = L.apply_rope(q, q_positions, rope_theta)
         k = L.apply_rope(k, k_positions, rope_theta)
+    q = shard_act(q, "dp", None, "tp", None)
+    k = shard_act(k, "dp", None, "tp", None)
+    v = shard_act(v, "dp", None, "tp", None)
     return q, k, v
 
 

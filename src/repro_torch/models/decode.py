@@ -103,8 +103,11 @@ def _layers(params: PyTree, cache: PyTree, cfg: ModelConfig):
            for name in sorted(cache["rem"])]
     if rem_first(cfg):
         yield from rem
+    hook = TP.current()
     for pp, cc in zip(layer_views(params["layers"]),
                       layer_views(cache["layers"])):
+        if hook is not None:
+            pp = hook.layer_params(pp, ("layers",))
         for j, kind in enumerate(period):
             name = f"pos{j}_{kind}"
             yield pp[name], cc[name], kind

@@ -8,8 +8,8 @@ distributions and dtypes (normals drawn in f32, then cast).  ``lead``
 prefixes every shape, so a stacked layer's leaves come out ``[n, ...]``
 in one draw, as the reference's ``vmap`` over layer keys gives them.  On
 the ``meta`` device nothing is drawn: the leaves carry shape and dtype
-only.  ``shard_act`` is dropped: without activation sharding it is the
-identity (ROADMAP.md queue 1 item 9).
+only.  :func:`ffn` pins its hidden activation with ``shard_act``
+(:mod:`repro_torch.sharding.act`), as the reference does; no data moves.
 
 Under tensor parallelism a weight may be a rank-stacked slice
 ``[*rank, d_in, d_out]`` (:mod:`repro_torch.serve.collectives`); then the
@@ -24,6 +24,8 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.act import shard_act
 
 PyTree = Any
 
@@ -235,6 +237,7 @@ def ffn(p: PyTree, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.gelu(dense(x, p["wi"]), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {activation!r}")
+    h = shard_act(h, "dp", None, "tp")
     return dense(h, p["wo"])
 
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models import parallel as TP
 from repro_torch.models.config import MoEConfig
+from repro_torch.sharding.act import shard_act
 
 PyTree = Any
 
@@ -154,14 +155,16 @@ def moe_ffn(p: PyTree, x: torch.Tensor, cfg: MoEConfig, activation: str
                      device=x.device)
     for j in range(k):                  # k small: one scatter per choice
         xe.scatter_add_(-2, slot[..., j, None].expand(xt.shape), xt)
-    xe = xe[..., :n_slots, :]
+    xe = shard_act(xe[..., :n_slots, :].reshape(lead + (g, e, cap, d)),
+                   "dp", None, None, None)
 
     # group-major -> expert-major: THE all-to-all under tensor parallelism
-    xem = xe.reshape(lead + (g, e, cap, d)).transpose(-4, -3) \
-        .reshape(lead + (e, g * cap, d))
+    xem = xe.transpose(-4, -3).reshape(lead + (e, g * cap, d))
+    xem = shard_act(xem, "tp", "dp", None)
     if tp is not None:                  # rank-local TP (serving path)
         xem = tp.moe_dispatch(xem)      # [E, S, D] -> [E/tp, S, D]
-    yem = _expert_ffn(p["experts"], xem, activation)
+    yem = shard_act(_expert_ffn(p["experts"], xem, activation),
+                    "tp", "dp", None)
     shared_y = None
     if tp is not None:
         # the shared-expert partial rides the combine all-to-all
@@ -186,5 +189,7 @@ def moe_ffn(p: PyTree, x: torch.Tensor, cfg: MoEConfig, activation: str
     # load-balance aux: E * sum_e f_e * p_e
     me = probs.mean(dim=(-3, -2))
     ce = onehot[..., 0, :].mean(dim=(-3, -2))
+    if tp is not None:
+        me, ce = tp.moe_aux_means(me, ce)
     aux = e * (me * ce).sum(-1) * cfg.router_aux_weight
     return y.reshape(y.shape[:-3] + (b, t, d)).to(x.dtype), aux

@@ -52,6 +52,22 @@ class TensorParallel:
         """Sum dense-FFN output partials [B, T, D] (after the sliced wo)."""
         return f
 
+    def layer_params(self, pp, where: tuple):
+        """One period of the stacked layers as the period computes with
+        it: ``pp`` is the period's view of the stacked subtree at path
+        ``where`` (``("layers",)``, an encoder's ``("enc", "layers")``).
+        The identity here; an FSDP hook gathers the period's shards, one
+        period at a time."""
+        return pp
+
+    def moe_aux_means(self, me: torch.Tensor, ce: torch.Tensor):
+        """The load-balance loss's per-expert means ``[..., E]`` (router
+        probability, top-1 share) over this rank's tokens.  The identity
+        here; a hook whose ranks split one global batch (the GSPMD step)
+        returns their means over that batch, as the reference's global
+        program computes them."""
+        return me, ce
+
     def moe_route_input(self, xt: torch.Tensor) -> torch.Tensor:
         """The tokens the MoE router reads [..., G, Ng, D]: every rank
         must route each token alike, since the dispatch and combine move

@@ -17,8 +17,8 @@ launches the kernel once per layer for the token or the whole prompt.
 :func:`rwkv6_prefill` is the ``[B, T, D]`` form of :func:`rwkv6_decode`
 and computes what T calls of it compute.  Both update the cache in place
 (the reference engine donates it); a caller that needs the old cache
-clones it first.  ``shard_act`` is dropped: without activation sharding
-it is the identity (sharding is ROADMAP.md queue 1 item 9).
+clones it first.  The WKV inputs are pinned with ``shard_act``
+(:mod:`repro_torch.sharding.act`) as in the reference; no data moves.
 
 Training runs the reference's plain forms under autograd, no kernel:
 :func:`rwkv6_token_mix` with :func:`wkv_chunked` at ``T >= 64``, else
@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_recurrence as RK
 from repro_torch.models import layers as L
+from repro_torch.sharding.act import shard_act
 
 PyTree = Any
 HEAD = 64
@@ -97,7 +98,8 @@ def _wkv_inputs(p, x, xs):
     w = torch.exp(-torch.exp(L.lift(p["w0"], dw) + dw.to(torch.float32)))
 
     def hd(z):
-        return z.reshape(z.shape[:-1] + (h, HEAD))
+        return shard_act(z.reshape(z.shape[:-1] + (h, HEAD)),
+                         "dp", None, "tp", None)
     return hd(r), hd(k), hd(v), g, hd(w)
 
 

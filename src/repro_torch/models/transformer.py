@@ -32,7 +32,7 @@ per-rank gradients come from one forward and one backward that way.
 
 from __future__ import annotations
 
-import functools
+import contextlib
 from typing import Any
 
 import torch
@@ -49,6 +49,7 @@ from repro_torch.models import parallel as TP
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.act import shard_act
 
 PyTree = Any
 
@@ -143,6 +144,15 @@ def _gated(gate: torch.Tensor, h: torch.Tensor,
 def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 context=None, q_offset: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block (:func:`_block`), its output pinned batch-sharded
+    (``shard_act``) as the reference pins it."""
+    x, aux = _block(p, x, cfg, kind, context=context, q_offset=q_offset)
+    return shard_act(x, "dp", None, None), aux
+
+
+def _block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+           context=None, q_offset: int = 0
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One block over x [..., B, T, D] from position ``q_offset``: RWKV-6
     token and channel mix (``rwkv``), the RG-LRU block and its FFN
     (``lru``), attention then the dense FFN or the MoE FFN (``self``,
@@ -325,30 +335,54 @@ def _save_dots(ctx, op, *args, **kwargs):
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@contextlib.contextmanager
+def _entered(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
+
+
 def _remat(fn, policy: str):
     """The reference's ``_remat``: ``none`` as it is, ``full`` recomputes
-    the whole period in the backward, ``dots`` keeps matmul outputs."""
+    the whole period in the backward, ``dots`` keeps matmul outputs.
+    The recompute runs under the tensor-parallel hook active now: the
+    backward runs outside the forward's ``with tensor_parallel(...)``,
+    and without the hook a split period would recompute partial sums."""
     if policy == "none":
         return fn
-    if policy == "dots":
-        ctx = functools.partial(create_selective_checkpoint_contexts,
-                                _save_dots)
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                     context_fn=ctx)
-    if policy != "full":
+    if policy not in ("full", "dots"):
         raise ValueError(f"unknown remat policy {policy!r}")
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    hook = TP.current()
+
+    def contexts():
+        fwd, rec = create_selective_checkpoint_contexts(_save_dots) \
+            if policy == "dots" else (contextlib.nullcontext(),
+                                      contextlib.nullcontext())
+        if hook is not None:
+            rec = _entered(rec, TP.tensor_parallel(hook))
+        return fwd, rec
+
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 context_fn=contexts)
 
 
 def _scan_stack(p_layers: PyTree, x: torch.Tensor, cfg: ModelConfig,
-                period: list[str], *, nd: int, context=None,
-                q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                period: list[str], *, nd: int, where: tuple = ("layers",),
+                context=None, q_offset: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_scan_stack``: the stacked periods (the layer dim
     after ``nd`` rank dims) in depth order, each period under the
     config's remat policy; the periods' aux losses summed as one stack,
-    as its scan sums them."""
+    as its scan sums them.  An active tensor-parallel hook sees each
+    period's params first (``layer_params``, ``where`` the stack's
+    path), inside the remat region: a recomputed period gathers its
+    params again, so none is kept for the backward."""
+    hook = TP.current()
 
     def period_body(x, pp):
+        if hook is not None:
+            pp = hook.layer_params(pp, where)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(period):
             x, a = apply_block(pp[f"pos{j}_{kind}"], x, cfg, kind,
@@ -379,7 +413,8 @@ def encode(params: PyTree, cfg: ModelConfig,
     te = enc_embeds.shape[-2]
     x = enc_embeds + L.lift(e["pos"][..., :te, :], enc_embeds, own=2).to(
         enc_embeds.dtype)
-    x, _ = _scan_stack(e["layers"], x, cfg, ["enc_self"], nd=nd)
+    x, _ = _scan_stack(e["layers"], x, cfg, ["enc_self"], nd=nd,
+                       where=("enc", "layers"))
     return _norm(e["final_norm"], x, cfg)
 
 

@@ -84,7 +84,9 @@ def adamw(lr: Callable | float = 1e-3, b1: float = 0.9, b2: float = 0.95,
                 "v": tree.tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, reducers=None):
+        # elementwise: a sharded leaf updates as it is (``reducers``,
+        # Adafactor's cross-shard means, are not needed)
         step = torch.as_tensor(step, device=_device(params))
         t = step.to(torch.float32) + 1.0
         lr_t = lr_fn(step)
@@ -136,6 +138,24 @@ def _leaves_at(t: PyTree, td) -> list:
     return out
 
 
+class LocalMeans:
+    """The means Adafactor takes of a whole (unsharded) leaf.  A sharded
+    leaf's reducer (:class:`repro_torch.train.step.ShardMeans`) also
+    averages over the ranks that split the reduced dim, so the update
+    equals the global one."""
+
+    rank_ndim = 0
+
+    def mean(self, x: torch.Tensor, dim: int, pdim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """The mean over ``x``'s dim ``dim``, which is the param's dim
+        ``pdim``."""
+        return x.mean(dim, keepdim=keepdim)
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean()
+
+
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment; memory-lean for 100B+ params)
 # ---------------------------------------------------------------------------
@@ -159,21 +179,24 @@ def adafactor(lr: Callable | float = 1e-2, decay: float = 0.8,
         return {"f": tree.tree_map(per, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, reducers=None):
+        """``reducers``: one :class:`LocalMeans`-like object a leaf (flatten
+        order) for rank-stacked shards; whole leaves by default."""
         step = torch.as_tensor(step, device=_device(params))
         t = step.to(torch.float32) + 1.0
         beta = 1.0 - t ** (-decay)
         lr_t = lr_fn(step)
 
-        def upd(g, st, p):
+        def upd(g, st, p, red):
             g = g.to(torch.float32)
             g2 = g.square() + eps
-            if _factored(p.shape):
-                vr = beta * st["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * st["vc"] + (1 - beta) * g2.mean(-2)
+            if _factored(p.shape[red.rank_ndim:]):
+                vr = beta * st["vr"] + (1 - beta) * red.mean(g2, -1, -1)
+                vc = beta * st["vc"] + (1 - beta) * red.mean(g2, -2, -2)
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp_min(
-                             vr.mean(-1, keepdim=True)[..., None], eps))
+                             red.mean(vr, -1, -2, keepdim=True)[..., None],
+                             eps))
                 pre = g * torch.rsqrt(denom + eps)
                 new_st = {"vr": vr, "vc": vc}
             else:
@@ -181,7 +204,7 @@ def adafactor(lr: Callable | float = 1e-2, decay: float = 0.8,
                 pre = g * torch.rsqrt(v + eps)
                 new_st = {"v": v}
             # update clipping (RMS)
-            rms = torch.sqrt(pre.square().mean() + 1e-12)
+            rms = torch.sqrt(red.mean_all(pre.square()) + 1e-12)
             pre = pre / torch.clamp_min(rms / clip_threshold, 1.0)
             pf = p.to(torch.float32)
             new_p = pf - lr_t * (pre + weight_decay * pf)
@@ -190,8 +213,9 @@ def adafactor(lr: Callable | float = 1e-2, decay: float = 0.8,
         g_leaves, td = tree.tree_flatten(grads)
         st_leaves = _leaves_at(state["f"], td)
         p_leaves = tree.tree_leaves(params)
-        out = [upd(g, s, p) for g, s, p in zip(g_leaves, st_leaves,
-                                                p_leaves)]
+        reds = reducers or [LocalMeans()] * len(g_leaves)
+        out = [upd(g, s, p, r) for g, s, p, r in zip(g_leaves, st_leaves,
+                                                      p_leaves, reds)]
         return (tree.tree_unflatten(td, [o[0] for o in out]),
                 {"f": tree.tree_unflatten(td, [o[1] for o in out])})
 

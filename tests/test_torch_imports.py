@@ -39,7 +39,10 @@ def _import_all_in_a_fresh_process(report: str) -> str:
               "tune.fit", "tune.replay", "tune.search",
               "elastic.membership", "elastic.sync", "data.pipeline",
               "train.loss", "train.optimizer", "train.step", "train.loop",
-              "checkpoint.checkpoint"):
+              "checkpoint.checkpoint", "sharding.rules", "sharding.act",
+              "sharding.native", "train.pipeline", "launch.shapes",
+              "launch.mesh", "launch.cells", "launch.dryrun",
+              "roofline.analysis", "roofline.profile", "roofline.report"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, sys\n"
