@@ -121,14 +121,16 @@ Phases, one JSON line each:
                   ``use_kernels=False``, bitwise equal (synced gradients,
                   residuals, params, optimizer state), every rank's
                   synced gradients equal (``rank_agreement``), launches as
-                  the plan says x steps; then ``train_e2e``'s run
-                  (``acis_compressed`` int8, AdamW with
+                  the plan says x steps; then ``examples/torch_train_e2e.py``'s
+                  ``main`` (its default ``acis_compressed`` int8 on
+                  ``LocalMesh({"data": 4})``, AdamW with
                   ``warmup_cosine(3e-4, 20, 200)``, ``BigramStream(seed=
-                  7)``): 200 steps, checkpointed at step 100, a fresh loop
-                  restored from it run to 200 and bitwise equal to the
-                  straight run (params, optimizer state, EF residual;
-                  deterministic algorithms on), the nll falling by more
-                  than 0.5; step ms, tokens/s, peak memory and one
+                  7)``): 200 steps, a checkpoint every 50, the example's
+                  own assert that the nll falls by more than 0.5; a fresh
+                  run from the twin's ``setup`` restored from step 100,
+                  run to 200 and bitwise equal to the straight run
+                  (params, optimizer state, EF residual; deterministic
+                  algorithms on); step ms, tokens/s, peak memory and one
                   profiled step split into forward + backward, sync and
                   optimizer
   12. serve      — rwkv6-1.6b at full width and depth (24 layers, d_model
@@ -170,8 +172,8 @@ Phases, one JSON line each:
                   collectives=)`` over 16 requests (``tp_serve_path``)
   15. serve_tp_moe — qwen2-moe-a2.7b at full width (d_model 2048, 16
                   heads of 128, 60 routed experts top-4 of d_ff 1408,
-                  shared experts of 5632, vocab 151,936), 12 of its 24
-                  layers (cut for the run's time), on
+                  shared experts of 5632, vocab 151,936), 16 of its 24
+                  layers (cut for the run's time, PERF.md §4), on
                   ``LocalMesh({"tp": 4})``: the same with a 4 x 64
                   prefill (decode ticks, as the reference prefills a MoE
                   stack); the tick's all-to-all and its Type-4
@@ -258,6 +260,17 @@ Phases, one JSON line each:
                   against one H100's published peaks, not card times),
                   ``useful_flops_ratio`` and the seconds each took
                   (``dryrun_start`` / ``dryrun_finish``)
+  24. examples  — the port's entry points, ``examples/torch_*.py``, each
+                  through its ``main`` on the card (before the dry run's
+                  records): the quickstart (its qwen3-8b at 18 layers of
+                  full width, serve_tp_dense's cut), the Types 0-4 tour,
+                  the hierarchical sync (each program also run on the
+                  mesh), the simulator and batched serving (acis-100m at
+                  full width, two TP=2 replicas); the examples' asserts,
+                  each printed number held as ``<name>_checks`` says, the
+                  kernels of ``EXAMPLE_KERNELS`` launched, host seconds
+                  and peak memory (``examples_path``); ``train_e2e``'s
+                  record points at the train phase's run of it
 
 The serving phases 16-18 launch none of the ported kernels (the
 reference's paths for these families reach no Pallas kernel): their
@@ -2921,9 +2934,11 @@ SERVE_TP_DENSE = TPSizes(tp=8, batch=8, prompt=512, steps=32, slots=8,
 # 4 x 64 prefill, which a MoE stack runs as 64 decode ticks (the
 # reference's prefill; 256 until the train phase needed the time), so
 # one turn of the five modes; the f32 semantics check on a 4-layer f32
-# model of the same widths
+# model of the same widths; 16 of its 24 layers at full width since the
+# examples phase joined the run (PERF.md §4)
 SERVE_TP_MOE = TPSizes(tp=4, batch=4, prompt=64, steps=32, slots=8,
-                       requests=TP_REQUESTS, rounds=1, f32_layers=4)
+                       requests=TP_REQUESTS, rounds=1, f32_layers=4,
+                       layers=16)
 # the same phases at sizes a CPU runs in seconds (a rehearsal only)
 SERVE_TP_SMOKE = TPSizes(tp=2, batch=2, prompt=6, steps=3, slots=2,
                          requests=((5, 3), (3, 4), (4, 2)), f32_layers=2)
@@ -4058,8 +4073,10 @@ class TrainSizes:
     """The train phase's sizes: ``train_e2e``'s traffic (global batch x
     seq, ``BigramStream(seed=7)``, AdamW with ``warmup_cosine(lr, warmup,
     e2e_steps)``), ``steps`` per backend of the kernels-vs-plain check,
-    the end-to-end run's length, its checkpoint step and its descent
-    bar."""
+    the end-to-end run's length, the checkpoint its resume starts from
+    and the descent bar of a run without the example's (which fixes its
+    own optimizer and bar, ``examples/torch_train_e2e.py``: ``lr`` 3e-4,
+    ``warmup`` 20, 0.5 from 200 steps and 0.1 below)."""
     batch: int
     seq: int
     steps: int
@@ -4073,7 +4090,9 @@ class TrainSizes:
 
 TRAIN = TrainSizes(batch=8, seq=256, steps=3, e2e_steps=200, ckpt_at=100,
                    log_every=10, lr=3e-4, warmup=20, bar=0.5)
-TRAIN_SMOKE = TrainSizes(batch=8, seq=16, steps=2, e2e_steps=12, ckpt_at=6,
+# the example's 30 steps of 8 x 32 pass its bar of 0.1 (a checkpoint every
+# 7 steps, the last three kept: 14, 21, 28)
+TRAIN_SMOKE = TrainSizes(batch=8, seq=32, steps=2, e2e_steps=30, ckpt_at=14,
                          log_every=2, lr=1e-2, warmup=2, bar=0.1)
 TRAIN_BACKENDS = (("acis", None, {"data": 8}),
                   ("acis_compressed", "int8", {"data": 8}),
@@ -4314,92 +4333,78 @@ def train_profile(model, opt, eng, state, batch, mesh) -> dict:
 
 def train_e2e(cfg, seed: int, sizes: TrainSizes, dev, *,
               expect_kernels: bool = True) -> dict:
-    """``examples/train_e2e.py``'s run on the port: ``acis_compressed``
-    (int8, its default) with kernels, ``sizes.e2e_steps`` steps on
-    ``LocalMesh({"data": 8})``, checkpointed at ``sizes.ckpt_at``; the
-    nll must fall by more than ``sizes.bar``.  A fresh loop restored from
-    the checkpoint runs to the end and must match the straight run's
-    params, optimizer state and EF residual bit for bit (deterministic
-    algorithms on for both runs)."""
+    """``examples/torch_train_e2e.py``'s ``main`` with its default
+    backend (``acis_compressed``, int8, on ``LocalMesh({"data": 4})``),
+    ``sizes.e2e_steps`` steps of ``sizes.batch`` x ``sizes.seq`` and a
+    checkpoint every quarter; its own assert holds the nll's fall (0.5
+    from 200 steps).  A fresh run from the twin's ``setup``, restored
+    from the step-``sizes.ckpt_at`` checkpoint and run to the end, must
+    match the straight run's params, optimizer state and EF residual bit
+    for bit (deterministic algorithms on for both runs).  The twin seeds
+    its params with 0, as the reference's example does; ``seed`` is
+    unused."""
     import tempfile
     import warnings
 
-    from repro_torch import tree
+    from repro_torch import obs, tree
     from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.core import make_engine
-    from repro_torch.data.pipeline import BigramStream, DataConfig
-    from repro_torch.mesh import LocalMesh
-    from repro_torch.models import Model
-    from repro_torch.train import optimizer as O
-    from repro_torch.train import step as S
+    from repro_torch.obs.metrics import Recorder
     from repro_torch.train.loop import LoopConfig, TrainLoop
 
+    class StepTimes(Recorder):
+        """Keeps every ``train.step_s`` sample: the step observes one a
+        step, after a device sync."""
+
+        def __init__(self):
+            super().__init__()
+            self.step_s: list = []
+
+        def observe(self, name, value):
+            super().observe(name, value)
+            if name == "train.step_s":
+                self.step_s.append(float(value))
+
+    del seed
     cuda = dev.type == "cuda"
-    sync_dev = _dev_sync(dev)
-    mesh = LocalMesh({"data": 8}, device=dev)
-    stream = BigramStream(DataConfig(vocab=cfg.vocab, seq_len=sizes.seq,
-                                     global_batch=sizes.batch, seed=7))
-
-    def fresh():
-        model = Model(cfg)
-        opt = O.adamw(O.warmup_cosine(sizes.lr, sizes.warmup,
-                                      sizes.e2e_steps))
-        eng = make_engine("acis_compressed")
-        check(eng.config.use_kernels, "use_kernels is off by default")
-        st = S.init_state(model, opt, torch.Generator(device=dev)
-                          .manual_seed(seed), eng, mesh=mesh, arenas=True)
-        return model, opt, eng, st
-
+    twin = load_example("train_e2e")
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
-    times: list = []
     try:
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_ckpt_") \
                 as d, warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            model, opt, eng, st = fresh()
-            per_sync = expected_launches(eng.last_sync_program(), mesh)
-            step_fn = _timed_step(S.build_train_step_acis(model, opt, mesh,
-                                                          eng),
-                                  sync_dev, times)
+            argv = ["--steps", str(sizes.e2e_steps), "--batch",
+                    str(sizes.batch), "--seq", str(sizes.seq),
+                    "--ckpt-dir", d]
             reset_counts()
             t0 = time.perf_counter()
-            first = TrainLoop(step_fn, stream, LoopConfig(
-                total_steps=sizes.ckpt_at, ckpt_every=sizes.ckpt_at,
-                ckpt_dir=d, keep_last=1, log_every=sizes.log_every))
-            st = first.run(st)
-            t_save = time.perf_counter()
-            rest = TrainLoop(step_fn, stream, LoopConfig(
-                total_steps=sizes.e2e_steps, log_every=sizes.log_every))
-            straight = rest.run(st)
-            sync_dev()
+            with obs.recording(StepTimes()) as rec:
+                out = twin.main(argv, device=dev, cfg=cfg)
             t_run = time.perf_counter() - t0
-            log = first.metrics_log + rest.metrics_log
-            del st
-            # a fresh process's view: new model, engine and state, restored
-            model2, opt2, eng2, st2 = fresh()
-            resumed_loop = TrainLoop(S.build_train_step_acis(
-                model2, opt2, mesh, eng2), stream, LoopConfig(
-                total_steps=sizes.e2e_steps, ckpt_dir=d,
-                ckpt_every=sizes.e2e_steps + 1, log_every=sizes.log_every))
-            t1 = time.perf_counter()
-            st2 = resumed_loop.maybe_restore(st2)
-            t_restore = time.perf_counter() - t1
-            check(int(st2.step) == sizes.ckpt_at,
-                  f"restored step {int(st2.step)}, not {sizes.ckpt_at}")
-            resumed = resumed_loop.run(st2)
-            launches = read_counts()
+            run, straight = out["run"], out["state"]
+            check(run.engine.config.use_kernels, "use_kernels is off by "
+                  "default")
             ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
                              for r, _, fs in os.walk(d) for f in fs)
-            ckpt_steps = ckpt.latest_step(d)
+            # a fresh process's view: new model, engine and state, restored
+            run2 = twin.setup(twin.parse_args(argv), device=dev, cfg=cfg)
+            t1 = time.perf_counter()
+            st2, at, _ = ckpt.restore(d, run2.state, step=sizes.ckpt_at,
+                                      device=run2.mesh.device)
+            t_restore = time.perf_counter() - t1
+            check(at == int(st2.step) == sizes.ckpt_at,
+                  f"restored step {int(st2.step)}, not {sizes.ckpt_at}")
+            resumed = TrainLoop(run2.step, run2.stream, LoopConfig(
+                total_steps=sizes.e2e_steps,
+                log_every=sizes.e2e_steps)).run(st2)
+            launches = read_counts()
             nondet = sorted({str(w.message)[:120] for w in caught
                              if "deterministic" in str(w.message)})
     finally:
         torch.use_deterministic_algorithms(was)
-    check(ckpt_steps == sizes.ckpt_at, f"latest checkpoint {ckpt_steps}")
     for name, a, b in (("params", straight.params, resumed.params),
                        ("optimizer state", straight.opt, resumed.opt),
                        ("EF residual", straight.ef_residual,
@@ -4408,34 +4413,43 @@ def train_e2e(cfg, seed: int, sizes: TrainSizes, dev, *,
               "differ from the straight run's")
     check(int(straight.step) == int(resumed.step) == sizes.e2e_steps,
           "train_e2e: wrong final step")
-    curve = [[m["step"], m["nll"]] for m in log]
-    nll0, nll1 = curve[0][1], curve[-1][1]
+    curve = [[s, nll] for s, nll, _ in out["curve"]]
     check(all(math.isfinite(v) for _, v in curve), "non-finite nll")
-    check(nll1 < nll0 - sizes.bar, f"train_e2e: nll {nll0} -> {nll1} fell "
-          f"by less than {sizes.bar}")
+    per_sync = expected_launches(out["sync_program"], run.mesh)
     if expect_kernels:
         steps_run = sizes.e2e_steps + (sizes.e2e_steps - sizes.ckpt_at)
         check_launches(launches, per_sync, steps_run)
+        for group in EXAMPLE_KERNELS["train_e2e"]:
+            check(sum(launches[k] for k in group) > 0,
+                  f"train_e2e: none of {group} launched")
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    profile = train_profile(model, opt, eng, straight,
-                            stream.batch(sizes.e2e_steps), mesh) \
+    profile = train_profile(run.model, run.optimizer, run.engine, straight,
+                            run.stream.batch(sizes.e2e_steps), run.mesh) \
         if cuda else None
+    times = [s * 1e3 for s in rec.step_s[:sizes.e2e_steps]]
     med = statistics.median(times[1:] or times)
     return {"phase": "train", "program": "train_e2e",
-            "backend": "acis_compressed", "compressor": "int8",
-            "mesh": {"data": 8}, "model": cfg.name,
+            "example": "examples/torch_train_e2e.py",
+            "backend": out["backend"], "compressor": "int8",
+            "mesh": out["mesh"], "model": out["model"],
             "params": sum(p.numel() for p in tree.tree_leaves(
                 straight.params)),
             "global_batch": sizes.batch, "seq": sizes.seq,
             "steps": sizes.e2e_steps, "ckpt_at": sizes.ckpt_at,
-            "curve": curve, "entropy": stream.entropy(),
-            "nll_first": nll0, "nll_last": nll1,
+            "curve": curve, "entropy": out["entropy"],
+            "nll_first": out["nll_first"], "nll_last": out["nll_last"],
             "step_ms": times, "median_step_ms": med,
             "tokens_per_s": sizes.batch * sizes.seq / (med * 1e-3),
-            # the first loop's wall minus its steps: the checkpoint save
-            # and the logged metrics' reads
+            "example_seconds": out["seconds"],
+            "example_tokens_per_s": out["tokens_per_s"],
+            "sync_us_model": out["sync_us_model"],
+            "arena_bytes": out["arena_bytes"],
+            "wire_mb_f32": out["wire_mb_f32"],
+            "wire_mb_int16": out["wire_mb_int16"],
+            # the straight run's wall minus its steps: the 4 checkpoint
+            # saves, the logged metrics' reads and the set-up
             "run_s": t_run,
-            "save_and_log_s": t_save - t0 - sum(times[:sizes.ckpt_at]) / 1e3,
+            "save_log_and_setup_s": t_run - sum(times) / 1e3,
             "restore_s": t_restore, "ckpt_bytes": ckpt_bytes,
             "resumed_bitwise_equal": True,
             "deterministic_algorithms": True,
@@ -5610,6 +5624,238 @@ def device_profile(step, count: Optional[dict] = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the examples, each twin's main() on the card
+# ---------------------------------------------------------------------------
+
+# The twins in the order the phase runs them (train_e2e runs in the train
+# phase, whose resume check drives it), and the ported kernels each one's
+# path reaches: each group is one kernel of the reference, counted by its
+# elementwise and ring-hop forms together (kernel_modules() names).
+EXAMPLES = ("quickstart", "fused_collectives", "hierarchical_sync",
+            "cgra_simulate", "serve_batched")
+COMBINE = ("fused_combine", "fused_hop")
+QUANT = ("quant_combine", "quant_hop")
+EXAMPLE_KERNELS = {
+    "quickstart": (COMBINE, ("prefix_sum",)),
+    "fused_collectives": (COMBINE, ("prefix_sum",)),
+    "hierarchical_sync": (COMBINE, QUANT),
+    "cgra_simulate": (COMBINE, QUANT, ("prefix_sum",)),
+    "serve_batched": (COMBINE,),
+    # the default int8 compressor's exact int16 ring has no kernel; its
+    # bucket packs do
+    "train_e2e": (("fused_pack",),),
+}
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py``, the port's twin of an example of the
+    reference, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(out):
+    """The numbers and names of a twin's result (what it prints): every
+    int, float, str, bool and the lists, tuples and dicts of them;
+    tensors, arrays and objects left out."""
+    if isinstance(out, dict):
+        kept = {str(k): printed(v) for k, v in out.items()}
+        return {k: v for k, v in kept.items() if v is not None}
+    if isinstance(out, (list, tuple)):
+        kept = [printed(v) for v in out]
+        return kept if all(v is not None for v in kept) else None
+    if isinstance(out, (bool, int, float, str)):
+        return out
+    return None
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got = torch.as_tensor(got).double().cpu()
+    want = torch.as_tensor(want).double().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def all_to_all_want(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The global result of ``all_to_all`` over ``n`` ranks of a 1-D
+    tensor split over them: rank j holds chunk j of every rank, by
+    source rank."""
+    return keys.reshape(n, n, -1).transpose(0, 1).reshape(-1)
+
+
+def quickstart_checks(out: dict, cfg) -> dict:
+    """Fig. 5 exact on its integer input, the NAS IS pair (8 in every
+    histogram lane, the keys all-to-all'd), Welford within 1e-5 of
+    numpy's, the forward's hidden states finite at ``cfg``'s width."""
+    check(out["fig5_stages"] == ["scan+allgather"] and
+          out["nas_is_stages"] == ["allreduce+alltoall"],
+          f"quickstart: stages {out['fig5_stages']}, {out['nas_is_stages']}")
+    x = torch.arange(32.0, dtype=torch.float64)
+    check(torch.equal(out["fig5_out"].cpu().double(), x.cumsum(0)),
+          "quickstart: Fig. 5's scan of 0..31 is not exact")
+    check(bool((out["hist"] == 8).all()), "quickstart: a histogram lane "
+          "is not 8")
+    check(torch.equal(out["keys"].cpu(), all_to_all_want(
+        torch.arange(64.0), 8)), "quickstart: the keys' all-to-all")
+    rel = {"welford_mean_rel": _rel(out["welford_mean"][:8],
+                                    out["numpy_mean"]),
+           "welford_var_rel": _rel(out["welford_var"][:8],
+                                   out["numpy_var"])}
+    check(max(rel.values()) <= 1e-5, f"quickstart: Welford off numpy's "
+          f"by {rel}")
+    check(out["hidden_finite"] and out["hidden_shape"] == (2, 16,
+                                                           cfg.d_model),
+          f"quickstart: hidden {out['hidden_shape']}")
+    return rel
+
+
+def fused_collectives_checks(out: dict) -> dict:
+    """The matches the tour prints all true; the bf16 ring within 8 bf16
+    roundings of the largest lane's sum of |x|; the EF sync's mean equal
+    to the mean of what the wire delivered (target - residual) within
+    f32 rounding; PowerSGD's ranks holding one result; the traced DAG's
+    stages and schedules, its reduce (8 in every lane) and all-to-all."""
+    check(out["max_match"] and out["fused_match"] and out["matmul_match"],
+          "fused_collectives: a printed match is False")
+    x = out["x"].double()
+    scale = x.abs().sum(0).max().item()
+    check(out["bf16_err"] <= 8 * 2.0 ** -8 * scale,
+          f"fused_collectives: bf16 ring off by {out['bf16_err']}")
+    delivered = (x - out["ef_residual"].double()).mean(0)
+    ef = (out["ef_reduced"][0].double() - delivered).abs().max().item()
+    check(ef <= 2.0 ** -20 * scale, f"fused_collectives: the EF mean is "
+          f"{ef} off the delivered mean")
+    p = out["powersgd"]
+    check(bool(torch.isfinite(p).all()) and bool((p == p[0:1]).all()),
+          "fused_collectives: PowerSGD's ranks differ")
+    check(out["dag_stages"] == ["map+allreduce", "alltoall"] and
+          out["dag_schedules"] == ["latency", "-"],
+          f"fused_collectives: DAG {out['dag_stages']} "
+          f"{out['dag_schedules']}")
+    check(bool((out["dag_hist"] == 8).all()) and torch.equal(
+        out["dag_keys"].cpu(), all_to_all_want(torch.arange(8192.0), 8)),
+        "fused_collectives: the DAG's outputs")
+    return {"ef_mean_err": ef, "bf16_err_over_scale": out["bf16_err"] / scale}
+
+
+# the int8 pod hop quantizes each pod's partial sum and the sum of the
+# two, each to half a step of its 256-lane block's absmax / 127: three
+# half-steps of the largest per-pod sum of |g|
+INT8_POD_REL = 3 / 254
+HIER_STAGES = ["map", "reduce_scatter", "allreduce", "allgather", "map"]
+
+
+def hierarchical_sync_checks(out: dict) -> dict:
+    """Both programs lowered to the five hierarchical stages with the
+    engine's codec on the pod hop, each run on the mesh within its bound
+    of the exact sum (f32 rounding; ``INT8_POD_REL`` for int8), the
+    gradient sync within f32 rounding of the flat mean."""
+    for backend, codec, bound in (
+            ("acis_hierarchical", "identity", 1e-6),
+            ("acis_hierarchical_compressed", "int8_b256", INT8_POD_REL)):
+        p = out["programs"][backend]
+        check(p["stages"] == HIER_STAGES and p["codec"] == codec,
+              f"hierarchical_sync {backend}: {p['stages']} {p['codec']}")
+        check(p["rel_err"] <= bound, f"hierarchical_sync {backend}: "
+              f"{p['rel_err']} off the exact sum (bound {bound})")
+    check(out["sync_err"] <= 1e-6, f"hierarchical_sync: gradient_sync "
+          f"{out['sync_err']} off the flat mean")
+    check(out["sync_stages"] == ["map", "reduce_scatter@data",
+                                 "allreduce@pod", "allgather@data", "map",
+                                 "map"],
+          f"hierarchical_sync: sync stages {out['sync_stages']}")
+    return {}
+
+
+def cgra_simulate_checks(out: dict) -> dict:
+    """Fig. 5's simulated scan the same on every rank and within
+    ``scan_tolerance`` of the float64 sum; the int8 EF stage placed, the
+    top-k one a host fallback; the hierarchical sum within
+    ``INT8_POD_REL``; every report's times finite and positive (the cost
+    model's)."""
+    f = out["fig5"]
+    got = f["out"].cpu()
+    check(bool((got == got[0:1]).all()), "cgra_simulate: Fig. 5's ranks "
+          "differ")
+    exact, tol = scan_tolerance(torch.from_numpy(f["input"].reshape(-1)), 0)
+    ratio = scan_err(got[0], exact, tol, "cgra_simulate: Fig. 5")
+    check(not out["int8"]["placement"].startswith("host-fallback") and
+          out["topk"]["placement"].startswith("host-fallback"),
+          f"cgra_simulate: placements {out['int8']['placement']!r}, "
+          f"{out['topk']['placement']!r}")
+    h = out["hierarchical"]
+    check(h["rel_err"] <= INT8_POD_REL, f"cgra_simulate: hierarchical sum "
+          f"{h['rel_err']} off (bound {INT8_POD_REL})")
+    for k in ("fig5", "int8", "topk", "hierarchical"):
+        check(0 < out[k]["sim_us"] < math.inf and
+              0 < out[k]["model_us"] < math.inf,
+              f"cgra_simulate: {k} times {out[k]['sim_us']}, "
+              f"{out[k]['model_us']}")
+    return {"fig5_err_over_bound": ratio}
+
+
+def serve_batched_checks(out: dict) -> dict:
+    """(Request 3 against the greedy oracle is the twin's own assert.)
+    Every burst's 10 requests complete with all their tokens; the
+    second replica compiles nothing."""
+    want = sum(4 + (i * 5) % 12 for i in range(10))
+    for k in ("plain", "compiled", "replica2"):
+        b = out[k]
+        check(len(b["completions"]) == 10 and b["tokens"] == want,
+              f"serve_batched {k}: {len(b['completions'])} completions, "
+              f"{b['tokens']} tokens (want 10, {want})")
+    check(out["replica2_new_compiles"] == 0,
+          f"serve_batched: replica 2 compiled "
+          f"{out['replica2_new_compiles']} programs")
+    return {}
+
+
+def examples_path(cfgs: dict, *, device="cuda",
+                  expect_kernels: bool = True) -> list[dict]:
+    """The examples phase: each twin of ``EXAMPLES`` through its ``main``
+    on ``device`` (``cfgs`` by name: the model config a twin takes, a
+    depth cut or a smoke config), its own asserts and the checks above;
+    its host seconds, its launches (each group of ``EXAMPLE_KERNELS``
+    launched) and its peak memory under ``PEAK_LIMIT``."""
+    dev = torch.device(device)
+    sync_dev = _dev_sync(dev)
+    checks = {"quickstart": lambda o: quickstart_checks(
+                  o, cfgs["quickstart"]),
+              "fused_collectives": fused_collectives_checks,
+              "hierarchical_sync": hierarchical_sync_checks,
+              "cgra_simulate": cgra_simulate_checks,
+              "serve_batched": serve_batched_checks}
+    recs = []
+    for name in EXAMPLES:
+        twin = load_example(name)
+        _fresh_peak(dev)
+        reset_counts()
+        sync_dev()
+        t0 = time.perf_counter()
+        out = twin.main([], device=dev, cfg=cfgs.get(name))
+        sync_dev()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        rec = {"phase": "examples", "program": name,
+               "example": f"examples/torch_{name}.py", "seconds": seconds,
+               "checks": checks[name](out), "numbers": printed(out),
+               "launches": launches}
+        if expect_kernels:
+            for group in EXAMPLE_KERNELS[name]:
+                check(sum(launches[k] for k in group) > 0,
+                      f"{name}: none of {group} launched")
+        rec["max_memory_allocated"] = check_peak(dev, f"examples {name}")
+        recs.append(rec)
+    return recs
+
+
+# ---------------------------------------------------------------------------
 
 COMPRESSORS = ("int8", "int8_hopquant", "topk")
 # the kernels the main paths run: the fused_combine and quant_combine
@@ -5780,6 +6026,24 @@ def _phases(args, smi, name, peak, f32_peak, records, dev, dry) -> int:
         rec["card"] = smi
         paths.append(rec)
         emit(rec)
+    # the examples at full width; the quickstart's qwen3-8b at
+    # serve_tp_dense's depth cut
+    for rec in examples_path({"quickstart": dataclasses.replace(
+            QWEN3, n_layers=SERVE_TP_DENSE.layers)}):
+        rec["card"] = smi
+        paths.append(rec)
+        emit(rec)
+    e2e = next(p for p in paths if p.get("program") == "train_e2e")
+    rec = {"phase": "examples", "program": "train_e2e",
+           "example": e2e["example"], "run_in": "train",
+           "numbers": {k: e2e[k] for k in (
+               "backend", "mesh", "model", "steps", "nll_first", "nll_last",
+               "entropy", "example_seconds", "example_tokens_per_s",
+               "sync_us_model", "arena_bytes", "wire_mb_f32",
+               "wire_mb_int16")},
+           "launches_in_train": e2e["launches"], "card": smi}
+    records.append(rec)
+    emit(rec)
     records.extend(paths)
     # the dry run's records: CPU processes, no launch of the card's
     for rec in dryrun_finish(dry):

@@ -7,7 +7,10 @@ a dense or MoE model over a ``tp`` mesh and runs its all-reduces and
 all-to-alls as compiled switch programs (``ServeEngine(collectives=)``).
 """
 
+from repro_torch.serve.collectives import (PROGRAM_CACHE, ServeCollectives,
+                                           SwitchProgramCache)
 from repro_torch.serve.engine import Completion, Request, ServeEngine, \
     SLOPolicy
 
-__all__ = ["Completion", "Request", "SLOPolicy", "ServeEngine"]
+__all__ = ["Completion", "PROGRAM_CACHE", "Request", "SLOPolicy",
+           "ServeCollectives", "ServeEngine", "SwitchProgramCache"]

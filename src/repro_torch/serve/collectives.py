@@ -150,6 +150,10 @@ class _TPBase(TP.TensorParallel):
     rank-stacked ``[tp, ...]``.
     """
 
+    # set by ServeCollectives' decode / prefill functions on a token
+    # shape's first call (only the compiled hook reads it)
+    tracing = False
+
     def __init__(self, axis: str, tp: int):
         self.axis = axis
         self.tp = tp
@@ -220,9 +224,11 @@ class CompiledTPHook(_TPBase):
 
     The port consults the hook on every call, not once per trace, so it
     keeps the programs it has fetched in a dict keyed by (name, rank-local
-    shapes and dtypes): after a shape's first call (one ``plan_key`` hash
-    and a shared-cache hit, the programs having been built eagerly by
-    :meth:`ServeCollectives.decode_fn`), a call pays one dict lookup."""
+    shapes and dtypes): a call pays one dict lookup.  While ``tracing``
+    (the first call of a decode or prefill function at a token shape,
+    where the reference's ``jit`` traces) every call looks its program
+    up in the shared cache, as the reference's trace does, so the
+    cache's hit and miss counts are the reference's."""
 
     def __init__(self, sc: "ServeCollectives"):
         super().__init__(sc.axis, sc.tp)
@@ -231,7 +237,7 @@ class CompiledTPHook(_TPBase):
 
     def _run(self, name, trace, *xs):
         key = (name,) + tuple((x.shape, x.dtype) for x in xs)
-        prog = self._progs.get(key)
+        prog = None if self.tracing else self._progs.get(key)
         if prog is None:
             avals = tuple(TensorSpec(tuple(x.shape[1:]), x.dtype)
                           for x in xs)
@@ -445,9 +451,16 @@ class ServeCollectives:
     # -- the decode and prefill programs ----------------------------------
 
     def _run_fn(self, step, hook: TP.TensorParallel):
-        def run(*args, **kw):
-            with self.mesh, TP.tensor_parallel(hook), torch.no_grad():
-                return step(*args, **kw)
+        shapes: set = set()
+
+        def run(params, tokens, *args, **kw):
+            hook.tracing = tokens.shape not in shapes
+            shapes.add(tokens.shape)
+            try:
+                with self.mesh, TP.tensor_parallel(hook), torch.no_grad():
+                    return step(params, tokens, *args, **kw)
+            finally:
+                hook.tracing = False
         return run
 
     def decode_fn(self, params: PyTree = None, cache: PyTree = None, *,

@@ -664,11 +664,15 @@ def test_train_path_rehearsed_on_the_cpu(smoke):
             assert r["max_rank_spread"] == 0.0
     assert not recs[0]["ranks_bitwise"]
     e2e = recs[-1]
-    assert e2e["resumed_bitwise_equal"] and e2e["steps"] == 12
-    # every log_every-th step and each loop's last (the checkpoint's loop
-    # ends at step 5)
-    assert [s for s, _ in e2e["curve"]] == [0, 2, 4, 5, 6, 8, 10, 11]
+    assert e2e["resumed_bitwise_equal"] and e2e["steps"] == 30
+    assert e2e["example"] == "examples/torch_train_e2e.py"
+    assert e2e["mesh"] == {"data": 4} and e2e["ckpt_at"] == 14
+    # the example logs every max(steps // 20, 1)-th step
+    assert [s for s, _ in e2e["curve"]] == list(range(30))
     assert e2e["nll_last"] < e2e["nll_first"] - smoke.TRAIN_SMOKE.bar
+    assert len(e2e["step_ms"]) == 30 and e2e["ckpt_bytes"] > 0
+    # no kernel of the int8 sync's own; its bucket packs are fused_pack
+    assert e2e["launches_per_sync"]["fused_pack"] > 0
     assert not torch.are_deterministic_algorithms_enabled()
 
 
@@ -690,3 +694,84 @@ def test_train_phase_fails_when_the_resume_drops_the_residual(smoke,
     with pytest.raises(AssertionError, match="resumed run.s"):
         smoke.train_e2e(SMOKE, 0, smoke.TRAIN_SMOKE, torch.device("cpu"),
                         expect_kernels=False)
+
+
+EXAMPLE_SMOKE_CFGS = ("quickstart", "qwen3-8b"), ("serve_batched",
+                                                  "acis-100m")
+
+
+def _example_cfgs():
+    from repro_torch import configs
+    return {name: configs.get_smoke(arch) for name, arch in EXAMPLE_SMOKE_CFGS}
+
+
+def test_examples_path_rehearsed_on_the_cpu(smoke):
+    """The examples phase on the CPU: every twin through its main and the
+    phase's checks of what it returns; records JSON-ready, no launch."""
+    import json
+
+    recs = smoke.examples_path(_example_cfgs(), device="cpu",
+                               expect_kernels=False)
+    assert [r["program"] for r in recs] == list(smoke.EXAMPLES)
+    json.dumps(recs)
+    by = {r["program"]: r for r in recs}
+    for r in recs:
+        assert r["phase"] == "examples" and r["seconds"] > 0
+        assert not any(r["launches"].values())
+        assert r["max_memory_allocated"] is None
+    assert by["quickstart"]["numbers"]["fig5_stages"] == ["scan+allgather"]
+    assert by["quickstart"]["checks"]["welford_mean_rel"] <= 1e-5
+    assert by["fused_collectives"]["numbers"]["dag_stages"] == \
+        ["map+allreduce", "alltoall"]
+    assert 0 < by["cgra_simulate"]["checks"]["fig5_err_over_bound"] <= 1
+    assert by["serve_batched"]["numbers"]["replica2_new_compiles"] == 0
+    # every group of kernels the card must see is a kernel the script
+    # counts, and every twin has its groups
+    names = set(smoke.kernel_modules())
+    assert set(smoke.EXAMPLE_KERNELS) == set(smoke.EXAMPLES) | {"train_e2e"}
+    for groups in smoke.EXAMPLE_KERNELS.values():
+        assert groups and all(set(g) <= names for g in groups)
+
+
+def _bump(out, *path, by=1e-3):
+    *head, last = path
+    for k in head:
+        out = out[k]
+    out[last] = out[last] + by
+
+
+@pytest.mark.parametrize("name, perturb", [
+    ("quickstart", lambda o: _bump(o, "welford_var", by=1e-4)),
+    ("quickstart", lambda o: _bump(o, "fig5_out", by=1.0)),
+    ("fused_collectives", lambda o: _bump(o, "ef_reduced")),
+    ("fused_collectives", lambda o: _bump(o, "bf16_err", by=10.0)),
+    ("hierarchical_sync", lambda o: _bump(o, "sync_err")),
+    ("hierarchical_sync", lambda o: _bump(
+        o, "programs", "acis_hierarchical_compressed", "rel_err", by=0.01)),
+    ("cgra_simulate", lambda o: o["fig5"]["out"][3].add_(1e-2)),
+    ("cgra_simulate", lambda o: _bump(o, "hierarchical", "rel_err",
+                                      by=0.01)),
+    ("serve_batched", lambda o: _bump(o, "replica2_new_compiles", by=1)),
+])
+def test_examples_phase_fails_on_a_perturbed_number(smoke, monkeypatch,
+                                                    name, perturb):
+    """Each twin's checks are tight enough to catch one of its returned
+    numbers moved."""
+    real = smoke.load_example
+
+    def load(example):
+        mod = real(example)
+        main = mod.main
+
+        def perturbed(*args, **kw):
+            out = main(*args, **kw)
+            perturb(out)
+            return out
+        mod.main = perturbed
+        return mod
+
+    monkeypatch.setattr(smoke, "load_example", load)
+    monkeypatch.setattr(smoke, "EXAMPLES", (name,))
+    with pytest.raises(AssertionError, match=name):
+        smoke.examples_path(_example_cfgs(), device="cpu",
+                            expect_kernels=False)

@@ -77,6 +77,28 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
             assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro")
 
 
+def test_examples_import_neither_jax_nor_the_reference():
+    """The port's entry points, ``examples/torch_*.py`` (one twin of each
+    reference example), loaded in a fresh process: no JAX, no reference
+    package."""
+    twins = sorted((SRC.parent / "examples").glob("torch_*.py"))
+    refs = sorted(p for p in (SRC.parent / "examples").glob("*.py")
+                  if not p.name.startswith("torch_"))
+    assert [p.name for p in twins] == ["torch_" + p.name for p in refs]
+    code = (
+        "import importlib.util, sys\n"
+        f"for p in {[str(p) for p in twins]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_local_mesh_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")

@@ -38,7 +38,8 @@ the port (``device="cpu"``).  Tolerances, each with its reason:
 * the first 30 logged ``nll`` values of ``examples/train_e2e.py --smoke``'s
   configuration (bf16 smoke model, 4 data ranks, ``acis_compressed``
   int8, AdamW with ``warmup_cosine(3e-4, 20, 30)``, ``BigramStream(seed=
-  7)``, seq 32, the reference on a (4, 1) data x model mesh): within
+  7)``, seq 32, the reference on a (4, 1) data x model mesh), the port's
+  run through ``examples/torch_train_e2e.py``'s setup and loop: within
   2e-3 of the reference's curve (bf16 params rounded in different places
   by XLA's fusions; 1.0e-3 measured).
 """
@@ -64,13 +65,13 @@ from repro.train.loop import LoopConfig as JLoopConfig
 from repro.train.loop import TrainLoop as JTrainLoop
 from repro_torch import configs, interop, tree
 from repro_torch.core import make_engine
-from repro_torch.data.pipeline import BigramStream, DataConfig
 from repro_torch.mesh import LocalMesh
 from repro_torch.models import Model
 from repro_torch.train import loss as tloss
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as S
-from repro_torch.train.loop import LoopConfig, TrainLoop
+
+from test_torch_examples import load
 
 ARCH = "acis-100m"
 LR = 1e-2
@@ -448,19 +449,21 @@ def test_train_e2e_smoke_curve_matches_reference(devices):
     dcfg = dict(vocab=cfg_j.vocab, seq_len=E2E_SEQ, global_batch=8, seed=7)
     loop_j = JTrainLoop(step_j, JStream(JDataConfig(**dcfg)),
                         JLoopConfig(total_steps=E2E_STEPS, log_every=1))
-    mesh = LocalMesh({"data": 4}, device="cpu")
-    st_t = interop.train_state_from_reference(st_j, mesh)  # before donation
+    # the port's side is examples/torch_train_e2e.py's (its setup and
+    # loop), started from the reference's state
+    twin = load("torch_train_e2e")
+    args = twin.parse_args(["--smoke", "--steps", str(E2E_STEPS), "--seq",
+                            str(E2E_SEQ)])
+    run = twin.setup(args, device="cpu")
+    assert run.mesh.axes == {"data": 4}
+    st_t = interop.train_state_from_reference(st_j, run.mesh)  # pre-donation
     with jax.set_mesh(jmesh):
         loop_j.run(st_j)
-    model = Model(configs.get_smoke(ARCH))
-    o_t = topt.adamw(topt.warmup_cosine(3e-4, 20, E2E_STEPS))
-    eng = make_engine("acis_compressed")
-    st_t.sync_arenas = eng.init_arenas(tree.tree_map(
-        lambda p: p.expand((4,) + tuple(p.shape)), st_t.params), mesh=mesh)
-    loop_t = TrainLoop(S.build_train_step_acis(model, o_t, mesh, eng),
-                       BigramStream(DataConfig(**dcfg)),
-                       LoopConfig(total_steps=E2E_STEPS, log_every=1))
-    loop_t.run(st_t)
+    st_t.sync_arenas = run.engine.init_arenas(tree.tree_map(
+        lambda p: p.expand((4,) + tuple(p.shape)), st_t.params),
+        mesh=run.mesh)
+    run.state = st_t
+    loop_t, _, _, _ = twin.train(args, run)
     got = [m["nll"] for m in loop_t.metrics_log]
     want = [m["nll"] for m in loop_j.metrics_log]
     assert len(got) == len(want) == E2E_STEPS
