@@ -4348,21 +4348,7 @@ def train_e2e(cfg, seed: int, sizes: TrainSizes, dev, *,
 
     from repro_torch import obs, tree
     from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.obs.metrics import Recorder
     from repro_torch.train.loop import LoopConfig, TrainLoop
-
-    class StepTimes(Recorder):
-        """Keeps every ``train.step_s`` sample: the step observes one a
-        step, after a device sync."""
-
-        def __init__(self):
-            super().__init__()
-            self.step_s: list = []
-
-        def observe(self, name, value):
-            super().observe(name, value)
-            if name == "train.step_s":
-                self.step_s.append(float(value))
 
     del seed
     cuda = dev.type == "cuda"
@@ -4381,7 +4367,7 @@ def train_e2e(cfg, seed: int, sizes: TrainSizes, dev, *,
                     "--ckpt-dir", d]
             reset_counts()
             t0 = time.perf_counter()
-            with obs.recording(StepTimes()) as rec:
+            with obs.recording(spans=True) as rec:
                 out = twin.main(argv, device=dev, cfg=cfg)
             t_run = time.perf_counter() - t0
             run, straight = out["run"], out["state"]
@@ -4426,7 +4412,9 @@ def train_e2e(cfg, seed: int, sizes: TrainSizes, dev, *,
     profile = train_profile(run.model, run.optimizer, run.engine, straight,
                             run.stream.batch(sizes.e2e_steps), run.mesh) \
         if cuda else None
-    times = [s * 1e3 for s in rec.step_s[:sizes.e2e_steps]]
+    # each step's span: its device time on the card, host time on the CPU
+    times = [s.host_ms if s.device_ms is None else s.device_ms
+             for s in rec.spans if s.name == "train.step"][:sizes.e2e_steps]
     med = statistics.median(times[1:] or times)
     return {"phase": "train", "program": "train_e2e",
             "example": "examples/torch_train_e2e.py",

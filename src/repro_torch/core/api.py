@@ -64,6 +64,7 @@ from repro_torch.core.lookaside import init_residual
 from repro_torch.core.types import ADD, TensorSpec
 from repro_torch.mesh import LocalMesh, ambient, current
 from repro_torch.obs import metrics as _obs
+from repro_torch.obs import spans as _spans
 
 PyTree = Any
 
@@ -307,7 +308,16 @@ class CollectiveEngine:
         changing it never recompiles.  ``n_total`` is ignored on the
         masked path — the live count is the divisor.  The ``xla`` backend
         reduces the masked payload and the count in two launches.
+
+        The call runs under the span ``sync.call``
+        (:func:`repro_torch.obs.spans.span`).
         """
+        with _spans.span("sync.call"):
+            return self._gradient_sync(grads, state, n_total, arenas,
+                                       mesh, membership)
+
+    def _gradient_sync(self, grads, state, n_total, arenas, mesh,
+                       membership):
         m = mesh if mesh is not None else current()
         with m:
             if self.config.backend == "xla":

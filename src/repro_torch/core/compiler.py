@@ -248,6 +248,16 @@ class Stage:
     # rank-local aval of that buffer.  None for every other stage.
     arena_slot: Optional[int] = None
     arena_aval: Optional[Any] = None
+    # what the stage's span and counter are named while spans are
+    # recorded: the kind, and for a map its op (``map.bucket_pack``);
+    # fixed here, not per call
+    label: str = dataclasses.field(init=False, default="")
+
+    def __post_init__(self):
+        op = self.ir.nodes[0].op.name if self.kind == "map" \
+            and self.ir is not None and self.ir.nodes else ""
+        object.__setattr__(self, "label",
+                           f"{self.kind}.{op}" if op else self.kind)
 
     def __repr__(self):  # pragma: no cover
         return f"Stage({self.kind}@{self.axis})" if self.axis \
@@ -1444,8 +1454,6 @@ class Coalesce:
                     nonlocal cur, cur_bytes, cur_outs
                     if len(cur) >= 2:
                         buckets.append(cur)
-                        _obs.RECORDER.observe("coalesce.bucket_fill_frac",
-                                              cur_bytes / cap)
                     cur, cur_bytes, cur_outs = [], 0, set()
 
                 for u in pending:       # definition order throughout
@@ -2867,10 +2875,6 @@ def compile_rank_local(
     if rec.enabled:
         rec.count("compile.programs")
         for st in stages:
-            nb = getattr(st.ir, "bytes_in", None) if st.ir is not None \
-                else None
-            if nb:
-                rec.observe("plan.stage_bytes", float(nb))
             if st.placement is not None:
                 rec.count("cgra.placed" if st.placement.fits
                           else "cgra.host_fallback")

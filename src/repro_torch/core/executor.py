@@ -330,7 +330,14 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
         overlap and the recording does not serialize the program;
       * **on the CPU**: host ``time.perf_counter`` seconds around each
         stage (the host runs the stages one after another).
+
+    While the process recorder keeps a span log (``obs.recording(spans=
+    True)``) each stage runs under ``obs.spans.span("stage." +
+    stage.label)`` and counts ``sync.stages.<label>``; that path
+    synchronises nothing.
     """
+    rec = _metrics.RECORDER
+    spans_on = rec.spans is not None
     env: dict[int, PyTree] = dict(enumerate(args))
     new_arenas = list(arenas) if arenas is not None else None
     wave_of = {i: w for w, ws in enumerate(plan.waves) for i in ws}
@@ -344,7 +351,6 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
         span = _spans.from_stage(plan.stages[i], i, wave_of.get(i, 0),
                                  t0, t1)
         instrument.append(span)
-        rec = _metrics.RECORDER
         if rec.enabled:
             rec.count("exec.instrumented_stages")
             rec.observe("exec.stage_s", span.duration)
@@ -363,11 +369,17 @@ def execute(plan: ExecutionPlan, args: Sequence[PyTree], *,
                 e0 = mark()
             else:
                 t0 = time.perf_counter()
-        if slot is not None and new_arenas is not None:
-            outs = st.run(ins, st.axis, arena=new_arenas[slot])
-            new_arenas[slot] = outs[0]
+        if spans_on:
+            rec.count("sync.stages." + st.label)
+            region = _spans.span("stage." + st.label)
         else:
-            outs = st.run(ins, st.axis)
+            region = _spans.NOOP
+        with region:
+            if slot is not None and new_arenas is not None:
+                outs = st.run(ins, st.axis, arena=new_arenas[slot])
+                new_arenas[slot] = outs[0]
+            else:
+                outs = st.run(ins, st.axis)
         if instrument is not None:
             if timer is not None:
                 events.append((i, e0, mark()))

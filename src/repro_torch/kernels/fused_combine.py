@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.obs import metrics as _metrics
 
 OPS = {"add": 0, "max": 1, "min": 2, "mac": 3}
 HOP_OPS = ("add", "max", "min")
@@ -157,7 +158,13 @@ def fused_hop(buf: torch.Tensor, xs: torch.Tensor, s: int, *, dim: int,
     ``xs`` is ``[*rank, n, *chunk]`` (each rank's input in ``n`` ring
     chunks), ``0 <= s <= n - 2``; ``op`` in {add, max, min}.  It is
     ``combine(tp.shift(buf, 1), tp.take(xs, (i - 2 - s) % n))`` on a
-    :class:`~repro_torch.mesh.LocalMesh`, in one launch."""
+    :class:`~repro_torch.mesh.LocalMesh`, in one launch.
+
+    The least bytes a launch moves are 3 × ``buf.nbytes``: each output
+    row reads its sender's row of ``buf`` and one ring chunk of ``xs``
+    (both the row's size) and writes the row (``hop_kernel``).  While
+    spans are recorded each launch adds them to the counter
+    ``kernel.fused_hop.bytes``."""
     global hop_launches
     if op not in HOP_OPS:
         raise ValueError(f"unknown hop op {op!r}; expected {list(HOP_OPS)}")
@@ -183,4 +190,7 @@ def fused_hop(buf: torch.Tensor, xs: torch.Tensor, s: int, *, dim: int,
     hop_launches += 1
     if rc != 0:
         raise RuntimeError(f"fused_hop kernel launch failed (code {rc})")
+    rec = _metrics.RECORDER
+    if rec.spans is not None:
+        rec.count("kernel.fused_hop.bytes", 3 * buf.nbytes)
     return out

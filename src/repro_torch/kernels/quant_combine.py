@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.obs import metrics as _metrics
 
 QBLOCK = 256
 
@@ -165,7 +166,14 @@ def quant_hop(q_buf: torch.Tensor, s_buf: torch.Tensor, q_xs: torch.Tensor,
     ``s_xs`` are ``[*rank, n, rows, 256]`` and ``[*rank, n, rows]`` (each
     rank's input in ``n`` ring chunks); ``0 <= s <= n - 2``.  It is
     ``quant_combine(shift(buf, 1), take(xs, (i - 2 - s) % n))`` on a
-    :class:`~repro_torch.mesh.LocalMesh`, in one launch."""
+    :class:`~repro_torch.mesh.LocalMesh`, in one launch.
+
+    The least bytes a launch moves are 3 × (``q_buf.nbytes`` +
+    ``s_buf.nbytes``): each output run reads its sender's run of the
+    buffer and one ring chunk of ``xs`` (blocks and scales, both the run's
+    size) and writes the run (``quant_hop_kernel``).  While spans are
+    recorded each launch adds them to the counter
+    ``kernel.quant_hop.bytes``."""
     global hop_launches
     if not 0 <= dim < rank_ndim:
         raise ValueError(f"ring dim {dim} is not one of {rank_ndim} rank dims")
@@ -194,4 +202,7 @@ def quant_hop(q_buf: torch.Tensor, s_buf: torch.Tensor, q_xs: torch.Tensor,
     hop_launches += 1
     if rc != 0:
         raise RuntimeError(f"quant_hop kernel launch failed (code {rc})")
+    rec = _metrics.RECORDER
+    if rec.spans is not None:
+        rec.count("kernel.quant_hop.bytes", 3 * (q_buf.nbytes + s_buf.nbytes))
     return q_out, s_out

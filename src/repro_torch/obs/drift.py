@@ -149,7 +149,6 @@ class DriftWatchdog:
         """
         from repro_torch.core import netmodel
 
-        rec = self._rec()
         spans = getattr(trace, "stages", trace)
         priced = 0
         for ts in spans:
@@ -171,7 +170,6 @@ class DriftWatchdog:
             priced += 1
         if priced:
             self._samples.append((plan, topo, trace))
-            rec.count("drift.observations", priced)
         return priced
 
     def observe_ranks(self, rank_times: Sequence[float]) -> int:
@@ -199,7 +197,6 @@ class DriftWatchdog:
             cell = self._rank_cells.setdefault(r, _Cell())
             cell.log_sum += math.log(max(t, floor) / med)
             cell.n += 1
-        self._rec().count("drift.rank_observations", len(ts))
         return len(ts)
 
     def observe_report(self, report, topo=None) -> int:
@@ -207,7 +204,6 @@ class DriftWatchdog:
         per-stage simulated/model ratios into the key pools (the report
         carries its own ``t_model`` predictions) and ``rank_t_end`` into
         the per-rank pools.  Returns the number of priced stages."""
-        rec = self._rec()
         priced = 0
         for s in report.stages:
             if not s.t_model or s.t_sim <= 0.0:
@@ -217,8 +213,6 @@ class DriftWatchdog:
             cell.log_sum += math.log(s.t_sim / s.t_model)
             cell.n += 1
             priced += 1
-        if priced:
-            rec.count("drift.observations", priced)
         if getattr(report, "rank_t_end", ()):
             self.observe_ranks(report.rank_t_end)
         return priced

@@ -12,6 +12,13 @@ CI.  Enable collection for a region with :func:`recording`::
         engine.gradient_sync(...)          # or compile / simulate / serve
     print(rec.summary())
 
+``recording(spans=True)`` (or ``Recorder(spans=True)``) also keeps the
+span log that :func:`repro_torch.obs.spans.span` writes (``rec.spans``,
+one :class:`~repro_torch.obs.spans.SpanRecord` a span, bounded by
+:data:`MAX_EVENTS`), and turns on the counters marked "spans on" below.
+Nothing synchronises while spans are recorded: their device durations
+are resolved when the recording closes (or on :meth:`Recorder.resolve`).
+
 Counter catalogue (every name the repo currently emits):
 
 ========================  ==========  =====================================
@@ -20,14 +27,11 @@ name                      type        emitted by
 compile.programs          counter     compiler.compile_rank_local per build
 compile.cache_hit/_miss   counter     api.CollectiveEngine._sync_program
 tune.db_hit/db_search     counter     tune.search.tuned_config
-tune.fit_runs             counter     tune.fit.fit_net_params
 arena.alloc/realloc       counter     api.CollectiveEngine.init_arenas
 arena.roundtrip           counter     api gradient_sync arena threading
-coalesce.bucket_fill_frac histogram   Coalesce bucket formation (bytes/cap)
 emit.kernel_stage         counter     Emit under use_kernels (CUDA kernels)
 emit.reference_stage      counter     Emit reference lowering
 cgra.placed/host_fallback counter     compile placements (PlaceCGRA result)
-plan.stage_bytes          histogram   per-stage payload at compile
 plan.wave_width           histogram   stages per ExecutionPlan wave
 exec.instrumented_stages  counter     executor instrument hook
 exec.stage_s              histogram   instrumented per-stage seconds
@@ -49,9 +53,6 @@ serve.deadline_headroom_s gauge       min (deadline - elapsed) across
 serve.program_cache_hit/  counter     serve.collectives.SwitchProgramCache
   _miss                               get_or_build
 train.steps               counter     train step wrapper (recorder= passed)
-train.step_s              histogram   per-step seconds (enabled only)
-drift.observations        counter     obs.drift.DriftWatchdog.observe
-drift.rank_observations   counter     watchdog per-rank span pools
 drift.flagged             counter     watchdog keys past threshold
 drift.rank_local/         counter     local verdicts (sick rank / degraded
   link_local                          link) — reported, refit suppressed
@@ -68,6 +69,15 @@ recompile.arenas_reused/  counter     engine.recompile arena outcomes
 topology.compile_cache_   counter     bounded LRU evictions from the
   evicted                             process-wide topology compile cache
 sim.dead_ranks            counter     SwitchSim FaultPlan dead ranks per run
+sync.stages.<label>       counter     executor, one a stage run (spans on);
+                                      label <kind>, or map.<op>
+kernel.fused_hop.bytes    counter     fused_hop launches: 3 x buf.nbytes
+                                      (spans on)
+kernel.quant_hop.bytes    counter     quant_hop launches: 3 x (q_buf +
+                                      s_buf nbytes) (spans on)
+(span log)                spans       obs.spans.span: train.step/forward/
+                                      backward/sync/update, sync.call,
+                                      stage.<label> (spans on)
 ========================  ==========  =====================================
 """
 
@@ -122,12 +132,17 @@ class Recorder:
 
     enabled = True
 
-    def __init__(self):
+    def __init__(self, spans: bool = False):
         self.counters: dict[str, float] = {}
         self.gauges: dict[str, float] = {}
         self.hists: dict[str, Hist] = {}
         self.events: list[tuple[str, dict]] = []
         self.dropped_events = 0
+        # the span log (repro_torch.obs.spans), None when off
+        self.spans: Optional[list] = [] if spans else None
+        self.dropped_spans = 0
+        self.open_spans: list[int] = []    # log indices, innermost last
+        self.roots: dict[str, int] = {}    # root spans opened, by name
 
     # -- emission ------------------------------------------------------------
 
@@ -154,6 +169,22 @@ class Recorder:
     def counter(self, name: str) -> float:
         return self.counters.get(name, 0)
 
+    def resolve(self) -> None:
+        """Sets ``device_ms`` of every closed span recorded on the card
+        from its CUDA-event pair, after one wait for the device; the
+        events are released."""
+        pending = [s for s in self.spans or ()
+                   if s.events is not None and s.t1_ns]
+        if not pending:
+            return
+        import torch
+
+        torch.cuda.synchronize()
+        for s in pending:
+            e0, e1 = s.events
+            s.device_ms = e0.elapsed_time(e1)
+            s.events = None
+
     def snapshot(self) -> dict:
         """Everything collected, as plain JSON-able data."""
         out = {
@@ -164,6 +195,10 @@ class Recorder:
         }
         if self.dropped_events:
             out["dropped_events"] = self.dropped_events
+        if self.spans is not None:
+            out["spans"] = [s.to_dict() for s in self.spans]
+            if self.dropped_spans:
+                out["dropped_spans"] = self.dropped_spans
         return out
 
     def summary(self) -> str:
@@ -180,6 +215,13 @@ class Recorder:
         for name, fields in self.events:
             args = ", ".join(f"{k}={v}" for k, v in fields.items())
             lines.append(f"event {name}({args})")
+        by_name: dict[str, list] = {}
+        for s in self.spans or ():
+            by_name.setdefault(s.name, []).append(s.device_ms)
+        for k in sorted(by_name):
+            ms = [v for v in by_name[k] if v is not None]
+            dev = f" device_ms={sum(ms):g}" if ms else ""
+            lines.append(f"span {k}: n={len(by_name[k])}{dev}")
         return "\n".join(lines) if lines else "(nothing recorded)"
 
     def clear(self) -> None:
@@ -188,6 +230,11 @@ class Recorder:
         self.hists.clear()
         self.events.clear()
         self.dropped_events = 0
+        if self.spans is not None:
+            self.spans.clear()
+        self.dropped_spans = 0
+        self.open_spans.clear()
+        self.roots.clear()
 
 
 class NullRecorder(Recorder):
@@ -231,12 +278,17 @@ def install(recorder: Optional[Recorder]) -> Recorder:
 
 
 @contextlib.contextmanager
-def recording(recorder: Optional[Recorder] = None) -> Iterator[Recorder]:
+def recording(recorder: Optional[Recorder] = None, *,
+              spans: bool = False) -> Iterator[Recorder]:
     """Install a recorder for the ``with`` body (a fresh one when not
-    given), restoring the previous recorder on exit."""
-    rec = recorder if recorder is not None else Recorder()
+    given, keeping a span log when ``spans``), restoring the previous
+    recorder on exit and then resolving the spans' device durations."""
+    if recorder is not None and spans:
+        raise ValueError("pass spans=True to the Recorder, or no recorder")
+    rec = recorder if recorder is not None else Recorder(spans=spans)
     prev = install(rec)
     try:
         yield rec
     finally:
         install(prev)
+        rec.resolve()

@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Any, Callable, Optional
 
 import torch
@@ -53,6 +52,7 @@ from repro_torch.mesh import LocalMesh, PartitionSpec as P
 from repro_torch.models import parallel as TP
 from repro_torch.models.model import Model
 from repro_torch.obs import metrics as _obs
+from repro_torch.obs import spans as _spans
 from repro_torch.sharding import native, rules
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.optimizer import Optimizer
@@ -106,10 +106,13 @@ def _accumulate_grads(model: Model, views: PyTree, tokens: torch.Tensor,
     leaves, td = tree.tree_flatten(views)
 
     def grads_of(tok, ctx):
-        loss, m = _loss_fn(model, views, tok, ctx)
-        g = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-        g = [torch.zeros(p.shape, dtype=p.dtype, device=p.device)
-             if x is None else x for x, p in zip(g, leaves)]
+        with _spans.span("train.forward"):
+            loss, m = _loss_fn(model, views, tok, ctx)
+            total = loss.sum()
+        with _spans.span("train.backward"):
+            g = torch.autograd.grad(total, leaves, allow_unused=True)
+            g = [torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+                 if x is None else x for x, p in zip(g, leaves)]
         return g, {k: v.detach() for k, v in m.items()}
 
     with torch.enable_grad():
@@ -162,23 +165,27 @@ def sync_and_update(engine: CollectiveEngine, optimizer: Optimizer,
                     state: TrainState, grads: PyTree, metrics: dict,
                     mesh: LocalMesh):
     """The sync and the update: returns (new state, metrics, the synced
-    rank-stacked gradients).  ``grads`` are the ranks' own."""
-    if state.sync_arenas is not None:
-        synced, residual, arenas = engine.gradient_sync(
-            grads, state.ef_residual, arenas=state.sync_arenas, mesh=mesh)
-    else:
-        synced, residual = engine.gradient_sync(grads, state.ef_residual,
-                                                mesh=mesh)
-        arenas = None
-    g0 = rank0(synced, mesh.rank_ndim)
-    new_params, new_opt = optimizer.update(g0, state.opt, state.params,
-                                           state.step)
-    with torch.no_grad():
-        out = {k: v.mean() for k, v in metrics.items()}
-        gn = 0.0
-        for g in tree.tree_leaves(g0):
-            gn = gn + g.to(torch.float32).square().sum()
-        out["grad_norm"] = torch.sqrt(torch.as_tensor(gn))
+    rank-stacked gradients).  ``grads`` are the ranks' own.  They run
+    under the spans ``train.sync`` and ``train.update``."""
+    with _spans.span("train.sync"):
+        if state.sync_arenas is not None:
+            synced, residual, arenas = engine.gradient_sync(
+                grads, state.ef_residual, arenas=state.sync_arenas,
+                mesh=mesh)
+        else:
+            synced, residual = engine.gradient_sync(
+                grads, state.ef_residual, mesh=mesh)
+            arenas = None
+    with _spans.span("train.update"):
+        g0 = rank0(synced, mesh.rank_ndim)
+        new_params, new_opt = optimizer.update(g0, state.opt, state.params,
+                                               state.step)
+        with torch.no_grad():
+            out = {k: v.mean() for k, v in metrics.items()}
+            gn = 0.0
+            for g in tree.tree_leaves(g0):
+                gn = gn + g.to(torch.float32).square().sum()
+            out["grad_norm"] = torch.sqrt(torch.as_tensor(gn))
     return (TrainState(new_params, new_opt, state.step + 1, residual,
                        arenas), out, synced)
 
@@ -199,9 +206,10 @@ def build_train_step_acis(model: Model, optimizer: Optimizer,
     ``arenas=True``) the bucket packs write into them in place and the
     same tensors come back in the new state.  ``recorder`` (a
     :class:`repro_torch.obs.metrics.Recorder`, by default the process
-    recorder read at call time) counts ``train.steps`` and, when enabled,
-    observes each step's wall seconds (``train.step_s``, after a device
-    sync)."""
+    recorder read at call time) counts ``train.steps``.  A step runs
+    under the span ``train.step``; with the process recorder's span log
+    on, its forward, backward, sync and update are spans of their own
+    (:func:`repro_torch.obs.spans.span`), and nothing synchronises."""
 
     def step_fn(state: TrainState, batch) -> tuple[TrainState, dict]:
         grads, metrics = local_grads(model, state, batch, mesh,
@@ -211,15 +219,10 @@ def build_train_step_acis(model: Model, optimizer: Optimizer,
         return new_state, metrics
 
     def timed(state, batch):
-        rec = recorder if recorder is not None else _obs.RECORDER
-        if not rec.enabled:
-            return step_fn(state, batch)
-        t0 = time.perf_counter()
-        out = step_fn(state, batch)
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
-        rec.count("train.steps")
-        rec.observe("train.step_s", time.perf_counter() - t0)
+        with _spans.span("train.step"):
+            out = step_fn(state, batch)
+        (recorder if recorder is not None else _obs.RECORDER).count(
+            "train.steps")
         return out
 
     timed.mesh = mesh
@@ -538,7 +541,9 @@ def build_train_step_gspmd(model: Model, optimizer: Optimizer,
     Collectives are native (:mod:`repro_torch.sharding.native`) and
     report to the active ``native.counting()`` log.  ``fn.grads(state,
     batch)`` and ``fn.update(state, grads, metrics)`` are the two halves
-    (for profiling)."""
+    (for profiling).  A step runs under the span ``train.step``
+    (:func:`repro_torch.obs.spans.span`) and counts ``train.steps`` on
+    ``recorder``, by default the process recorder."""
     from repro_torch.models.model import Model as _Model
     from repro_torch.sharding.act import activation_sharding
 
@@ -661,15 +666,10 @@ def build_train_step_gspmd(model: Model, optimizer: Optimizer,
         return update(state, g, metrics)
 
     def timed(state, batch):
-        rec = recorder if recorder is not None else _obs.RECORDER
-        if not rec.enabled:
-            return step_fn(state, batch)
-        t0 = time.perf_counter()
-        out = step_fn(state, batch)
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
-        rec.count("train.steps")
-        rec.observe("train.step_s", time.perf_counter() - t0)
+        with _spans.span("train.step"):
+            out = step_fn(state, batch)
+        (recorder if recorder is not None else _obs.RECORDER).count(
+            "train.steps")
         return out
 
     def place_state(state: TrainState) -> TrainState:

@@ -240,9 +240,6 @@ def fit_net_params(samples, *, tiers: Sequence[str] = ("ici", "dci"),
         n_used += 1
     residual = math.sqrt(err2 / n_used) if n_used else 0.0
 
-    from repro_torch.obs import metrics as _obs
-    _obs.RECORDER.count("tune.fit_runs")
-
     return NetFit(tiers=tier_params, overlap=dict(netmodel.TIER_OVERLAP),
                   detour=detour, host_bw=host_bw, residual=residual,
                   n_stages=n_used, dropped=dropped)

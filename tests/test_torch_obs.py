@@ -10,6 +10,7 @@ top, the port's Chrome trace JSON equals the reference's key for key for
 the same recording, and its drift verdicts are the reference's.
 """
 
+import collections
 import dataclasses
 import json
 
@@ -24,14 +25,19 @@ from repro import obs as jobs
 from repro import tune as jtune
 from repro.cgra.simulate import SwitchSim as JSim
 from repro.obs.drift import DriftWatchdog as JDriftWatchdog
+from repro_torch import configs
 from repro_torch import core as T
 from repro_torch import obs, tree, tune
 from repro_torch.cgra.simulate import SwitchSim
 from repro_torch.core.types import TensorSpec
+from repro_torch.mesh import LocalMesh
+from repro_torch.models import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.drift import DriftWatchdog
 from repro_torch.obs.report import RunReport
 from repro_torch.obs.spans import StageSpan
+from repro_torch.train import optimizer as topt
+from repro_torch.train import step as S
 from sim_parity import (assert_same_report, compile_pair,
                         with_port_placements)
 
@@ -469,3 +475,165 @@ def test_serve_engine_counters():
     assert rec.counter("serve.retired") == 1
     assert rec.hists["serve.decode_s"].n >= 1
     assert rec.gauges["serve.active"] >= 0
+
+
+# ---------------------------------------------------------------------------
+# the span log (obs.spans.span): the train step and the sync, on the CPU
+# ---------------------------------------------------------------------------
+
+REMOVED = ("train.step_s", "coalesce.bucket_fill_frac", "plan.stage_bytes",
+           "tune.fit_runs", "drift.observations", "drift.rank_observations")
+
+
+def _smoke_step():
+    """(step, state, batch, engine): a smoke acis-100m acis step on four
+    CPU ranks, with the sync's arenas."""
+    cfg = configs.get_smoke("acis-100m")
+    mesh = LocalMesh({"data": 4}, device="cpu")
+    eng = T.make_engine("acis")
+    model, opt = Model(cfg), topt.adamw(1e-2)
+    st = S.init_state(model, opt, torch.Generator().manual_seed(0), eng,
+                      mesh=mesh, arenas=True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (8, 9))
+    return (S.build_train_step_acis(model, opt, mesh, eng), st,
+            {"tokens": toks}, eng)
+
+
+def test_spans_off_are_the_shared_noop(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with spans off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    step, st, batch, _ = _smoke_step()
+    assert obs.spans.span("train.step") is obs.spans.NOOP
+    with obs.recording() as rec:
+        assert obs.spans.span("train.step") is obs.spans.NOOP
+        step(st, batch)
+    assert rec.spans is None and rec.counter("train.steps") == 1
+
+
+def test_spans_enter_record_function_only_under_a_profiler(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    step, st, batch, _ = _smoke_step()
+    with obs.recording(spans=True) as rec:
+        step(st, batch)
+    assert [s.name for s in rec.spans][:2] == ["train.step",
+                                               "train.forward"]
+
+
+def test_train_step_spans_nest_on_the_profilers_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    step, st, batch, eng = _smoke_step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            obs.recording(spans=True) as rec:
+        for _ in range(2):
+            st, _ = step(st, batch)
+    log = rec.spans
+    roots = [i for i, s in enumerate(log) if s.parent is None]
+    assert [log[i].name for i in roots] == ["train.step"] * 2
+    assert [log[i].id for i in roots] == [0, 1]
+    prog = eng.last_sync_program()
+    labels = sorted("stage." + s.label for s in prog.stages)
+    for i in roots:
+        kids = [j for j, s in enumerate(log) if s.parent == i]
+        assert [log[j].name for j in kids] == [
+            "train.forward", "train.backward", "train.sync", "train.update"]
+        calls = [j for j, s in enumerate(log) if s.parent == kids[2]]
+        assert [log[j].name for j in calls] == ["sync.call"]
+        stages = [s.name for s in log if s.parent == calls[0]]
+        assert sorted(stages) == labels and len(stages) == len(prog.stages)
+        under = [s for s in log[i:] if s.id == log[i].id]
+        assert len(under) == 6 + len(prog.stages)
+    for s in log:
+        assert s.t0_ns <= s.t1_ns and s.device_ms is None
+        if s.parent is not None:
+            p = log[s.parent]
+            assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns
+    assert rec.counter("train.steps") == 2
+    for label, n in collections.Counter(s.label
+                                        for s in prog.stages).items():
+        assert rec.counter("sync.stages." + label) == 2 * n
+    names = collections.Counter(e.name for e in prof.events())
+    for name in ("train.step", "train.forward", "train.backward",
+                 "train.sync", "train.update", "sync.call"):
+        assert names["acis." + name] == 2
+    assert sum(n for k, n in names.items()
+               if k.startswith("acis.stage.")) == 2 * len(prog.stages)
+    snap = rec.snapshot()
+    assert len(snap["spans"]) == len(log) and json.dumps(snap)
+    assert "span train.step: n=2" in rec.summary()
+
+
+def test_sync_stage_labels_of_the_acis_and_int8_syncs():
+    mesh = LocalMesh({"data": 8}, device="cpu")
+    g = {f"l{i:02d}": torch.randn(8, 16 + i, dtype=torch.bfloat16
+                                  if i % 3 else torch.float32)
+         for i in range(33)}
+    want = {
+        ("acis",): {"allreduce": 2, "map.bucket_pack": 2,
+                    "map.bucket_split": 33, "map.bucket_epilogue": 2},
+        ("acis_compressed", "int8_hopquant"): {
+            "ef_allreduce": 2, "map.bucket_pack": 2,
+            "map.bucket_split": 66, "map.bucket_epilogue": 2,
+            "map.ef_target": 33, "map.ef_residual": 33},
+    }
+    for (backend, *comp), labels in want.items():
+        eng = T.make_engine(backend, **({"compressor": comp[0]}
+                                        if comp else {}))
+        res = eng.init_state(g) if comp else None
+        with obs.recording(spans=True) as rec:
+            eng.gradient_sync(g, res, mesh=mesh)
+        got = collections.Counter(s.label
+                                  for s in eng.last_sync_program().stages)
+        assert got == labels
+        assert {k[len("sync.stages."):]: v for k, v in rec.counters.items()
+                if k.startswith("sync.stages.")} == labels
+        assert collections.Counter(s.name for s in rec.spans) == \
+            collections.Counter({"sync.call": 1, **{
+                "stage." + k: v for k, v in labels.items()}})
+
+
+def test_plain_recording_holds_no_spans_and_no_span_counters():
+    step, st, batch, _ = _smoke_step()
+    with obs.recording() as rec:
+        step(st, batch)
+    snap = rec.snapshot()
+    assert rec.spans is None
+    assert not {"spans", "dropped_spans"} & set(snap)
+    assert not [k for k in snap["counters"]
+                if k.startswith(("sync.stages.", "kernel."))]
+    assert rec.counter("train.steps") == 1
+    with pytest.raises(ValueError):
+        with obs.recording(obs.Recorder(), spans=True):
+            pass
+
+
+def test_unread_telemetry_is_no_longer_emitted(rng):
+    step, st, batch, _ = _smoke_step()
+    with obs.recording() as rec:
+        step(st, batch)
+        wd = DriftWatchdog()
+        for _ in range(2):
+            tc, _, tr, _ = _recorded(rng, perturb=True)
+            wd.observe(tc.plan, tc.topology, tr)
+        wd.observe_ranks([1.0, 1.0, 2.0])
+        assert isinstance(wd.refit(), tune.NetFit)
+    assert rec.counter("compile.programs") >= 1
+    assert rec.counter("train.steps") == 1
+    assert not set(REMOVED) & (set(rec.counters) | set(rec.hists))
+
+
+def test_span_log_cap_never_grows_unbounded():
+    rec = obs.Recorder(spans=True)
+    with obs.recording(rec):
+        for _ in range(obs_metrics.MAX_EVENTS + 5):
+            with obs.spans.span("x"):
+                pass
+    assert len(rec.spans) == obs_metrics.MAX_EVENTS
+    assert rec.dropped_spans == 5
+    assert rec.snapshot()["dropped_spans"] == 5
+    assert [s.id for s in rec.spans[:3]] == [0, 1, 2]
