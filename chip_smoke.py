@@ -25,11 +25,17 @@ Phases, one JSON line each:
                   ``rwkv6_recurrence`` within
                   ``wkv_tolerance`` of the float64 recurrence, as its
                   plain version is; ``rglru_scan`` bitwise, and both
-                  within ``rglru_tolerance``), then timed at the main
+                  within ``rglru_tolerance``; ``flash_attention``, forward
+                  and gradients, within one bf16 ulp of the plain loop,
+                  two runs bitwise equal, its f32 O far under the error
+                  of a P rounded to bf16), then timed at the main
                   path's shapes with CUDA events beside its plain version,
                   one PyTorch library call computing the same function
                   where there is one, and its bound (bytes over the
-                  memory rate, or f32 operations over the f32 rate)
+                  memory rate, or f32 operations over the f32 rate; for
+                  the attention kernel, which replaces no TPU kernel,
+                  tensor-core operations over the bf16 peak, forward and
+                  backward apart, at whisper-small's encoder shape)
   4. acis       — the acis-100m gradient sync at full width (12 leaves,
                   124,668,672 parameters per rank, 8 ranks on one
                   ``LocalMesh``): ``make_engine("acis")`` with kernels on,
@@ -308,12 +314,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# device-memory and float32 (outside the tensor cores) peaks by card name
-# (NVIDIA data sheets): the bound_ms denominators.
+# device-memory, float32 (outside the tensor cores) and dense bf16
+# tensor-core peaks by card name (NVIDIA data sheets): the bound_ms
+# denominators.
 PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, "H100 PCIe: 2.0 TB/s HBM2e, 51 TFLOP/s f32"),
-    ("H100", 3.35e12, 67e12, "H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s f32"),
-    ("H200", 4.8e12, 67e12, "H200: 4.8 TB/s HBM3e, 67 TFLOP/s f32"),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12,
+     "H100 PCIe: 2.0 TB/s HBM2e, 51 TFLOP/s f32, 756 TFLOP/s bf16 dense"),
+    ("H100", 3.35e12, 67e12, 989e12,
+     "H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s f32, 989 TFLOP/s bf16 dense"),
+    ("H200", 4.8e12, 67e12, 989e12,
+     "H200: 4.8 TB/s HBM3e, 67 TFLOP/s f32, 989 TFLOP/s bf16 dense"),
 )
 
 
@@ -328,11 +338,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_peaks(name: str) -> tuple[float, float, str]:
-    """``(bytes/s, f32 flop/s, source)`` of the card called ``name``."""
-    for key, hbm, f32, note in PEAKS:
+def device_peaks(name: str) -> tuple[float, float, float, str]:
+    """``(bytes/s, f32 flop/s, bf16 tensor flop/s, source)`` of the card
+    called ``name``."""
+    for key, hbm, f32, tensor, note in PEAKS:
         if key in name:
-            return hbm, f32, note
+            return hbm, f32, tensor, note
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
@@ -368,7 +379,8 @@ def kernel_modules() -> dict:
     """Every ported kernel's wrapper module and the name of its launch
     count there, by kernel name (``fused_combine``, ``quant_combine`` and
     ``chunk_scan`` hold two kernels each)."""
-    from repro_torch.kernels import (chunk_scan, fused_combine, pack_combine,
+    from repro_torch.kernels import (chunk_scan, flash_attention,
+                                     fused_combine, pack_combine,
                                      quant_combine, rwkv6_recurrence,
                                      topk_accum)
     return {"fused_combine": (fused_combine, "launches"),
@@ -379,7 +391,8 @@ def kernel_modules() -> dict:
             "topk_accumulate": (topk_accum, "launches"),
             "prefix_sum": (chunk_scan, "launches"),
             "rwkv6_recurrence": (rwkv6_recurrence, "launches"),
-            "rglru_scan": (chunk_scan, "rglru_launches")}
+            "rglru_scan": (chunk_scan, "rglru_launches"),
+            "flash_attention": (flash_attention, "launches")}
 
 
 def reset_counts() -> None:
@@ -510,6 +523,7 @@ def kernel_checks(dev) -> dict:
     report["prefix_sum"] = prefix_checks(dev, gen)
     report["rwkv6_recurrence"] = wkv_checks(dev, gen)
     report["rglru_scan"] = rglru_checks(dev, gen)
+    report["flash_attention"] = attention_checks(dev)
     return report
 
 
@@ -1255,6 +1269,214 @@ def rglru_timings(dev, gen, cfg, sizes) -> dict:
     }
 
 
+# (name, q shape, k/v shape, causal, window, q_offset): the benchmark's
+# whisper-small encoder, decoder and cross attention and acis-100m GQA
+# with the rank dim in front, and the edge forms (one query row, ragged
+# keys, a window, head dim 128)
+ATTENTION_CASES = (
+    ("whisper_encoder", (8, 4, 1500, 12, 64), (8, 4, 1500, 12, 64), False,
+     None, 0),
+    ("whisper_cross", (8, 4, 256, 12, 64), (8, 4, 1500, 12, 64), False,
+     None, 0),
+    ("whisper_decoder", (8, 4, 256, 12, 64), (8, 4, 256, 12, 64), True,
+     None, 0),
+    ("acis_100m_gqa", (8, 8, 256, 12, 64), (8, 8, 256, 4, 64), True, None,
+     0),
+    ("one_row", (3, 1, 4, 64), (3, 77, 2, 64), True, None, 76),
+    ("ragged_window_d128", (2, 200, 4, 128), (2, 173, 1, 128), True, 70, 0),
+)
+# whisper-small's encoder self attention in the benchmark's train cell:
+# 8 ranks x 4 segments of 1,500 frames, 12 heads of 64
+ATTENTION_TIMED = ((8, 4, 1500, 12, 64), False)
+# head dim 128: qwen3-8b's causal GQA prefill in serve_tp_dense (and the
+# quickstart), 8 x 512 tokens, 32 / 8 heads over tp = 8 ranks: q, then k/v
+ATTENTION_TIMED_D128 = ((8, 8, 512, 4, 128), (8, 8, 512, 1, 128))
+
+
+def attention_checks(dev, cases=ATTENTION_CASES) -> dict:
+    """The fused attention kernel against the plain loop on the same bf16
+    operands, forward and the q, k, v gradients: within one bf16 ulp plus
+    1e-5 of the largest magnitude (both round an f32 value once; the f32
+    values differ by summation order).  Then its f32 O against a float64
+    dense reference beside the plain f32 form's error and the error a P
+    rounded to one bf16 would give (the f32 operands reach the tensor
+    cores in full: the kernel's error sits with the f32 form's, far under
+    the bf16 one's)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as TA
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rep = {"cases": 0, "max_abs_err": 0.0, "max_err_over_tol": 0.0,
+           "o32": {}}
+    for name, qs, ks, causal, window, off in cases:
+        q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
+                   for s in (qs, ks, ks))
+        do = torch.randn(qs, device=dev, generator=gen).bfloat16()
+        scale = 1 / math.sqrt(qs[-1])
+        kw = dict(causal=causal, window=window, q_offset=off)
+        check(FA.takes(q, k, v, kv_len=None, **kw),
+              f"attention {name}: the dispatch rule refused the kernel")
+
+        def run(fn):
+            a, b, c = (x.clone().requires_grad_() for x in (q, k, v))
+            out = fn(a, b, c)
+            return (out, *torch.autograd.grad(out, (a, b, c), do))
+        n0 = FA.launches
+        got = run(lambda a, b, c: TA.flash_attention(a, b, c, **kw))
+        check(FA.launches == n0 + 1, f"attention {name}: no kernel launch")
+        want = run(lambda a, b, c: TA.plain_flash_attention(
+            a, b, c, kv_len=None, chunk=1024, scale=scale, **kw))
+        again = run(lambda a, b, c: TA.flash_attention(a, b, c, **kw))
+        for g, w, g2 in zip(got, want, again):
+            check(torch.equal(g, g2), f"attention {name}: two runs differ")
+            err = (g.double() - w.double()).abs()
+            tol = 2.0 ** -7 * w.double().abs() \
+                + 1e-5 * w.double().abs().max()
+            over = (err / tol).max().item()
+            check(over <= 1, f"attention {name}: {over} x its tolerance")
+            rep["max_abs_err"] = max(rep["max_abs_err"], err.max().item())
+            rep["max_err_over_tol"] = max(rep["max_err_over_tol"], over)
+        rep["cases"] += 1
+
+        hi, lo = FA.mask_bounds(causal, window, off)
+        flat = [x.reshape((-1,) + x.shape[-3:])[:2] for x in (q, k, v)]
+        _, o32, _ = FA.forward(*flat, hi=hi, lo=lo, scale=scale)
+        exact, _ = FA.plain_forward(*(x.double() for x in flat), hi=hi, lo=lo,
+                                    scale=scale)
+        f32, _ = FA.plain_forward(*flat, hi=hi, lo=lo, scale=scale)
+        p, _ = FA.plain_probs(*(x.double() for x in flat[:2]), hi=hi, lo=lo,
+                              scale=scale)
+        bf16_p = torch.einsum("...hgqk,...khd->...qhgd",
+                              p.bfloat16().double(), flat[2].double()
+                              ).reshape(exact.shape)
+        big = exact.abs().max().item()
+        errs = {k_: (x.double() - exact).abs().max().item() / big
+                for k_, x in (("kernel", o32), ("plain_f32", f32),
+                              ("bf16_p", bf16_p))}
+        check(errs["kernel"] * 8 <= errs["bf16_p"],
+              f"attention {name}: the f32 O is not far under a bf16 P's "
+              f"error: {errs}")
+        rep["o32"][name] = errs
+    return rep
+
+
+def attention_timings(dev, peak: float, tc_peak: float,
+                      timed=ATTENTION_TIMED,
+                      timed_d128=ATTENTION_TIMED_D128) -> dict:
+    """The fused attention kernel at whisper-small's encoder shape,
+    forward (``ms``) and backward (``bwd_ms``) apart, beside the plain
+    loop (``plain_ms``, and forward + backward through autograd) and
+    ``scaled_dot_product_attention`` (``library_ms``: a yardstick only,
+    the port never calls it; it rounds P to bf16); ``d128_prefill`` the
+    forward at head dim 128 beside the plain loop.  ``bound_ms`` is the
+    attention's own operations (:func:`flash_attention.work`'s ``plain``
+    counts: 4d a visible pair forward, 10d backward) over the bf16 tensor
+    peak, or the bytes over the memory rate where larger;
+    ``impl_bound_ms`` counts the kernels' own products instead, the f32
+    operands' three parts each (8d and 26d)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as TA
+
+    shape, causal = timed
+    gen = torch.Generator(device=dev).manual_seed(77)
+    q, k, v, do = (torch.randn(shape, device=dev, generator=gen).bfloat16()
+                   for _ in range(4))
+    scale = 1 / math.sqrt(shape[-1])
+    hi, lo = FA.mask_bounds(causal, None, 0)
+    kw = dict(hi=hi, lo=lo, scale=scale)
+    flat = [x.reshape((-1,) + shape[-3:]) for x in (q, k, v, do)]
+    nb, t, h, d = flat[0].shape
+    _, o32, lse = FA.forward(*flat[:3], **kw)
+
+    def fwd_bwd(fn, reps=None):
+        def step():
+            a, b, c = (x.detach().requires_grad_() for x in (q, k, v))
+            torch.autograd.grad(fn(a, b, c), (a, b, c), do)
+        return time_ms(step, **(reps or {}))
+
+    def plain(a, b, c):
+        return TA.plain_flash_attention(a, b, c, causal=causal, window=None,
+                                        q_offset=0, kv_len=None, chunk=1024,
+                                        scale=scale)
+
+    def sdpa(a, b, c):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *(x.reshape(flat[0].shape[:1] + x.shape[-3:]).transpose(1, 2)
+              for x in (a, b, c)), is_causal=causal).transpose(1, 2
+                                                              ).reshape(shape)
+    few = {"reps": 5, "inner": 2}
+    work = FA.work(nb, t, t, h, d, hi)
+    elems = q.numel()
+    fwd_bytes = elems * (3 * 2 + 2 + 4) + nb * h * t * 4
+    bwd_bytes = elems * (4 * 2 + 4 + 3 * 2) + nb * h * t * 8
+    out = {
+        "ms": time_ms(lambda: FA.forward(*flat[:3], **kw)),
+        "bwd_ms": time_ms(lambda: FA.backward(*flat[:3], o32, lse, flat[3],
+                                              **kw)),
+        "fwd_bwd_ms": fwd_bwd(lambda a, b, c: TA.flash_attention(
+            a, b, c, causal=causal, window=None, q_offset=0,
+            softmax_scale=scale)),
+        "plain_ms": time_ms(lambda: plain(q, k, v), **few),
+        "plain_fwd_bwd_ms": fwd_bwd(plain, few),
+        "library_ms": time_ms(lambda: sdpa(q, k, v)),
+        "library_fwd_bwd_ms": fwd_bwd(sdpa),
+        "device_ms_per_launch": per_launch(
+            lambda: FA.forward(*flat[:3], **kw), "fwd_kernel", calls=10),
+        "flops": work["forward"], "bwd_flops": work["backward"],
+        "attention_flops": work["plain_forward"],
+        "attention_bwd_flops": work["plain_backward"],
+        "bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+        "shape": list(shape), "causal": causal, "dtype": "bfloat16",
+        "tensor_peak_flops": tc_peak,
+    }
+    for key, flops, nbytes in (
+            ("bound_ms", work["plain_forward"], fwd_bytes),
+            ("bwd_bound_ms", work["plain_backward"], bwd_bytes),
+            ("impl_bound_ms", work["forward"], fwd_bytes),
+            ("impl_bwd_bound_ms", work["backward"], bwd_bytes)):
+        out[key] = max(flops / tc_peak, nbytes / peak) * 1e3
+    out["bound_by"] = "operations" if work["plain_forward"] / tc_peak \
+        >= fwd_bytes / peak else "bytes"
+    for key in ("", "bwd_", "impl_", "impl_bwd_"):
+        out[f"{key}share_of_bound"] = out[f"{key}bound_ms"] \
+            / out["bwd_ms" if "bwd" in key else "ms"]
+    del q, k, v, do, flat, o32, lse
+    out["d128_prefill"] = attention_d128(dev, peak, tc_peak, timed_d128)
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_d128(dev, peak: float, tc_peak: float, shapes) -> dict:
+    """The fused attention forward at head dim 128 (the serving
+    prefills' form: causal GQA, no backward) beside the plain loop, with
+    the attention's own operations over the bf16 tensor peak."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import attention as TA
+
+    qs, ks = shapes
+    gen = torch.Generator(device=dev).manual_seed(78)
+    q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
+               for s in (qs, ks, ks))
+    scale = 1 / math.sqrt(qs[-1])
+    flat = [x.reshape((-1,) + x.shape[-3:]) for x in (q, k, v)]
+    nb, t, h, d = flat[0].shape
+    work = FA.work(nb, t, t, h, d, 0)
+    # q read, O written in bf16 and f32, k and v read, the LSE written
+    nbytes = q.numel() * (2 + 2 + 4) + 2 * k.numel() * 2 + nb * h * t * 4
+    out = {
+        "ms": time_ms(lambda: FA.forward(*flat, hi=0, lo=None, scale=scale)),
+        "plain_ms": time_ms(lambda: TA.plain_flash_attention(
+            q, k, v, causal=True, window=None, q_offset=0, kv_len=None,
+            chunk=1024, scale=scale), reps=5, inner=2),
+        "flops": work["plain_forward"], "impl_flops": work["forward"],
+        "bytes": nbytes, "shape": [list(qs), list(ks)], "causal": True,
+        "dtype": "bfloat16",
+    }
+    out["bound_ms"] = max(out["flops"] / tc_peak, nbytes / peak) * 1e3
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
 def biggest_hop_rows(cfg, n: int) -> tuple[int, int]:
     """(ranks, blocks per rank) of the largest int8_hopquant hop: the
     largest leaf's 256-lane blocks, padded to a multiple of n, split in n
@@ -1449,6 +1671,8 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         t["bound_ms"] = max(by_bytes, by_ops)
         t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    out["flash_attention"] = attention_timings(
+        dev, peak, device_peaks(torch.cuda.get_device_name(0))[2])
     return out
 
 
@@ -1495,7 +1719,9 @@ def expected_launches(compiled, mesh) -> dict:
     scan+allgather stage."""
     from repro_torch.kernels import pack_combine as pc
 
-    out = dict.fromkeys(kernel_modules(), 0)
+    # the plan counts the collective's kernels: the model's attention
+    # kernel runs in no stage
+    out = {k: 0 for k in kernel_modules() if k != "flash_attention"}
     for st in compiled.stages:
         n = mesh.axis_size(st.axis) if st.axis else 1
         if st.kind == "scan+allgather":
@@ -4523,10 +4749,12 @@ def check_peak(dev, what: str) -> Optional[int]:
 
 
 def check_no_launches(got: dict, what: str) -> None:
-    """None of the ported kernels launched: the MLA, encdec and vlm
+    """None of the ported TPU kernels launched: the MLA, encdec and vlm
     serving paths, the GSPMD step and GPipe reach no Pallas kernel in
-    the reference, and none here."""
-    check(not any(got.values()), f"{what}: kernels launched {got}")
+    the reference, and none here (the attention kernel, which replaces
+    none, runs in their models)."""
+    check(not any(n for k, n in got.items() if k != "flash_attention"),
+          f"{what}: kernels launched {got}")
 
 
 def no_drop(cfg):
@@ -5868,6 +6096,9 @@ SOURCES = {
                          "src/repro/kernels/rwkv6_recurrence.py:83"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/chunk_scan.py:113"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "none: the reference's attention has no Pallas "
+                        "kernel"),
 }
 
 
@@ -5900,7 +6131,7 @@ def main() -> int:
     records = []
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
-    peak, f32_peak, peak_note = device_peaks(name)
+    peak, f32_peak, tensor_peak, peak_note = device_peaks(name)
     nvcc_v = subprocess.run([build.nvcc(), "--version"], capture_output=True,
                             text=True, check=True).stdout.strip()
     rec = {"phase": "env", "torch": torch.__version__,
@@ -5912,6 +6143,7 @@ def main() -> int:
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "hbm_peak_Bps": peak, "f32_peak_flops": f32_peak,
+           "tensor_peak_flops": tensor_peak,
            "peak_source": peak_note}
     emit(rec)
     records.append(rec)

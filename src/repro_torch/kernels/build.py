@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fused_combine", "fused_pack", "quant_combine", "topk_accum",
-           "prefix_sum", "rwkv6_recurrence", "rglru_scan")
+           "prefix_sum", "rwkv6_recurrence", "rglru_scan",
+           "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

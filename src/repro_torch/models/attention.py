@@ -4,9 +4,17 @@ layer, and sliding-window serving with a ring-buffer cache.
 The part of :mod:`repro.models.attention` the hybrid family's serving
 path needs.  ``flash_attention`` is the reference's KV-chunked online
 softmax (f32 statistics, causal and window masks, a scalar or per-row
-``q_offset``, an optional valid-KV prefix), with the ``lax.scan`` over KV
-blocks written as a Python loop.  Attention has no Pallas kernel in the
-reference, so plain PyTorch products and a masked f32 softmax serve here.
+``q_offset``, an optional valid-KV prefix).  Attention has no Pallas
+kernel in the reference.  On the card, the calls
+:func:`repro_torch.kernels.flash_attention.takes` names (full sequences:
+an int ``q_offset``, no ``kv_len``, bf16 operands with one head dim,
+``d <= 128``) run the port's fused kernel, forward and backward, at the
+plain form's f32 accuracy.  The rest (the decode forms with ``kv_len`` or a
+per-row ``q_offset``, MLA's ``d != dv``) and every CPU call keep the
+plain loop (:func:`plain_flash_attention`): the reference's ``lax.scan``
+over KV blocks written as a Python loop of PyTorch products and a masked
+f32 softmax.  While spans are recorded, each call on the card counts
+``kernel.attention.calls`` or ``attention.plain_calls``.
 
 Serving with a window (``window_decode``, ``window_prefill``) keeps the
 last ``window`` keys and values in a ring: slot ``pos % window`` holds
@@ -32,7 +40,9 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import layers as L
+from repro_torch.obs import metrics as _metrics
 from repro_torch.sharding.act import shard_act
 
 PyTree = Any
@@ -60,11 +70,33 @@ def flash_attention(
     """``q_offset`` and ``kv_len`` are scalars or per-row [B] vectors
     (continuous batching: every row at its own position).  Leading dims
     before B broadcast (the rank dim under tensor parallelism).  Returns
-    [..., B, Tq, Hq, dv] in v's dtype."""
-    tq, hq, d = q.shape[-3:]
+    [..., B, Tq, Hq, dv] in v's dtype.  The fused kernel takes the calls
+    :func:`repro_torch.kernels.flash_attention.takes` names (``chunk``
+    does not matter there); the plain loop the rest."""
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    rec = _metrics.RECORDER
+    if FA.takes(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len):
+        if rec.spans is not None:
+            rec.count("kernel.attention.calls")
+        return FA.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, scale=scale)
+    if q.is_cuda and rec.spans is not None:
+        rec.count("attention.plain_calls")
+    return plain_flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, kv_len=kv_len,
+                                 chunk=chunk, scale=scale)
+
+
+def plain_flash_attention(q, k, v, *, causal: bool, window: Optional[int],
+                          q_offset, kv_len, chunk: int,
+                          scale: float) -> torch.Tensor:
+    """The plain loop of :func:`flash_attention`: KV chunks of ``chunk``
+    keys (the last padded), f32 scores and an online softmax."""
+    tq = q.shape[-3]
     tk, hkv, dv = v.shape[-3:]
     dev = q.device
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     qf = _gqa_expand(q.to(torch.float32) * scale, hkv)    # [..,Tq,Hkv,G,d]
 
     chunk = min(chunk, tk)
@@ -110,7 +142,7 @@ def flash_attention(
                                                    p, vc)
         m = m_new
     out = acc / l_.clamp_min(1e-30)[..., None]
-    return out.reshape(out.shape[:-3] + (hq, dv)).to(v.dtype)
+    return out.reshape(out.shape[:-3] + (q.shape[-2], dv)).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

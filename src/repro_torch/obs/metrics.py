@@ -75,6 +75,11 @@ kernel.fused_hop.bytes    counter     fused_hop launches: 3 x buf.nbytes
                                       (spans on)
 kernel.quant_hop.bytes    counter     quant_hop launches: 3 x (q_buf +
                                       s_buf nbytes) (spans on)
+kernel.attention.calls    counter     models.attention.flash_attention
+                                      calls the fused kernel takes
+                                      (spans on)
+attention.plain_calls     counter     its calls on the card that keep the
+                                      plain loop (spans on)
 (span log)                spans       obs.spans.span: train.step/forward/
                                       backward/sync/update, sync.call,
                                       stage.<label> (spans on)

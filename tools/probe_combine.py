@@ -101,7 +101,7 @@ def main() -> int:
     from repro_torch.mesh import LocalMesh
 
     smi = cs.nvidia_smi()
-    peak, _, _ = cs.device_peaks(torch.cuda.get_device_name(0))
+    peak, *_ = cs.device_peaks(torch.cuda.get_device_name(0))
     libs = {k: fc.typed(v) for k, v in build_variants(VARIANTS).items()}
 
     dev = torch.device("cuda")

@@ -100,7 +100,7 @@ def main() -> int:
     from repro_torch.mesh import LocalMesh
 
     smi = cs.nvidia_smi()
-    peak, _, _ = cs.device_peaks(torch.cuda.get_device_name(0))
+    peak, *_ = cs.device_peaks(torch.cuda.get_device_name(0))
     src = build.CSRC / "quant_combine.cu"
     jobs = {}
     for name, v in VARIANTS.items():

@@ -81,7 +81,7 @@ def main() -> int:
     from repro_torch.kernels import chunk_scan as sc
 
     smi = cs.nvidia_smi()
-    peak, _, _ = cs.device_peaks(torch.cuda.get_device_name(0))
+    peak, *_ = cs.device_peaks(torch.cuda.get_device_name(0))
     src = build.CSRC / "prefix_sum.cu"
     jobs = {f"rows{r}": (src, [f"-DACIS_SCAN_ROWS={r}"]) for r in ROWS}
     if args.baseline:

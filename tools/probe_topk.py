@@ -103,7 +103,7 @@ def main() -> int:
     from repro_torch.kernels import topk_accum as ta
 
     smi = cs.nvidia_smi()
-    peak, _, _ = cs.device_peaks(torch.cuda.get_device_name(0))
+    peak, *_ = cs.device_peaks(torch.cuda.get_device_name(0))
     libs = build_all()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)

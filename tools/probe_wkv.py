@@ -131,7 +131,7 @@ def main() -> int:
     from repro_torch.kernels import rwkv6_recurrence as rk
 
     smi = cs.nvidia_smi()
-    _, f32_peak, _ = cs.device_peaks(torch.cuda.get_device_name(0))
+    _, f32_peak, *_ = cs.device_peaks(torch.cuda.get_device_name(0))
     libs, ptxas = build_variants(VARIANTS, args.baseline)
 
     typed = {n: (Baseline(lib) if n == "baseline" else rk.typed(lib))
