@@ -35,7 +35,8 @@ Phases, one JSON line each:
                   memory rate, or f32 operations over the f32 rate; for
                   the attention kernel, which replaces no TPU kernel,
                   tensor-core operations over the bf16 peak, forward and
-                  backward apart, at whisper-small's encoder shape)
+                  backward apart, at whisper-small's encoder shape and
+                  deepseek-v2-lite's per-head latent attention)
   4. acis       — the acis-100m gradient sync at full width (12 leaves,
                   124,668,672 parameters per rank, 8 ranks on one
                   ``LocalMesh``): ``make_engine("acis")`` with kernels on,
@@ -1269,21 +1270,25 @@ def rglru_timings(dev, gen, cfg, sizes) -> dict:
     }
 
 
-# (name, q shape, k/v shape, causal, window, q_offset): the benchmark's
-# whisper-small encoder, decoder and cross attention and acis-100m GQA
-# with the rank dim in front, and the edge forms (one query row, ragged
-# keys, a window, head dim 128)
+# (name, q shape, k shape, v width, causal, window, q_offset): the
+# benchmark's whisper-small encoder, decoder and cross attention,
+# acis-100m GQA and deepseek-v2-lite's latent attention in its per-head
+# form (keys 192 wide, values 128) with the rank dim in front, and the
+# edge forms (one query row, ragged keys, a window, head dim 128)
 ATTENTION_CASES = (
-    ("whisper_encoder", (8, 4, 1500, 12, 64), (8, 4, 1500, 12, 64), False,
+    ("whisper_encoder", (8, 4, 1500, 12, 64), (8, 4, 1500, 12, 64), 64,
+     False, None, 0),
+    ("whisper_cross", (8, 4, 256, 12, 64), (8, 4, 1500, 12, 64), 64, False,
      None, 0),
-    ("whisper_cross", (8, 4, 256, 12, 64), (8, 4, 1500, 12, 64), False,
+    ("whisper_decoder", (8, 4, 256, 12, 64), (8, 4, 256, 12, 64), 64, True,
      None, 0),
-    ("whisper_decoder", (8, 4, 256, 12, 64), (8, 4, 256, 12, 64), True,
+    ("acis_100m_gqa", (8, 8, 256, 12, 64), (8, 8, 256, 4, 64), 64, True,
      None, 0),
-    ("acis_100m_gqa", (8, 8, 256, 12, 64), (8, 8, 256, 4, 64), True, None,
+    ("mla_per_head", (8, 2, 4096, 16, 192), (8, 2, 4096, 16, 192), 128,
+     True, None, 0),
+    ("one_row", (3, 1, 4, 64), (3, 77, 2, 64), 64, True, None, 76),
+    ("ragged_window_d128", (2, 200, 4, 128), (2, 173, 1, 128), 128, True, 70,
      0),
-    ("one_row", (3, 1, 4, 64), (3, 77, 2, 64), True, None, 76),
-    ("ragged_window_d128", (2, 200, 4, 128), (2, 173, 1, 128), True, 70, 0),
 )
 # whisper-small's encoder self attention in the benchmark's train cell:
 # 8 ranks x 4 segments of 1,500 frames, 12 heads of 64
@@ -1291,6 +1296,10 @@ ATTENTION_TIMED = ((8, 4, 1500, 12, 64), False)
 # head dim 128: qwen3-8b's causal GQA prefill in serve_tp_dense (and the
 # quickstart), 8 x 512 tokens, 32 / 8 heads over tp = 8 ranks: q, then k/v
 ATTENTION_TIMED_D128 = ((8, 8, 512, 4, 128), (8, 8, 512, 1, 128))
+# keys 192 and values 128: deepseek-v2-lite's per-head latent attention in
+# the benchmark's train cell, 8 ranks x 2 rows of 4,096, 16 heads, causal:
+# q and k, then v
+ATTENTION_TIMED_WIDE = ((8, 2, 4096, 16, 192), (8, 2, 4096, 16, 128))
 
 
 def attention_checks(dev, cases=ATTENTION_CASES) -> dict:
@@ -1308,10 +1317,11 @@ def attention_checks(dev, cases=ATTENTION_CASES) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4321)
     rep = {"cases": 0, "max_abs_err": 0.0, "max_err_over_tol": 0.0,
            "o32": {}}
-    for name, qs, ks, causal, window, off in cases:
+    for name, qs, ks, dv, causal, window, off in cases:
         q, k, v = (torch.randn(s, device=dev, generator=gen).bfloat16()
-                   for s in (qs, ks, ks))
-        do = torch.randn(qs, device=dev, generator=gen).bfloat16()
+                   for s in (qs, ks, ks[:-1] + (dv,)))
+        do = torch.randn(qs[:-1] + (dv,), device=dev,
+                         generator=gen).bfloat16()
         scale = 1 / math.sqrt(qs[-1])
         kw = dict(causal=causal, window=window, q_offset=off)
         check(FA.takes(q, k, v, kv_len=None, **kw),
@@ -1362,30 +1372,47 @@ def attention_checks(dev, cases=ATTENTION_CASES) -> dict:
 
 def attention_timings(dev, peak: float, tc_peak: float,
                       timed=ATTENTION_TIMED,
-                      timed_d128=ATTENTION_TIMED_D128) -> dict:
-    """The fused attention kernel at whisper-small's encoder shape,
-    forward (``ms``) and backward (``bwd_ms``) apart, beside the plain
-    loop (``plain_ms``, and forward + backward through autograd) and
+                      timed_d128=ATTENTION_TIMED_D128,
+                      timed_wide=ATTENTION_TIMED_WIDE) -> dict:
+    """The fused attention kernel at whisper-small's encoder shape
+    (:func:`attention_timed`); ``d128_prefill`` the forward at head dim
+    128 beside the plain loop; ``wide`` the kernels at keys 192 and
+    values 128, deepseek-v2-lite's per-head latent attention, as at
+    whisper's shape."""
+    shape, causal = timed
+    out = attention_timed(dev, peak, tc_peak, shape, shape, causal, seed=77)
+    out["d128_prefill"] = attention_d128(dev, peak, tc_peak, timed_d128)
+    out["wide"] = attention_timed(dev, peak, tc_peak, *timed_wide, True,
+                                  seed=79)
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_timed(dev, peak: float, tc_peak: float, shape, v_shape,
+                    causal: bool, seed: int) -> dict:
+    """The fused attention kernel on q and k of ``shape`` and v of
+    ``v_shape`` (one KV head a query head), forward (``ms``) and
+    backward (``bwd_ms``) apart, beside the plain loop (``plain_ms``, and
+    forward + backward through autograd) and
     ``scaled_dot_product_attention`` (``library_ms``: a yardstick only,
-    the port never calls it; it rounds P to bf16); ``d128_prefill`` the
-    forward at head dim 128 beside the plain loop.  ``bound_ms`` is the
+    the port never calls it; it rounds P to bf16).  ``bound_ms`` is the
     attention's own operations (:func:`flash_attention.work`'s ``plain``
-    counts: 4d a visible pair forward, 10d backward) over the bf16 tensor
-    peak, or the bytes over the memory rate where larger;
-    ``impl_bound_ms`` counts the kernels' own products instead, the f32
-    operands' three parts each (8d and 26d)."""
+    counts: 2(d + dv) a visible pair forward, 2(3d + 2dv) backward) over
+    the bf16 tensor peak, or the bytes over the memory rate where
+    larger; ``impl_bound_ms`` counts the kernels' own products instead,
+    the f32 operands' three parts each."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import attention as TA
 
-    shape, causal = timed
-    gen = torch.Generator(device=dev).manual_seed(77)
-    q, k, v, do = (torch.randn(shape, device=dev, generator=gen).bfloat16()
-                   for _ in range(4))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(s, device=dev, generator=gen).bfloat16()
+                   for s in (shape, shape, v_shape, v_shape))
     scale = 1 / math.sqrt(shape[-1])
     hi, lo = FA.mask_bounds(causal, None, 0)
     kw = dict(hi=hi, lo=lo, scale=scale)
-    flat = [x.reshape((-1,) + shape[-3:]) for x in (q, k, v, do)]
+    flat = [x.reshape((-1,) + x.shape[-3:]) for x in (q, k, v, do)]
     nb, t, h, d = flat[0].shape
+    dv = v_shape[-1]
     _, o32, lse = FA.forward(*flat[:3], **kw)
 
     def fwd_bwd(fn, reps=None):
@@ -1401,14 +1428,17 @@ def attention_timings(dev, peak: float, tc_peak: float,
 
     def sdpa(a, b, c):
         return torch.nn.functional.scaled_dot_product_attention(
-            *(x.reshape(flat[0].shape[:1] + x.shape[-3:]).transpose(1, 2)
+            *(x.reshape((nb,) + x.shape[-3:]).transpose(1, 2)
               for x in (a, b, c)), is_causal=causal).transpose(1, 2
-                                                              ).reshape(shape)
+                                                              ).reshape(
+                                                                  v_shape)
     few = {"reps": 5, "inner": 2}
-    work = FA.work(nb, t, t, h, d, hi)
-    elems = q.numel()
-    fwd_bytes = elems * (3 * 2 + 2 + 4) + nb * h * t * 4
-    bwd_bytes = elems * (4 * 2 + 4 + 3 * 2) + nb * h * t * 8
+    work = FA.work(nb, t, t, h, d, hi, dv=dv)
+    qk, vo, rows = q.numel(), v.numel(), nb * h * t
+    # forward: q, k, v read, O written in bf16 and f32, the LSE written;
+    # backward: q, k, v, dO read, the f32 O, LSE and D, dq, dk, dv written
+    fwd_bytes = 2 * qk * 2 + vo * (2 + 2 + 4) + rows * 4
+    bwd_bytes = 2 * qk * 2 * 2 + vo * (2 * 2 + 2 + 4) + rows * 8
     out = {
         "ms": time_ms(lambda: FA.forward(*flat[:3], **kw)),
         "bwd_ms": time_ms(lambda: FA.backward(*flat[:3], o32, lse, flat[3],
@@ -1426,8 +1456,8 @@ def attention_timings(dev, peak: float, tc_peak: float,
         "attention_flops": work["plain_forward"],
         "attention_bwd_flops": work["plain_backward"],
         "bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
-        "shape": list(shape), "causal": causal, "dtype": "bfloat16",
-        "tensor_peak_flops": tc_peak,
+        "shape": list(shape), "v_shape": list(v_shape), "causal": causal,
+        "dtype": "bfloat16", "tensor_peak_flops": tc_peak,
     }
     for key, flops, nbytes in (
             ("bound_ms", work["plain_forward"], fwd_bytes),
@@ -1441,7 +1471,6 @@ def attention_timings(dev, peak: float, tc_peak: float,
         out[f"{key}share_of_bound"] = out[f"{key}bound_ms"] \
             / out["bwd_ms" if "bwd" in key else "ms"]
     del q, k, v, do, flat, o32, lse
-    out["d128_prefill"] = attention_d128(dev, peak, tc_peak, timed_d128)
     torch.cuda.empty_cache()
     return out
 

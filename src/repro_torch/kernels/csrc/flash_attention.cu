@@ -9,8 +9,10 @@
 // cores) held about half of a whisper-small train step.
 //
 // Layouts (row-major, the model's own):
-//   q, o      [nb, tq, hq, d]    bf16 (o32: the same in f32)
-//   k, v      [nb, tk, hkv, d]   bf16
+//   q         [nb, tq, hq, d]    bf16
+//   o         [nb, tq, hq, dv]   bf16 (o32: the same in f32; dO the same)
+//   k         [nb, tk, hkv, d]   bf16
+//   v         [nb, tk, hkv, dv]  bf16
 //   lse, dsum [nb, hq, tq]       f32 (log2-sum-exp of S * scale * log2(e);
 //                                     rowsum(dO * O) in f32)
 // nb is every leading dim times the batch; query head h reads KV head
@@ -47,11 +49,20 @@
 // gives each block one Q tile and loops over the K/V tiles; both recompute
 // P from the LSE, and dS = P * (dP - D).  Head dims up to 128 in steps of 8
 // run as 64 or 128 columns, the columns past d zero-filled.
+//
+// The key width may differ from the value width: q and k are d wide, v, o
+// and dO dv wide.  Besides d == dv <= 128, one pair is instantiated, d = 192
+// and dv = 128: multi-head latent attention's per-head form (128 columns of
+// a head's own key and 64 of the rope key every head shares; values of 128).
+// Its tiles are larger, so an SM holds two forward blocks and one backward
+// block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,7 +86,7 @@ struct Params {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   int64_t nb;
-  int tq, tk, hq, hkv, d;
+  int tq, tk, hq, hkv, d, d_v;  // d: q and k columns; d_v: v, o and dO columns
   int hi, lo;             // visible: lo < kj - i <= hi
   float scale;            // softmax scale
   float scale_log2;       // scale * log2(e)
@@ -241,14 +252,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------------------------------------
 
 // Blocks an SM holds: three at 64 columns (registers capped to fit them),
-// two at 128 (shared memory allows no more).
-template <int DP>
-__global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2) fwd_kernel(const Params p) {
+// two at 128 and at (192, 128) (shared memory allows no more).
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, DQK <= 64 ? 3 : 2) fwd_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kTileBytes = kTile * DP * 2;
+  constexpr int kQBytes = kTile * DQK * 2, kVBytes = kTile * DV * 2;
   const uint32_t sQ = smem_u32(smem);
-  const uint32_t sK = sQ + kTileBytes;      // two buffers
-  const uint32_t sV = sK + 2 * kTileBytes;  // two buffers
+  const uint32_t sK = sQ + kQBytes;      // two buffers
+  const uint32_t sV = sK + 2 * kQBytes;  // two buffers
 
   const int nqt = (p.tq + kTile - 1) / kTile;
   int64_t bid = blockIdx.x;
@@ -260,33 +271,34 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2) fwd_kernel(const P
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int64_t qs = (int64_t)p.hq * p.d, ks = (int64_t)p.hkv * p.d;
+  const int64_t vs = (int64_t)p.hkv * p.d_v;
   const __nv_bfloat16* qg = p.q + nb * p.tq * qs + (int64_t)h * p.d;
   const __nv_bfloat16* kg = p.k + nb * p.tk * ks + (int64_t)hk * p.d;
-  const __nv_bfloat16* vg = p.v + nb * p.tk * ks + (int64_t)hk * p.d;
+  const __nv_bfloat16* vg = p.v + nb * p.tk * vs + (int64_t)hk * p.d_v;
   const int i0 = qt * kTile;
   int jb, je;
   key_tiles(p, i0, min(i0 + kTile, p.tq) - 1, jb, je);
 
-  load_tile<DP>(sQ, qg, qs, i0, p.tq, p.d);
+  load_tile<DQK>(sQ, qg, qs, i0, p.tq, p.d);
   if (jb < je) {
-    load_tile<DP>(sK, kg, ks, jb * kTile, p.tk, p.d);
-    load_tile<DP>(sV, vg, ks, jb * kTile, p.tk, p.d);
+    load_tile<DQK>(sK, kg, ks, jb * kTile, p.tk, p.d);
+    load_tile<DV>(sV, vg, vs, jb * kTile, p.tk, p.d_v);
   }
   cp_commit();
 
   const int r0 = warp * 16;
   const int row0 = i0 + r0 + g;  // this thread's rows: row0, row0 + 8
-  float o[DP / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int j = jb; j < je; ++j) {
     const int buf = (j - jb) & 1;
-    const uint32_t kb = sK + buf * kTileBytes, vb = sV + buf * kTileBytes;
+    const uint32_t kb = sK + buf * kQBytes, vb = sV + buf * kVBytes;
     if (j + 1 < je) {
-      load_tile<DP>(sK + (buf ^ 1) * kTileBytes, kg, ks, (j + 1) * kTile, p.tk, p.d);
-      load_tile<DP>(sV + (buf ^ 1) * kTileBytes, vg, ks, (j + 1) * kTile, p.tk, p.d);
+      load_tile<DQK>(sK + (buf ^ 1) * kQBytes, kg, ks, (j + 1) * kTile, p.tk, p.d);
+      load_tile<DV>(sV + (buf ^ 1) * kVBytes, vg, vs, (j + 1) * kTile, p.tk, p.d_v);
     }
     cp_commit();
     cp_wait<1>();
@@ -296,13 +308,13 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2) fwd_kernel(const P
 #pragma unroll
     for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       uint32_t a[4];
-      load_a<DP>(sQ, r0, kk * 16, a);
+      load_a<DQK>(sQ, r0, kk * 16, a);
 #pragma unroll
       for (int np = 0; np < kTile / 16; ++np) {
         uint32_t b[4];
-        load_b<DP>(kb, np * 16, kk * 16, b);
+        load_b<DQK>(kb, np * 16, kk * 16, b);
         mma(s[2 * np], a, b[0], b[1]);
         mma(s[2 * np + 1], a, b[2], b[3]);
       }
@@ -330,7 +342,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2) fwd_kernel(const P
       m[r] = mx[r];
       l[r] *= corr;
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         o[n][2 * r] *= corr;
         o[n][2 * r + 1] *= corr;
       }
@@ -349,12 +361,12 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2) fwd_kernel(const P
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) split_a(s[2 * kk], s[2 * kk + 1], ph[kk], pm[kk], pl[kk]);
 #pragma unroll
-    for (int np = 0; np < DP / 16; ++np) {
+    for (int np = 0; np < DV / 16; ++np) {
       float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
         uint32_t b[4];
-        load_bt<DP>(vb, np * 16, kk * 16, b);
+        load_bt<DV>(vb, np * 16, kk * 16, b);
         mma3(acc[0], ph[kk], pm[kk], pl[kk], b[0], b[1]);
         mma3(acc[1], ph[kk], pm[kk], pl[kk], b[2], b[3]);
       }
@@ -373,11 +385,11 @@ __global__ void __launch_bounds__(kThreads, DP <= 64 ? 3 : 2) fwd_kernel(const P
     const int i = row0 + r * 8;
     const float sum = quad_sum(l[r]);
     if (i >= p.tq) continue;
-    const int64_t at = ((nb * p.tq + i) * p.hq + h) * p.d;
+    const int64_t at = ((nb * p.tq + i) * p.hq + h) * p.d_v;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col >= p.d) continue;
+      if (col >= p.d_v) continue;
       const float x = sum > 0.f ? o[n][2 * r] / sum : 0.f;
       const float y = sum > 0.f ? o[n][2 * r + 1] / sum : 0.f;
       *reinterpret_cast<float2*>(p.o32_out + at + col) = make_float2(x, y);
@@ -398,10 +410,10 @@ __global__ void __launch_bounds__(256) dsum_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int64_t rows = p.nb * p.tq * p.hq;
   if (row >= rows) return;
-  const __nv_bfloat16* dout = p.dout + row * p.d;
-  const float* o = p.o32 + row * p.d;
+  const __nv_bfloat16* dout = p.dout + row * p.d_v;
+  const float* o = p.o32 + row * p.d_v;
   float acc = 0.f;
-  for (int c = lane; c < p.d; c += 32) acc += __bfloat162float(dout[c]) * o[c];
+  for (int c = lane; c < p.d_v; c += 32) acc += __bfloat162float(dout[c]) * o[c];
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) {
@@ -414,14 +426,14 @@ __global__ void __launch_bounds__(256) dsum_kernel(const Params p) {
 }
 
 // dQ of one 64-row Q tile over the K/V tiles its rows see.
-template <int DP>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kTileBytes = kTile * DP * 2;
+  constexpr int kQBytes = kTile * DQK * 2, kVBytes = kTile * DV * 2;
   const uint32_t sQ = smem_u32(smem);
-  const uint32_t sO = sQ + kTileBytes;      // dO
-  const uint32_t sK = sO + kTileBytes;      // two buffers
-  const uint32_t sV = sK + 2 * kTileBytes;  // two buffers
+  const uint32_t sO = sQ + kQBytes;      // dO
+  const uint32_t sK = sO + kVBytes;      // two buffers
+  const uint32_t sV = sK + 2 * kQBytes;  // two buffers
 
   const int nqt = (p.tq + kTile - 1) / kTile;
   int64_t bid = blockIdx.x;
@@ -433,17 +445,18 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int64_t qs = (int64_t)p.hq * p.d, ks = (int64_t)p.hkv * p.d;
+  const int64_t os = (int64_t)p.hq * p.d_v, vs = (int64_t)p.hkv * p.d_v;
   const __nv_bfloat16* kg = p.k + nb * p.tk * ks + (int64_t)hk * p.d;
-  const __nv_bfloat16* vg = p.v + nb * p.tk * ks + (int64_t)hk * p.d;
+  const __nv_bfloat16* vg = p.v + nb * p.tk * vs + (int64_t)hk * p.d_v;
   const int i0 = qt * kTile;
   int jb, je;
   key_tiles(p, i0, min(i0 + kTile, p.tq) - 1, jb, je);
 
-  load_tile<DP>(sQ, p.q + nb * p.tq * qs + (int64_t)h * p.d, qs, i0, p.tq, p.d);
-  load_tile<DP>(sO, p.dout + nb * p.tq * qs + (int64_t)h * p.d, qs, i0, p.tq, p.d);
+  load_tile<DQK>(sQ, p.q + nb * p.tq * qs + (int64_t)h * p.d, qs, i0, p.tq, p.d);
+  load_tile<DV>(sO, p.dout + nb * p.tq * os + (int64_t)h * p.d_v, os, i0, p.tq, p.d_v);
   if (jb < je) {
-    load_tile<DP>(sK, kg, ks, jb * kTile, p.tk, p.d);
-    load_tile<DP>(sV, vg, ks, jb * kTile, p.tk, p.d);
+    load_tile<DQK>(sK, kg, ks, jb * kTile, p.tk, p.d);
+    load_tile<DV>(sV, vg, vs, jb * kTile, p.tk, p.d_v);
   }
   cp_commit();
 
@@ -457,16 +470,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
     lse[r] = i < p.tq ? p.lse[at] : 0.f;
     dd[r] = i < p.tq ? p.dsum[at] : 0.f;
   }
-  float dq[DP / 8][4];
+  float dq[DQK / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int n = 0; n < DQK / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   for (int j = jb; j < je; ++j) {
     const int buf = (j - jb) & 1;
-    const uint32_t kb = sK + buf * kTileBytes, vb = sV + buf * kTileBytes;
+    const uint32_t kb = sK + buf * kQBytes, vb = sV + buf * kVBytes;
     if (j + 1 < je) {
-      load_tile<DP>(sK + (buf ^ 1) * kTileBytes, kg, ks, (j + 1) * kTile, p.tk, p.d);
-      load_tile<DP>(sV + (buf ^ 1) * kTileBytes, vg, ks, (j + 1) * kTile, p.tk, p.d);
+      load_tile<DQK>(sK + (buf ^ 1) * kQBytes, kg, ks, (j + 1) * kTile, p.tk, p.d);
+      load_tile<DV>(sV + (buf ^ 1) * kVBytes, vg, vs, (j + 1) * kTile, p.tk, p.d_v);
     }
     cp_commit();
     cp_wait<1>();
@@ -478,20 +491,47 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
       dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     }
+    if constexpr (DQK == DV) {  // S = Q K^T and dP = dO V^T in one pass
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a<DP>(sQ, r0, kk * 16, aq);
-      load_a<DP>(sO, r0, kk * 16, ao);
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        load_a<DQK>(sQ, r0, kk * 16, aq);
+        load_a<DV>(sO, r0, kk * 16, ao);
 #pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t b[4];
-        load_b<DP>(kb, np * 16, kk * 16, b);
-        mma(s[2 * np], aq, b[0], b[1]);
-        mma(s[2 * np + 1], aq, b[2], b[3]);
-        load_b<DP>(vb, np * 16, kk * 16, b);
-        mma(dp[2 * np], ao, b[0], b[1]);
-        mma(dp[2 * np + 1], ao, b[2], b[3]);
+        for (int np = 0; np < kTile / 16; ++np) {
+          uint32_t b[4];
+          load_b<DQK>(kb, np * 16, kk * 16, b);
+          mma(s[2 * np], aq, b[0], b[1]);
+          mma(s[2 * np + 1], aq, b[2], b[3]);
+          load_b<DV>(vb, np * 16, kk * 16, b);
+          mma(dp[2 * np], ao, b[0], b[1]);
+          mma(dp[2 * np + 1], ao, b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        uint32_t aq[4];
+        load_a<DQK>(sQ, r0, kk * 16, aq);
+#pragma unroll
+        for (int np = 0; np < kTile / 16; ++np) {
+          uint32_t b[4];
+          load_b<DQK>(kb, np * 16, kk * 16, b);
+          mma(s[2 * np], aq, b[0], b[1]);
+          mma(s[2 * np + 1], aq, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        uint32_t ao[4];
+        load_a<DV>(sO, r0, kk * 16, ao);
+#pragma unroll
+        for (int np = 0; np < kTile / 16; ++np) {
+          uint32_t b[4];
+          load_b<DV>(vb, np * 16, kk * 16, b);
+          mma(dp[2 * np], ao, b[0], b[1]);
+          mma(dp[2 * np + 1], ao, b[2], b[3]);
+        }
       }
     }
     const int k0 = j * kTile;
@@ -511,9 +551,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
       uint32_t ah[4], am[4], al[4];
       split_a(s[2 * kk], s[2 * kk + 1], ah, am, al);
 #pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
+      for (int np = 0; np < DQK / 16; ++np) {
         uint32_t b[4];
-        load_bt<DP>(kb, np * 16, kk * 16, b);
+        load_bt<DQK>(kb, np * 16, kk * 16, b);
         mma3(dq[2 * np], ah, am, al, b[0], b[1]);
         mma3(dq[2 * np + 1], ah, am, al, b[2], b[3]);
       }
@@ -528,7 +568,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
     if (i >= p.tq) continue;
     const int64_t at = ((nb * p.tq + i) * p.hq + h) * p.d;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int n = 0; n < DQK / 8; ++n) {
       const int col = n * 8 + 2 * t;
       if (col >= p.d) continue;
       *reinterpret_cast<__nv_bfloat162*>(p.dq + at + col) =
@@ -539,16 +579,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
 
 // dK and dV of one 64-key K/V tile over the Q tiles of every query head
 // that reads it.
-template <int DP>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kTileBytes = kTile * DP * 2;
+  constexpr int kQBytes = kTile * DQK * 2, kVBytes = kTile * DV * 2;
   const uint32_t sK = smem_u32(smem);
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t sQ = sV + kTileBytes;      // two buffers
-  const uint32_t sO = sQ + 2 * kTileBytes;  // dO, two buffers
-  float* sL = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // [2][kTile] LSE
-  float* sD = sL + 2 * kTile;                                   // [2][kTile] D
+  const uint32_t sV = sK + kQBytes;
+  const uint32_t sQ = sV + kVBytes;      // two buffers
+  const uint32_t sO = sQ + 2 * kQBytes;  // dO, two buffers
+  float* sL = reinterpret_cast<float*>(smem + 3 * kQBytes + 3 * kVBytes);  // [2][kTile] LSE
+  float* sD = sL + 2 * kTile;                                              // [2][kTile] D
 
   const int nkt = (p.tk + kTile - 1) / kTile;
   int64_t bid = blockIdx.x;
@@ -560,6 +600,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int64_t qs = (int64_t)p.hq * p.d, ks = (int64_t)p.hkv * p.d;
+  const int64_t os = (int64_t)p.hq * p.d_v, vs = (int64_t)p.hkv * p.d_v;
   const int k0 = kt * kTile;
   const int k1 = min(k0 + kTile, p.tk) - 1;
   // the Q tiles [ib, ie) whose rows see a key of this tile
@@ -569,17 +610,17 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
   const int nq = qmax < qmin ? 0 : (int)(qmax / kTile) + 1 - ib;
   const int steps = nq * group;
 
-  load_tile<DP>(sK, p.k + nb * p.tk * ks + (int64_t)hk * p.d, ks, k0, p.tk, p.d);
-  load_tile<DP>(sV, p.v + nb * p.tk * ks + (int64_t)hk * p.d, ks, k0, p.tk, p.d);
+  load_tile<DQK>(sK, p.k + nb * p.tk * ks + (int64_t)hk * p.d, ks, k0, p.tk, p.d);
+  load_tile<DV>(sV, p.v + nb * p.tk * vs + (int64_t)hk * p.d_v, vs, k0, p.tk, p.d_v);
 
   // step s: query head hk * group + s / nq, Q tile ib + s % nq
   auto load_step = [&](int s, int buf) {
     const int h = hk * group + s / nq;
     const int i0 = (ib + s % nq) * kTile;
-    load_tile<DP>(sQ + buf * kTileBytes, p.q + nb * p.tq * qs + (int64_t)h * p.d, qs, i0,
-                  p.tq, p.d);
-    load_tile<DP>(sO + buf * kTileBytes, p.dout + nb * p.tq * qs + (int64_t)h * p.d, qs, i0,
-                  p.tq, p.d);
+    load_tile<DQK>(sQ + buf * kQBytes, p.q + nb * p.tq * qs + (int64_t)h * p.d, qs, i0,
+                   p.tq, p.d);
+    load_tile<DV>(sO + buf * kVBytes, p.dout + nb * p.tq * os + (int64_t)h * p.d_v, os, i0,
+                  p.tq, p.d_v);
   };
   // the LSE and D of step s's rows, column threadIdx.x (< kTile)
   auto stats = [&](int s, float& lv, float& dv) {
@@ -597,16 +638,15 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
 
   const int r0 = warp * 16;
   const int key0 = k0 + r0 + g;  // this thread's keys: key0, key0 + 8
-  float dk[DP / 8][4], dv[DP / 8][4];
+  float dk[DQK / 8][4], dv[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
+  for (int n = 0; n < DQK / 8; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
 
   for (int s = 0; s < steps; ++s) {
     const int buf = s & 1;
-    const uint32_t qb = sQ + buf * kTileBytes, ob = sO + buf * kTileBytes;
+    const uint32_t qb = sQ + buf * kQBytes, ob = sO + buf * kVBytes;
     const float* lb = sL + buf * kTile;
     const float* db = sD + buf * kTile;
     float nl = 0.f, nd = 0.f;
@@ -625,20 +665,47 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
       st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
       dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
     }
+    if constexpr (DQK == DV) {
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a<DP>(sK, r0, kk * 16, ak);
-      load_a<DP>(sV, r0, kk * 16, av);
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        load_a<DQK>(sK, r0, kk * 16, ak);
+        load_a<DV>(sV, r0, kk * 16, av);
 #pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t b[4];
-        load_b<DP>(qb, np * 16, kk * 16, b);
-        mma(st[2 * np], ak, b[0], b[1]);
-        mma(st[2 * np + 1], ak, b[2], b[3]);
-        load_b<DP>(ob, np * 16, kk * 16, b);
-        mma(dpt[2 * np], av, b[0], b[1]);
-        mma(dpt[2 * np + 1], av, b[2], b[3]);
+        for (int np = 0; np < kTile / 16; ++np) {
+          uint32_t b[4];
+          load_b<DQK>(qb, np * 16, kk * 16, b);
+          mma(st[2 * np], ak, b[0], b[1]);
+          mma(st[2 * np + 1], ak, b[2], b[3]);
+          load_b<DV>(ob, np * 16, kk * 16, b);
+          mma(dpt[2 * np], av, b[0], b[1]);
+          mma(dpt[2 * np + 1], av, b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        uint32_t ak[4];
+        load_a<DQK>(sK, r0, kk * 16, ak);
+#pragma unroll
+        for (int np = 0; np < kTile / 16; ++np) {
+          uint32_t b[4];
+          load_b<DQK>(qb, np * 16, kk * 16, b);
+          mma(st[2 * np], ak, b[0], b[1]);
+          mma(st[2 * np + 1], ak, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        uint32_t av[4];
+        load_a<DV>(sV, r0, kk * 16, av);
+#pragma unroll
+        for (int np = 0; np < kTile / 16; ++np) {
+          uint32_t b[4];
+          load_b<DV>(ob, np * 16, kk * 16, b);
+          mma(dpt[2 * np], av, b[0], b[1]);
+          mma(dpt[2 * np + 1], av, b[2], b[3]);
+        }
       }
     }
     const int i0 = (ib + s % nq) * kTile;
@@ -658,9 +725,9 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
       uint32_t ah[4], am[4], al[4];
       split_a(st[2 * kk], st[2 * kk + 1], ah, am, al);
 #pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
+      for (int np = 0; np < DV / 16; ++np) {
         uint32_t b[4];
-        load_bt<DP>(ob, np * 16, kk * 16, b);
+        load_bt<DV>(ob, np * 16, kk * 16, b);
         mma3(dv[2 * np], ah, am, al, b[0], b[1]);
         mma3(dv[2 * np + 1], ah, am, al, b[2], b[3]);
       }
@@ -676,9 +743,9 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
       uint32_t ah[4], am[4], al[4];
       split_a(st[2 * kk], st[2 * kk + 1], ah, am, al);
 #pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
+      for (int np = 0; np < DQK / 16; ++np) {
         uint32_t b[4];
-        load_bt<DP>(qb, np * 16, kk * 16, b);
+        load_bt<DQK>(qb, np * 16, kk * 16, b);
         mma3(dk[2 * np], ah, am, al, b[0], b[1]);
         mma3(dk[2 * np + 1], ah, am, al, b[2], b[3]);
       }
@@ -696,14 +763,20 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
     const int key = key0 + r * 8;
     if (key >= p.tk) continue;
     const int64_t at = ((nb * p.tk + key) * p.hkv + hk) * p.d;
+    const int64_t av = ((nb * p.tk + key) * p.hkv + hk) * p.d_v;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int n = 0; n < DQK / 8; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col >= p.d) continue;
-      *reinterpret_cast<__nv_bfloat162*>(p.dk + at + col) =
-          __floats2bfloat162_rn(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(p.dv + at + col) =
-          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+      if (col < p.d)
+        *reinterpret_cast<__nv_bfloat162*>(p.dk + at + col) =
+            __floats2bfloat162_rn(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+    }
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < p.d_v)
+        *reinterpret_cast<__nv_bfloat162*>(p.dv + av + col) =
+            __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
@@ -725,26 +798,38 @@ int launch(K kernel, int64_t blocks, int threads, size_t smem, cudaStream_t s, c
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <int DQK, int DV>
 int forward(const Params& p, cudaStream_t s) {
   const int64_t blocks = p.nb * p.hq * ((p.tq + kTile - 1) / kTile);
-  return launch(fwd_kernel<DP>, blocks, kThreads, 5 * kTile * DP * 2, s, p);
+  return launch(fwd_kernel<DQK, DV>, blocks, kThreads, kTile * (3 * DQK + 2 * DV) * 2, s, p);
 }
 
-template <int DP>
+template <int DQK, int DV>
 int backward(const Params& p, cudaStream_t s) {
   int rc = launch(dsum_kernel, (p.nb * p.tq * p.hq + 7) / 8, 256, 0, s, p);
   if (rc != 0) return rc;
-  rc = launch(dkdv_kernel<DP>, p.nb * p.hkv * ((p.tk + kTile - 1) / kTile), kThreads,
-              6 * kTile * DP * 2 + 4 * kTile * sizeof(float), s, p);
+  rc = launch(dkdv_kernel<DQK, DV>, p.nb * p.hkv * ((p.tk + kTile - 1) / kTile), kThreads,
+              3 * kTile * (DQK + DV) * 2 + 4 * kTile * sizeof(float), s, p);
   if (rc != 0) return rc;
-  return launch(dq_kernel<DP>, p.nb * p.hq * ((p.tq + kTile - 1) / kTile), kThreads,
-                6 * kTile * DP * 2, s, p);
+  return launch(dq_kernel<DQK, DV>, p.nb * p.hq * ((p.tq + kTile - 1) / kTile), kThreads,
+                3 * kTile * (DQK + DV) * 2, s, p);
 }
 
+// The widths instantiated: d == dv <= 128 (as 64 or 128 columns), and
+// (192, 128).
 bool valid(const Params& p) {
+  const bool widths = (p.d == p.d_v && p.d <= 128) || (p.d == 192 && p.d_v == 128);
   return p.nb > 0 && p.tq > 0 && p.tk > 0 && p.hkv > 0 && p.hq % p.hkv == 0 && p.d > 0 &&
-         p.d <= 128 && p.d % 8 == 0;
+         p.d % 8 == 0 && widths;
+}
+
+// The instantiation of the widths (valid() holds).
+template <typename Run>
+int dispatch(const Params& p, Run run) {
+  using std::integral_constant;
+  if (p.d != p.d_v) return run(integral_constant<int, 192>{}, integral_constant<int, 128>{});
+  if (p.d <= 64) return run(integral_constant<int, 64>{}, integral_constant<int, 64>{});
+  return run(integral_constant<int, 128>{}, integral_constant<int, 128>{});
 }
 
 // Runs `launch` with `device` current, then restores the caller's device.
@@ -762,10 +847,11 @@ int on_device(int device, F run) {
 
 // Each returns cudaGetLastError() after its launches (0 = launched), the
 // first failure's code, or cudaErrorInvalidValue for a shape the kernels do
-// not take.  Pointers are contiguous tensors of the layouts above.
+// not take.  Pointers are contiguous tensors of the layouts above; d is the
+// q and k width, dv (dvw) the v, o and dO width.
 extern "C" int acis_flash_fwd(const void* q, const void* k, const void* v, void* o, void* o32,
                               void* lse, int64_t nb, int tq, int tk, int hq, int hkv, int d,
-                              int hi, int lo, float scale, int device, void* stream) {
+                              int dv, int hi, int lo, float scale, int device, void* stream) {
   Params p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -773,20 +859,24 @@ extern "C" int acis_flash_fwd(const void* q, const void* k, const void* v, void*
   p.o = static_cast<__nv_bfloat16*>(o);
   p.o32_out = static_cast<float*>(o32);
   p.lse_out = static_cast<float*>(lse);
-  p.nb = nb; p.tq = tq; p.tk = tk; p.hq = hq; p.hkv = hkv; p.d = d;
+  p.nb = nb; p.tq = tq; p.tk = tk; p.hq = hq; p.hkv = hkv; p.d = d; p.d_v = dv;
   p.hi = hi; p.lo = lo;
   p.scale = scale;
   p.scale_log2 = scale * 1.4426950408889634f;
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() { return d <= 64 ? forward<64>(p, s) : forward<128>(p, s); });
+  return on_device(device, [&]() {
+    return dispatch(p, [&](auto a, auto b) {
+      return forward<decltype(a)::value, decltype(b)::value>(p, s);
+    });
+  });
 }
 
 // dsum: [nb, hq, tq] f32 scratch for D.
 extern "C" int acis_flash_bwd(const void* q, const void* k, const void* v, const void* o32,
                               const void* lse, const void* dout, void* dsum, void* dq, void* dk,
                               void* dv, int64_t nb, int tq, int tk, int hq, int hkv, int d,
-                              int hi, int lo, float scale, int device, void* stream) {
+                              int dvw, int hi, int lo, float scale, int device, void* stream) {
   Params p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -799,11 +889,15 @@ extern "C" int acis_flash_bwd(const void* q, const void* k, const void* v, const
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.nb = nb; p.tq = tq; p.tk = tk; p.hq = hq; p.hkv = hkv; p.d = d;
+  p.nb = nb; p.tq = tq; p.tk = tk; p.hq = hq; p.hkv = hkv; p.d = d; p.d_v = dvw;
   p.hi = hi; p.lo = lo;
   p.scale = scale;
   p.scale_log2 = scale * 1.4426950408889634f;
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() { return d <= 64 ? backward<64>(p, s) : backward<128>(p, s); });
+  return on_device(device, [&]() {
+    return dispatch(p, [&](auto a, auto b) {
+      return backward<decltype(a)::value, decltype(b)::value>(p, s);
+    });
+  });
 }

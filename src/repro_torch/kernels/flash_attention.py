@@ -10,13 +10,15 @@ step.  :func:`repro_torch.models.attention.flash_attention` sends the
 calls :func:`takes` names here; the rest keep the plain loop.
 
 ``flash_attention(q, k, v, causal=, window=, q_offset=, scale=)`` takes
-bf16 q ``[..., B, Tq, Hq, d]`` and k, v ``[..., B, Tk, Hkv, d]`` (one set
-of leading dims, ``d <= 128`` a multiple of 8, ``Hq % Hkv == 0``; query
-head h reads KV head ``h // (Hq // Hkv)``) and returns the attention in
-bf16 through a :class:`torch.autograd.Function` whose backward is a
-kernel too.  Key ``j`` is visible to query row ``i`` when ``lo < j - i <=
-hi`` (:func:`mask_bounds`: causal ``hi = q_offset``, a window ``lo =
-q_offset - window``).
+bf16 q ``[..., B, Tq, Hq, d]``, k ``[..., B, Tk, Hkv, d]`` and v ``[...,
+B, Tk, Hkv, dv]`` (one set of leading dims, ``Hq % Hkv == 0``; query head
+h reads KV head ``h // (Hq // Hkv)``; the widths :func:`widths` names:
+``d == dv <= 128`` a multiple of 8, or multi-head latent attention's
+per-head ``d = 192``, ``dv = 128``) and returns the attention ``[..., B,
+Tq, Hq, dv]`` in bf16 through a :class:`torch.autograd.Function` whose
+backward is a kernel too.  Key ``j`` is visible to query row ``i`` when
+``lo < j - i <= hi`` (:func:`mask_bounds`: causal ``hi = q_offset``, a
+window ``lo = q_offset - window``).
 
 Accuracy is the plain form's f32 result, not a bf16 one: products of bf16
 values (q k^T, dO V^T) go to the tensor cores as they are, with f32 sums,
@@ -49,6 +51,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import metrics as _metrics
 
 INT_MAX = 2 ** 31 - 1
 LOG2E = 1.4426950408889634
@@ -57,6 +60,9 @@ LOG2E = 1.4426950408889634
 # dQ launch) — the main path's proof of use
 launches = 0
 bwd_launches = 0
+
+# the key width different from the value width that the kernels take
+WIDE = (192, 128)
 
 
 def mask_bounds(causal: bool, window: Optional[int],
@@ -78,13 +84,19 @@ def rows_see_keys(tq: int, tk: int, causal: bool, window: Optional[int],
         and lo + 1 <= hi
 
 
+def widths(d: int, dv: int) -> bool:
+    """The key and value widths the kernels are built for: ``d == dv <=
+    128`` a multiple of 8, or :data:`WIDE`."""
+    return (d == dv <= 128 and d % 8 == 0) or (d, dv) == WIDE
+
+
 def takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool, window: Optional[int], q_offset, kv_len) -> bool:
     """The one rule that sends an attention call to these kernels: CUDA
     operands, an int ``q_offset`` and no ``kv_len`` (full sequences),
-    bf16 q, k, v with one set of leading dims, ``d == dv <= 128`` a
-    multiple of 8, ``Hq % Hkv == 0``, and every query row seeing a key
-    (the plain loop gives a row that sees none the mean of a chunk's
+    bf16 q, k, v with one set of leading dims, key and value widths that
+    :func:`widths` names, ``Hq % Hkv == 0``, and every query row seeing a
+    key (the plain loop gives a row that sees none the mean of a chunk's
     values)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or kv_len is not None \
             or not isinstance(q_offset, int) or q.dim() < 3:
@@ -93,8 +105,8 @@ def takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tk, hkv, dv = v.shape[-3:]
     return (q.dtype == k.dtype == v.dtype == torch.bfloat16
             and q.shape[:-3] == k.shape[:-3] == v.shape[:-3]
-            and k.shape[-3:] == (tk, hkv, d) and d == dv <= 128
-            and d % 8 == 0 and hq % hkv == 0
+            and k.shape[-3:] == (tk, hkv, d) and widths(d, dv)
+            and hq % hkv == 0
             and rows_see_keys(tq, tk, causal, window, q_offset))
 
 
@@ -175,17 +187,33 @@ def plain_backward(q, k, v, o32, lse, do, *, hi=None, lo=None,
     return dq.reshape(q.shape), dk, dv
 
 
+def visible_pairs(tq: int, tk: int, hi=None, lo=None) -> int:
+    """The (row, key) pairs the mask of :func:`mask_bounds` leaves
+    visible: row i sees keys ``max(0, i + lo + 1) .. min(tk - 1, i +
+    hi)``."""
+    i = torch.arange(tq, dtype=torch.int64)
+    first = (i + lo + 1).clamp_min(0) if lo is not None \
+        else torch.zeros_like(i)
+    last = (i + hi).clamp_max(tk - 1) if hi is not None \
+        else torch.full_like(i, tk - 1)
+    return int((last - first + 1).clamp_min(0).sum())
+
+
 def work(nb: int, tq: int, tk: int, hq: int, d: int, hi=None,
-         lo=None) -> dict:
+         lo=None, dv: Optional[int] = None) -> dict:
     """Tensor-core operations of the kernels over the visible (row, key)
-    pairs: ``forward`` 2d (S) + 3 * 2d (P V in three parts), ``backward``
-    2 * 2d (S, recomputed in both kernels) + 2 * 2d (dP, in both) +
-    3 * 3 * 2d (dV, dK, dQ); ``plain`` the attention's own 4d forward and
-    10d backward.  Wholly masked tiles are skipped, so the pairs are the
-    visible ones."""
-    pairs = nb * hq * int(_visible(tq, tk, hi, lo, "cpu").sum())
-    return {"forward": pairs * 8 * d, "backward": pairs * 26 * d,
-            "plain_forward": pairs * 4 * d, "plain_backward": pairs * 10 * d}
+    pairs, q and k ``d`` wide and v ``dv`` (``d`` by default):
+    ``forward`` 2d (S) + 3 * 2dv (P V in three parts), ``backward``
+    2 * 2d (S, recomputed in both kernels) + 2 * 2dv (dP, in both) +
+    3 * 2dv (dV) + 3 * 2 * 2d (dK, dQ); ``plain`` the attention's own
+    2(d + dv) forward and 2(3d + 2dv) backward.  Wholly masked tiles are
+    skipped, so the pairs are the visible ones."""
+    dv = d if dv is None else dv
+    pairs = nb * hq * visible_pairs(tq, tk, hi, lo)
+    return {"forward": pairs * (2 * d + 6 * dv),
+            "backward": pairs * (16 * d + 10 * dv),
+            "plain_forward": pairs * 2 * (d + dv),
+            "plain_backward": pairs * 2 * (3 * d + 2 * dv)}
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -196,7 +224,7 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.library("flash_attention")
-        shape = [ctypes.c_int64] + [ctypes.c_int] * 7 \
+        shape = [ctypes.c_int64] + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.acis_flash_fwd.argtypes = [ctypes.c_void_p] * 6 + shape
         lib.acis_flash_fwd.restype = ctypes.c_int
@@ -222,14 +250,14 @@ def _check(q, k, v, *more) -> None:
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise TypeError(f"flash_attention kernel takes bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
-            or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1] \
-            or q.shape[2] % k.shape[2] or q.shape[-1] % 8 \
-            or q.shape[-1] > 128:
-        raise ValueError(f"flash_attention kernel takes q [nb, tq, hq, d] "
-                         f"and k, v [nb, tk, hkv, d] with d <= 128 a "
-                         f"multiple of 8 and hkv dividing hq, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3] or k.shape[0] != q.shape[0] \
+            or k.shape[-1] != q.shape[-1] or q.shape[2] % k.shape[2] \
+            or not widths(q.shape[-1], v.shape[-1]):
+        raise ValueError(f"flash_attention kernel takes q [nb, tq, hq, d], "
+                         f"k [nb, tk, hkv, d] and v [nb, tk, hkv, dv] with "
+                         f"widths d, dv as widths() names and hkv dividing "
+                         f"hq, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in (q, k, v, *more)):
@@ -245,19 +273,21 @@ def _operand(x: torch.Tensor) -> torch.Tensor:
 
 def forward(q, k, v, *, hi: Optional[int], lo: Optional[int],
             scale: float):
-    """The forward kernel on ``[nb, t, h, d]`` operands, the mask of
-    :func:`mask_bounds`: ``(o, o32, lse)``, o in bf16."""
+    """The forward kernel on ``[nb, t, h, d]`` operands (v ``dv``
+    wide), the mask of :func:`mask_bounds`: ``(o, o32, lse)``, o ``[nb,
+    tq, hq, dv]`` in bf16."""
     global launches
     _check(q, k, v)
     nb, tq, hq, d = q.shape
-    o = torch.empty_like(q)
-    o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = v.shape[-1]
+    o = torch.empty((nb, tq, hq, dv), dtype=q.dtype, device=q.device)
+    o32 = torch.empty(o.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((nb, hq, tq), dtype=torch.float32, device=q.device)
     dev = q.get_device()
     rc = _lib().acis_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         o32.data_ptr(), lse.data_ptr(), nb, tq, k.shape[1], hq, k.shape[2],
-        d, *_bounds(hi, lo), scale, dev, build.stream_of(dev))
+        d, dv, *_bounds(hi, lo), scale, dev, build.stream_of(dev))
     launches += 1
     if rc != 0:
         raise RuntimeError(f"flash_attention forward launch failed "
@@ -270,8 +300,8 @@ def backward(q, k, v, o32, lse, do, *, hi: Optional[int],
     """The backward kernels: ``(dq, dk, dv)`` in bf16."""
     global bwd_launches
     _check(q, k, v, o32, lse, do)
-    if do.shape != q.shape or do.dtype != torch.bfloat16:
-        raise ValueError(f"dO must be bf16 {tuple(q.shape)}, got "
+    if do.shape != o32.shape or do.dtype != torch.bfloat16:
+        raise ValueError(f"dO must be bf16 {tuple(o32.shape)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
     nb, tq, hq, d = q.shape
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -281,7 +311,7 @@ def backward(q, k, v, o32, lse, do, *, hi: Optional[int],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), nb, tq, k.shape[1], hq, k.shape[2], d,
-        *_bounds(hi, lo), scale, dev, build.stream_of(dev))
+        v.shape[-1], *_bounds(hi, lo), scale, dev, build.stream_of(dev))
     bwd_launches += 1
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed "
@@ -304,16 +334,33 @@ class _Attention(torch.autograd.Function):
         hi, lo, scale = ctx.mask
         dq, dk, dv = backward(q, k, v, o32, lse, _operand(do), hi=hi, lo=lo,
                               scale=scale)
+        rec = _metrics.RECORDER
+        if rec.spans is not None:
+            rec.count("kernel.attention.flops",
+                      operations(q, k, v, hi, lo)["plain_backward"])
         return dq, dk, dv, None, None, None
+
+
+def operations(q, k, v, hi, lo) -> dict:
+    """:func:`work` of ``[nb, t, h, ·]`` operands under the mask bounds."""
+    nb, tq, hq, d = q.shape
+    return work(nb, tq, k.shape[1], hq, d, hi, lo, dv=v.shape[-1])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: Optional[int], q_offset: int,
                     scale: float) -> torch.Tensor:
-    """Attention of bf16 ``q [..., Tq, Hq, d]`` over ``k, v [..., Tk, Hkv,
-    d]`` (the same leading dims) on the card, differentiable; returns
-    ``[..., Tq, Hq, d]`` in bf16."""
+    """Attention of bf16 ``q [..., Tq, Hq, d]`` over ``k [..., Tk, Hkv,
+    d]`` and ``v [..., Tk, Hkv, dv]`` (the same leading dims) on the card,
+    differentiable; returns ``[..., Tq, Hq, dv]`` in bf16.  While spans
+    are recorded, ``kernel.attention.flops`` counts the attention's own
+    operations (:func:`work`'s ``plain_forward``, and ``plain_backward``
+    when the backward runs)."""
     hi, lo = mask_bounds(causal, window, q_offset)
     flat = [_operand(x.reshape((-1,) + x.shape[-3:])) for x in (q, k, v)]
+    rec = _metrics.RECORDER
+    if rec.spans is not None:
+        rec.count("kernel.attention.flops",
+                  operations(*flat, hi, lo)["plain_forward"])
     o = _Attention.apply(*flat, hi, lo, float(scale))
-    return o.reshape(q.shape)
+    return o.reshape(q.shape[:-1] + (v.shape[-1],))

@@ -15,7 +15,23 @@ import dataclasses
 from typing import Optional, Sequence
 
 
-@dataclasses.dataclass(frozen=True)
+def _own(default):
+    """A field of the port's own (the reference has none of them)."""
+    return dataclasses.field(default=default, metadata={"own": True})
+
+
+def _repr(self) -> str:
+    """The dataclass repr without the port's own fields that hold their
+    default: the reference's repr wherever a config computes what the
+    reference's does, and every departure from it shown."""
+    shown = (f for f in dataclasses.fields(self)
+             if not f.metadata.get("own")
+             or getattr(self, f.name) != f.default)
+    return f"{type(self).__qualname__}(" + ", ".join(
+        f"{f.name}={getattr(self, f.name)!r}" for f in shown) + ")"
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
 class MoEConfig:
     n_experts: int = 0           # routed experts
     top_k: int = 0
@@ -26,15 +42,46 @@ class MoEConfig:
     d_ff_dense: int = 0          # hidden dim of those dense layers
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
+    # --- the port's own fields: each default computes what the
+    # reference computes, and the repr shows them only off it ---
+    # the experts held here, an expert-parallel share: experts
+    # first_held .. first_held + n_held - 1 (n_held 0 = all); the router
+    # keeps all n_experts outputs
+    n_held: int = _own(0)
+    first_held: int = _own(0)
+    norm_topk_prob: bool = _own(True)     # renormalise the top-k scores
+    routed_scaling_factor: float = _own(1.0)  # times the routed weights
+    dropless: bool = _own(False)  # grouped dispatch, no capacity, no drops
+    seq_aux: bool = _own(False)   # balance loss per sequence (DeepSeek-V2)
+
+    __repr__ = _repr
+
+    @property
+    def held(self) -> int:
+        return self.n_held or self.n_experts
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's rope scaling (DeepSeek-V2's ``rope_scaling``, type yarn)."""
+    factor: float = 1.0
+    original_max: int = 4096     # original_max_position_embeddings
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
 class MLAConfig:
     kv_lora: int = 0             # compressed KV width (c_kv)
     q_lora: int = 0              # compressed Q width (0 = full-rank Q)
     rope_head_dim: int = 64
     nope_head_dim: int = 128
     v_head_dim: int = 128
+    yarn: Optional[YarnConfig] = _own(None)  # the port's own: None = RoPE
+
+    __repr__ = _repr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +179,7 @@ class ModelConfig:
             m = self.moe
             n_moe = L - m.first_dense_layers
             blk = m.first_dense_layers * ffn_params(m.d_ff_dense or f)
-            blk += n_moe * (m.n_experts * ffn_params(m.d_ff_expert)
+            blk += n_moe * (m.held * ffn_params(m.d_ff_expert)
                             + ffn_params(m.d_ff_shared)
                             + d * m.n_experts)  # router
             blk += L * attn_params()
@@ -165,6 +212,7 @@ class ModelConfig:
         full = self.param_count()
         mult = 3 if self.activation == "swiglu" else 2
         n_moe = self.n_layers - m.first_dense_layers
-        all_experts = n_moe * m.n_experts * mult * self.d_model * m.d_ff_expert
-        active = n_moe * m.top_k * mult * self.d_model * m.d_ff_expert
+        all_experts = n_moe * m.held * mult * self.d_model * m.d_ff_expert
+        active = n_moe * m.top_k * mult * self.d_model * m.d_ff_expert \
+            * m.held // m.n_experts
         return full - all_experts + active

@@ -175,12 +175,19 @@ def rope_frequencies(d_head: int, theta: float = 10000.0, *,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: [..., T, H, d_head]; positions: [..., T] (absolute)."""
+               theta: float = 10000.0, *,
+               freqs: Optional[torch.Tensor] = None,
+               mscale: float = 1.0) -> torch.Tensor:
+    """x: [..., T, H, d_head]; positions: [..., T] (absolute).  ``freqs``
+    [d_head / 2] replaces RoPE's inverse frequencies and ``mscale``
+    multiplies cos and sin (YaRN's, :mod:`repro_torch.models.mla`)."""
     d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, device=x.device)        # [d/2]
+    if freqs is None:
+        freqs = rope_frequencies(d, theta, device=x.device)    # [d/2]
     angles = positions[..., :, None, None].to(torch.float32) * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -14,6 +14,23 @@ values are never formed.  The casts match the reference's one for one:
 f32 inside, the bf16 caches widened at every step, the output rounded to
 x's dtype before ``wo``.
 
+Full sequences on the card attend in the per-head form instead
+(:func:`_attend_per_head`): keys ``[W_uk c_kv ; k_rope]`` (nope + rope
+wide, the rope key broadcast to every head) and values ``W_uv c_kv`` in
+x's dtype, through the fused kernel, which takes them at (192, 128).
+One rule picks the form (:func:`per_head`): per-head where the fused
+kernel takes the call, the absorbed form for decode, on the CPU and for
+every call the kernel refuses.  Training wants the per-head form:
+the absorbed one runs 576-wide f32 queries against one shared key, which
+no kernel takes.
+
+With ``cfg.yarn`` (DeepSeek-V2's YaRN rope scaling) the rope key and
+queries rotate by YaRN's frequencies (:func:`rope_frequencies`) and the
+softmax scale is ``(nope + rope)^-1/2 · m²``, ``m = 0.1 · mscale_all_dim
+· ln(factor) + 1`` (:func:`softmax_scale`).  While spans are recorded a
+whole-sequence call runs under the span ``mla.attention``, from its
+projections to ``wo``.
+
 Every function takes leading dims before ``[B, T, ...]``: under the train
 step's rank dims the params are rank-stacked ``[*rank, ...]`` and meet
 activations ``[*rank, B, T, D]`` (:func:`repro_torch.models.layers.dense`).
@@ -26,9 +43,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import layers as L
 from repro_torch.models.attention import flash_attention
-from repro_torch.models.config import MLAConfig
+from repro_torch.models.config import MLAConfig, YarnConfig
+from repro_torch.obs import spans as _spans
 
 PyTree = Any
 
@@ -59,6 +78,59 @@ def init_mla(gen, d_model: int, n_heads: int, cfg: MLAConfig,
     return p
 
 
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def rope_frequencies(cfg: MLAConfig, theta: float, device="cpu"
+                     ) -> torch.Tensor:
+    """The rope key's inverse frequencies [rope_head_dim / 2]: RoPE's, or
+    with ``cfg.yarn`` YaRN's (``DeepseekV2YarnRotaryEmbedding``): the
+    frequencies interpolated by ``factor`` below the correction range of
+    ``beta_fast`` .. ``beta_slow`` rotations over ``original_max``
+    positions, kept above it, blended linearly across it."""
+    d = cfg.rope_head_dim
+    freq = L.rope_frequencies(d, theta, device=device)
+    y = cfg.yarn
+    if y is None:
+        return freq
+
+    def dim_of(rotations):
+        return d * math.log(y.original_max / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim_of(y.beta_fast)), 0)
+    high = min(math.ceil(dim_of(y.beta_slow)), d - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(d // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return freq / y.factor * ramp + freq * (1 - ramp)
+
+
+def rope_mscale(y: YarnConfig) -> float:
+    """YaRN's factor on cos and sin: ``m(mscale) / m(mscale_all_dim)``."""
+    return _yarn_mscale(y.factor, y.mscale) / _yarn_mscale(
+        y.factor, y.mscale_all_dim)
+
+
+def softmax_scale(cfg: MLAConfig) -> float:
+    """``(nope + rope)^-1/2``, times ``m(mscale_all_dim)²`` under YaRN."""
+    scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    y = cfg.yarn
+    if y is not None and y.mscale_all_dim:
+        scale *= _yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def _rope(x, positions, cfg, rope_theta):
+    """RoPE over x [..., T, H, rope] by :func:`rope_frequencies`."""
+    if cfg.yarn is None:
+        return L.apply_rope(x, positions, rope_theta)
+    return L.apply_rope(x, positions, rope_theta,
+                        freqs=rope_frequencies(cfg, rope_theta, x.device),
+                        mscale=rope_mscale(cfg.yarn))
+
+
 def _queries(p, x, n_heads, cfg, positions, rope_theta):
     """x [..., B, T, D] -> (q_nope, q_rope) [..., B, T, H, ·]."""
     qdim = cfg.nope_head_dim + cfg.rope_head_dim
@@ -68,7 +140,7 @@ def _queries(p, x, n_heads, cfg, positions, rope_theta):
         q = L.dense(x, p["wq"])
     q = q.reshape(q.shape[:-1] + (n_heads, qdim))
     q_nope = q[..., :cfg.nope_head_dim]
-    q_rope = L.apply_rope(q[..., cfg.nope_head_dim:], positions, rope_theta)
+    q_rope = _rope(q[..., cfg.nope_head_dim:], positions, cfg, rope_theta)
     return q_nope, q_rope
 
 
@@ -77,8 +149,8 @@ def _latents(p, x, cfg, positions, rope_theta):
     rope]): the rope key gets RoPE as a one-head tensor."""
     dkv = L.dense(x, p["w_dkv"])
     c_kv = L.rmsnorm(p["kv_norm"], dkv[..., :cfg.kv_lora])
-    k_rope = L.apply_rope(dkv[..., cfg.kv_lora:][..., None, :], positions,
-                          rope_theta)[..., 0, :]
+    k_rope = _rope(dkv[..., cfg.kv_lora:][..., None, :], positions, cfg,
+                   rope_theta)[..., 0, :]
     return c_kv, k_rope
 
 
@@ -94,9 +166,9 @@ def _attend(p, q_nope, q_rope, c_kv, k_rope, n_heads, cfg, *, causal,
     score = q_nope·(W_uk c) + q_rope·k_rope = (W_ukᵀ q_nope ⊕ q_rope)·(c ⊕
     k_rope): an MQA flash attention with the shared key (c_kv ⊕ k_rope)
     and value c_kv, the context lifted through W_uv after the softmax.
-    The softmax scale is that of the per-head key, 1/sqrt(nope + rope).
+    The softmax scale is that of the per-head key (:func:`softmax_scale`).
     Returns [..., B, Tq, H * v_head_dim] f32."""
-    scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    scale = softmax_scale(cfg)
     w_uk = _per_head(p["w_uk"], n_heads, cfg.nope_head_dim)
     q_lat = torch.einsum("...bqhd,...khd->...bqhk",
                          q_nope.to(torch.float32), w_uk)
@@ -113,18 +185,53 @@ def _attend(p, q_nope, q_rope, c_kv, k_rope, n_heads, cfg, *, causal,
     return out.reshape(out.shape[:-2] + (n_heads * cfg.v_head_dim,))
 
 
+def _attend_per_head(p, q_nope, q_rope, c_kv, k_rope, n_heads, cfg, *,
+                     q_offset, chunk=1024):
+    """Causal attention over per-head keys ``[W_uk c ; k_rope]`` and
+    values ``W_uv c`` formed in the activations' dtype: the algebra of
+    :func:`_attend` without the absorption.  Returns [..., B, Tq, H *
+    v_head_dim] in that dtype."""
+    k_nope = L.dense(c_kv, p["w_uk"])
+    k_nope = k_nope.reshape(k_nope.shape[:-1] + (n_heads, cfg.nope_head_dim))
+    k = torch.cat([k_nope, k_rope[..., None, :].expand(
+        k_rope.shape[:-1] + (n_heads, cfg.rope_head_dim)).to(k_nope.dtype)],
+        dim=-1)
+    v = L.dense(c_kv, p["w_uv"])
+    v = v.reshape(v.shape[:-1] + (n_heads, cfg.v_head_dim))
+    q = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
+    out = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                          chunk=chunk, softmax_scale=softmax_scale(cfg))
+    return out.reshape(out.shape[:-2] + (n_heads * cfg.v_head_dim,))
+
+
+def per_head(x: torch.Tensor, cfg: MLAConfig, q_offset) -> bool:
+    """The rule that picks the form of a whole-sequence call: per-head
+    on the card for bf16 activations, an int ``q_offset`` and widths the
+    fused kernel is built for (its ``takes`` then holds for the causal
+    self attention), else absorbed."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and isinstance(q_offset, int) and q_offset >= 0
+            and FA.widths(cfg.nope_head_dim + cfg.rope_head_dim,
+                          cfg.v_head_dim))
+
+
 def mla_attention(p: PyTree, x: torch.Tensor, *, n_heads: int,
                   cfg: MLAConfig, rope_theta: float = 10000.0,
                   q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
     """Causal MLA over a whole sequence x [..., B, T, D] from position
-    ``q_offset``."""
-    t = x.shape[-2]
-    pos = (q_offset + torch.arange(t, device=x.device))[None]
-    q_nope, q_rope = _queries(p, x, n_heads, cfg, pos, rope_theta)
-    c_kv, k_rope = _latents(p, x, cfg, pos, rope_theta)
-    out = _attend(p, q_nope, q_rope, c_kv, k_rope, n_heads, cfg,
-                  causal=True, q_offset=q_offset, chunk=chunk)
-    return L.dense(out.to(x.dtype), p["wo"])
+    ``q_offset``, in the form :func:`per_head` picks."""
+    with _spans.span("mla.attention"):
+        t = x.shape[-2]
+        pos = (q_offset + torch.arange(t, device=x.device))[None]
+        q_nope, q_rope = _queries(p, x, n_heads, cfg, pos, rope_theta)
+        c_kv, k_rope = _latents(p, x, cfg, pos, rope_theta)
+        if per_head(x, cfg, q_offset):
+            out = _attend_per_head(p, q_nope, q_rope, c_kv, k_rope, n_heads,
+                                   cfg, q_offset=q_offset, chunk=chunk)
+        else:
+            out = _attend(p, q_nope, q_rope, c_kv, k_rope, n_heads, cfg,
+                          causal=True, q_offset=q_offset, chunk=chunk)
+        return L.dense(out.to(x.dtype), p["wo"])
 
 
 def init_mla_cache(batch: int, seq: int, cfg: MLAConfig,

@@ -177,7 +177,11 @@ class Recorder:
     def resolve(self) -> None:
         """Sets ``device_ms`` of every closed span recorded on the card
         from its CUDA-event pair, after one wait for the device; the
-        events are released."""
+        events are released.  A counter counted in device values (a 0-dim
+        tensor, summed without a wait) becomes a number."""
+        for k, v in self.counters.items():
+            if hasattr(v, "item"):
+                self.counters[k] = v.item()
         pending = [s for s in self.spans or ()
                    if s.events is not None and s.t1_ns]
         if not pending:

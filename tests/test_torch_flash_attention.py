@@ -98,7 +98,14 @@ def _form(q_shape, kv_shape, v_d=None, dtype=BF, **kw):
     (dict(q_shape=(2, 1, 4, 64), kv_shape=(2, 20, 4, 64),
           q_offset=torch.tensor([3, 9])), False),   # per-row q_offset
     (dict(q_shape=(2, 9, 4, 64), kv_shape=(2, 9, 4, 64), v_d=32),
-     False),                                        # MLA: d != dv
+     False),                                        # d != dv, not (192, 128)
+    (dict(q_shape=(8, 2, 4096, 16, 192), kv_shape=(8, 2, 4096, 16, 192),
+          v_d=128), True),                          # MLA's per-head form
+    (dict(q_shape=(2, 9, 4, 192), kv_shape=(2, 9, 4, 192), v_d=64),
+     False),                                        # (192, 64)
+    (dict(q_shape=(2, 9, 4, 192), kv_shape=(2, 9, 4, 192)), False),  # 192
+    (dict(q_shape=(2, 9, 4, 128), kv_shape=(2, 9, 4, 128), v_d=192),
+     False),                                        # (128, 192)
     (dict(q_shape=(2, 9, 4, 256), kv_shape=(2, 9, 4, 256)), False),  # d>128
     (dict(q_shape=(2, 9, 4, 20), kv_shape=(2, 9, 4, 20)), False),  # d % 8
     (dict(q_shape=(2, 9, 6, 64), kv_shape=(2, 9, 4, 64)), False),  # heads
@@ -250,6 +257,44 @@ def test_work_counts_the_visible_pairs():
     assert causal["forward"] * 2 == full["forward"] + 2 * 4 * 64 * 8 * 64
     assert full["backward"] == full["forward"] * 26 // 8
     assert full["plain_backward"] == full["plain_forward"] * 10 // 4
+    # MLA's per-head widths: 2(d + dv) forward, 2(3d + 2dv) backward a pair
+    wide = FA.work(2, 4096, 4096, 16, 192, hi=0, dv=128)
+    pairs = 2 * 16 * 4096 * 4097 // 2
+    assert wide["plain_forward"] == pairs * 2 * (192 + 128)
+    assert wide["plain_backward"] == pairs * 2 * (3 * 192 + 2 * 128)
+    assert wide["forward"] == pairs * (2 * 192 + 6 * 128)
+
+
+@pytest.mark.parametrize("tq,tk,causal,window,off", [
+    (5, 9, True, None, 0), (5, 9, True, 3, 4), (5, 9, False, 2, 3),
+    (7, 3, False, 2, 0), (4, 6, True, None, 2), (3, 8, True, 2, 9),
+    (9, 4, False, None, 0), (64, 64, True, None, 0)])
+def test_visible_pairs_counts_the_mask(tq, tk, causal, window, off):
+    hi, lo = FA.mask_bounds(causal, window, off)
+    assert FA.visible_pairs(tq, tk, hi, lo) == \
+        int(FA._visible(tq, tk, hi, lo, "cpu").sum())
+
+
+def test_wide_key_equations_match_the_loop():
+    """The kernels' equations at a key wider than the value (192 / 128
+    in the card's form, 24 / 16 here) against the plain loop and its
+    autograd, f32."""
+    g = torch.Generator().manual_seed(5)
+    q, k = (torch.randn(2, 21, 4, 24, generator=g) for _ in range(2))
+    v = torch.randn(2, 21, 4, 16, generator=g)
+    do = torch.randn(2, 21, 4, 16, generator=g)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = TA.flash_attention(q, k, v, causal=True, chunk=8)
+    want = torch.autograd.grad(out, (q, k, v), do)
+    hi, lo = FA.mask_bounds(True, None, 0)
+    o32, lse = FA.plain_forward(q.detach(), k.detach(), v.detach(), hi=hi,
+                                lo=lo, scale=1 / math.sqrt(24))
+    _close(o32, out.detach(), 2e-6)
+    got = FA.plain_backward(q.detach(), k.detach(), v.detach(), o32, lse,
+                            do, hi=hi, lo=lo, scale=1 / math.sqrt(24))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b, 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +379,46 @@ def test_kernel_matches_the_plain_loop_on_card(cuda_device, name):
     assert err["kernel"] <= 4 * err["f32"], err
     assert err["kernel"] * 64 <= err["bf16_p"], err
     _close(lse, lse64, 1e-6)
+
+
+def _exact(q, k, v, do, scale):
+    """Causal attention of float64 copies and its gradients."""
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    tq = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = s.masked_fill(torch.ones(tq, tq, dtype=torch.bool,
+                                 device=q.device).triu(1), -math.inf)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do.double()))
+
+
+@pytest.mark.cuda
+def test_wide_keys_against_float64_on_card(cuda_device):
+    """MLA's per-head form at the cell's shape, [2, 4096, 16] causal, q
+    and k 192 wide, v 128: the bf16 output and gradients within one bf16
+    ulp (2^-7 relative) plus 1e-5 of the largest magnitude of the float64
+    result (one rounding of an f32 value); the f32 O's error within 4x
+    the plain f32 form's (cuBLAS's f32 products, no TF32)."""
+    g = torch.Generator().manual_seed(6)
+    q, k = (torch.randn(2, 4096, 16, 192, generator=g).to(cuda_device, BF)
+            for _ in range(2))
+    v = torch.randn(2, 4096, 16, 128, generator=g).to(cuda_device, BF)
+    do = torch.randn(2, 4096, 16, 128, generator=g).to(cuda_device, BF)
+    scale = 1 / math.sqrt(192)
+    kw = dict(causal=True, window=None, q_offset=0)
+    assert FA.takes(q, k, v, kv_len=None, **kw)
+    got = _run(lambda q, k, v, **kw: TA.flash_attention(
+        q, k, v, softmax_scale=scale, **kw), q, k, v, do, kw)
+    want = _exact(q, k, v, do, scale)
+    for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == BF and a.shape == b.shape
+        _within_ulp(a, b, what)
+    hi, lo = FA.mask_bounds(True, None, 0)
+    _, o32, _ = FA.forward(q, k, v, hi=hi, lo=lo, scale=scale)
+    f32, _ = FA.plain_forward(q, k, v, hi=hi, lo=lo, scale=scale)
+    err_kernel = (o32.double() - want[0]).abs().max().item()
+    err_f32 = (f32.double() - want[0]).abs().max().item()
+    assert err_kernel <= 4 * err_f32, (err_kernel, err_f32)
 
 
 @pytest.mark.cuda

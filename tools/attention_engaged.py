@@ -10,7 +10,9 @@ the port's span log (``portbench.harness.program.second_pass``) and
 prints one JSON line a cell: the counters ``kernel.attention.calls`` and
 ``attention.plain_calls`` (every ``flash_attention`` call on the card,
 the remat's recomputed forward included), the kernel's share of them,
-and the kernel's forward and backward launches over the whole run.
+the kernel's forward and backward launches over the whole run, and every
+counter of the pass (a MoE cell's ``moe.routed_pairs`` and
+``moe.dropped_pairs`` among them).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ def main() -> int:
             "share": kernel / (kernel + plain) if kernel + plain else None,
             "launches": {"forward": FA.launches,
                          "backward": FA.bwd_launches},
+            "counters": prog["counters"],
             "card": torch.cuda.get_device_name(0)}), flush=True)
         run.free()
     return 0
