@@ -13,7 +13,11 @@ Phases, one JSON line each:
                   card (bitwise, ``fused_hop`` against the ring step it
                   replaces for every hop of a ring of 8, on one axis and
                   over the second of two, and of both rings of pod 2 x
-                  data 4 (``HOP_VIEWS``); bf16 ``mac`` within one bf16 ulp;
+                  data 4 (``HOP_VIEWS``); ``fused_gather`` bitwise
+                  against the ring's put and shift loop on the same views,
+                  chunks on and off the 16-byte grid, and at the
+                  whisper-small sync's largest and smallest all-gathers;
+                  bf16 ``mac`` within one bf16 ulp;
                   ``topk_accumulate`` with duplicate indices within f32
                   rounding of the lane's sum; ``prefix_sum`` bitwise on
                   integer-valued data, within ``scan_tolerance`` of the
@@ -46,7 +50,9 @@ Phases, one JSON line each:
                   bitwise equal to it, within bf16
                   rounding of the ``xla`` backend and of the exact f32
                   mean; arenas written in place; every ring hop launched
-                  ``fused_hop`` and every bucket pack ``fused_pack``, as
+                  ``fused_hop``, every ring all-gather ``fused_gather``
+                  (with use_kernels off too: its dispatch reads only the
+                  device) and every bucket pack ``fused_pack``, as
                   often as the compiled plan says; a profile of one sync
                   each way, its rolls and gathers counted
   5. compressed — ``make_engine("acis_compressed", compressor=c)`` for c
@@ -286,7 +292,12 @@ phase 22's ``rglru_scan`` launch counts toward the kernels line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; launches made to compare a kernel with its plain version are not
-counted.  Then the ``{"kernels": [...]}`` line, the card's name and
+counted.  The ring all-gather takes its kernel on the card whatever
+``use_kernels`` says, so the paths' kernel-against-plain comparisons hold
+it against itself: every form of gather that phases 4-24 launch is noted
+(:class:`GatherPlans`), and after them a ``gather_plans`` line holds
+``fused_gather`` against the ring's put and shift loop at each, bit for
+bit.  Then the ``{"kernels": [...]}`` line, the card's name and
 power limit as ``nvidia-smi`` reports them, and, last, ``{"ok": true,
 "device": ...}``.
 Any failed check raises: the exit code is non-zero and no ``ok`` line is
@@ -378,14 +389,15 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_modules() -> dict:
     """Every ported kernel's wrapper module and the name of its launch
-    count there, by kernel name (``fused_combine``, ``quant_combine`` and
-    ``chunk_scan`` hold two kernels each)."""
+    count there, by kernel name (``fused_combine`` holds three kernels,
+    ``quant_combine`` and ``chunk_scan`` two each)."""
     from repro_torch.kernels import (chunk_scan, flash_attention,
                                      fused_combine, pack_combine,
                                      quant_combine, rwkv6_recurrence,
                                      topk_accum)
     return {"fused_combine": (fused_combine, "launches"),
             "fused_hop": (fused_combine, "hop_launches"),
+            "fused_gather": (fused_combine, "gather_launches"),
             "fused_pack": (pack_combine, "launches"),
             "quant_combine": (quant_combine, "launches"),
             "quant_hop": (quant_combine, "hop_launches"),
@@ -518,6 +530,7 @@ def kernel_checks(dev) -> dict:
     report["fused_pack"]["max_parts_per_launch"] = pc.MAX_PARTS
     report["fused_hop"] = hop_checks(dev, gen, data)
     report["fused_hop"]["fp8_wire"] = fp8_hop_checks(dev, gen)
+    report["fused_gather"] = gather_checks(data)
     report["quant_combine"] = quant_checks(dev, gen)
     report["quant_hop"] = quant_hop_checks(dev, gen)
     report["topk_accumulate"] = topk_checks(dev, gen)
@@ -578,6 +591,126 @@ def hop_checks(dev, gen, data) -> dict:
     xs = data((8, 8, 3_072_000), torch.bfloat16)
     hold(mesh, xs[:, 0].clone(), xs, "add")
     return report
+
+
+def gather_checks(data) -> dict:
+    """``fused_gather`` against the ring loop it replaces
+    (``ring._ring_all_gather_loop``: puts and shifts through the
+    transport), bit for bit and one launch a call: f32, bf16 and int8, on
+    every view of ``HOP_VIEWS`` and on ``{"data": 1}``, at chunks whose
+    segments lie on the 16-byte grid (4096) and off it (1003, 3 x 5),
+    each from the start of its allocation and one element in; then the
+    whisper-small sync's largest and smallest all-gathers on
+    ``{"data": 8}`` (bf16 chunks of 4,979,040 and 43,008, f32 of
+    11,904)."""
+    from repro_torch.core import ring
+    from repro_torch.kernels import fused_combine as fc
+    from repro_torch.mesh import LocalMesh
+
+    report = {"cases": 0, "max_abs_err": 0.0}
+
+    def hold(mesh, first, ax):
+        with mesh:
+            want = ring._ring_all_gather_loop(first, ax)
+        n0 = fc.gather_launches
+        got = fc.fused_gather(first, dim=mesh.dim(ax),
+                              rank_ndim=mesh.rank_ndim)
+        torch.cuda.synchronize()
+        check(fc.gather_launches == n0 + 1,
+              f"a gather made {fc.gather_launches - n0} launches")
+        report["cases"] += 1
+        report["max_abs_err"] = max(report["max_abs_err"], _bitwise_err(
+            got.view(torch.int8), want.view(torch.int8)))
+
+    for axes, ax in HOP_VIEWS + (({"data": 1}, "data"),):
+        mesh = LocalMesh(axes, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for chunk in ((4096,), (1003,), (3, 5)):
+                for offset in (0, 1):
+                    shape = mesh.rank_shape + chunk
+                    flat = data((math.prod(shape) + offset,), dtype)
+                    hold(mesh, flat[offset:].view(shape), ax)
+    mesh = LocalMesh({"data": 8}, device="cuda")
+    for chunk, dtype in ((4_979_040, torch.bfloat16),
+                         (43_008, torch.bfloat16), (11_904, torch.float32)):
+        hold(mesh, data((8, chunk), dtype), "data")
+    return report
+
+
+class GatherPlans:
+    """Every ring all-gather launched between :meth:`start` and
+    :meth:`stop`, noted by all that the gather kernel's
+    result depends on: the mesh's axes and rank shape, the ring's axis,
+    the chunks' shape and dtype, and where their bytes start on the
+    16-byte grid.  The gather's dispatch reads only the device, so a
+    ``use_kernels=False`` sync on the card launches the kernel too and a
+    phase's kernel-against-plain comparison cannot see a fault of it:
+    :meth:`hold` holds the kernel against the ring's loop at each noted
+    form instead."""
+
+    def start(self) -> "GatherPlans":
+        from repro_torch.kernels import fused_combine as fc
+        from repro_torch.mesh import current
+
+        self.seen: dict = {}
+        self.kernel = fc.fused_gather
+
+        def noted(first, *, dim, rank_ndim):
+            tp = current()
+            key = (tp.axis_names, tp.rank_shape, tp.axis_names[dim],
+                   tuple(first.shape), first.dtype,
+                   first.data_ptr() % 16)
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return self.kernel(first, dim=dim, rank_ndim=rank_ndim)
+        fc.fused_gather = noted
+        return self
+
+    def stop(self) -> None:
+        from repro_torch.kernels import fused_combine as fc
+
+        fc.fused_gather = self.kernel
+
+    def hold(self, device="cuda") -> dict:
+        """``fused_gather`` against ``ring._ring_all_gather_loop`` at every
+        noted form, fresh random chunks as many bytes off the grid as the
+        noted ones, bit for bit and one launch each."""
+        from repro_torch.core import ring
+        from repro_torch.kernels import fused_combine as fc
+        from repro_torch.mesh import LocalMesh
+
+        gen = torch.Generator(device=device).manual_seed(31)
+        dtypes = set()
+        for names, rank_shape, ax, shape, dtype, off in self.seen:
+            mesh = LocalMesh(dict(zip(names, rank_shape)), device=device)
+            nbytes = math.prod(shape) * dtype.itemsize
+            buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=device)
+            first = buf[off:off + nbytes].view(dtype).view(shape)
+            if dtype.is_floating_point:
+                first.copy_(torch.randn(shape, device=device, generator=gen))
+            else:
+                info = torch.iinfo(dtype)
+                first.copy_(torch.randint(info.min, info.max, shape,
+                                          device=device, generator=gen,
+                                          dtype=dtype))
+            with mesh:
+                want = ring._ring_all_gather_loop(first, ax)
+            n0 = fc.gather_launches
+            got = fc.fused_gather(first, dim=mesh.dim(ax),
+                                  rank_ndim=mesh.rank_ndim)
+            bad = (got.view(torch.uint8) != want.view(torch.uint8)).sum()
+            check(bad.item() == 0, f"the gather of {shape} {dtype} over "
+                  f"{ax} of {mesh.axes} ({off} bytes off the grid) differs "
+                  f"from the loop in {bad.item()} bytes")
+            check(device != "cuda" or fc.gather_launches == n0 + 1,
+                  f"a gather made {fc.gather_launches - n0} launches")
+            dtypes.add(str(dtype).removeprefix("torch."))
+            del buf, first, want, got
+        check(bool(self.seen), "no ring all-gather was launched")
+        return {"phase": "gather_plans", "forms": len(self.seen),
+                "gathers": sum(self.seen.values()),
+                "dtypes": sorted(dtypes),
+                "off_grid": sum(1 for k in self.seen if k[-1]),
+                "max_abs_err": 0.0}
 
 
 def fp8_hop_checks(dev, gen) -> dict:
@@ -1523,7 +1656,10 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     fused bf16 add hop from the [8, 8, 3,072,000] chunked input into the
     [8, 3,072,000] partial sums, beside the shift + take + add step it
     replaced; the elementwise form, which the sim phase runs once a ring
-    step, at the same [8, 3,072,000] add), the Coalesce bucket pack (f32 parts
+    step, at the same [8, 3,072,000] add), the whisper-small sync's
+    largest ring all-gather ([8, 4,979,040] bf16 chunks into every rank's
+    [8, 4,979,040] result, beside the puts and shifts it replaced,
+    ``loop_ms``), the Coalesce bucket pack (f32 parts
     of 768, 9216 and 9216 per rank into the [8, 19200] arena), the largest
     int8_hopquant hop (the embed leaf's chunk, rank dims folded into
     rows; its ring-hop form from the [8, 8, blocks, 256] chunked input
@@ -1537,6 +1673,7 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     the memory rate and the f32 operations (where counted) over the f32
     rate; ``bound_by`` says which."""
     from repro_torch.configs.acis_100m import grad_leaf_specs
+    from repro_torch.core import ring
     from repro_torch.kernels import chunk_scan as cs
     from repro_torch.kernels import fused_combine as fc
     from repro_torch.kernels import pack_combine as pc
@@ -1582,6 +1719,30 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
         "shape": [8, 8, 3_072_000], "dtype": "bfloat16", "op": "add",
     }
     del xs, buf
+    # the whisper-small sync's largest ring all-gather: every rank's chunk
+    # of its 39,832,320-element bucket into each rank's result; its plain
+    # version is the index formula, ``loop_ms`` the ring's puts and shifts
+    # it replaced, the library call one copy from a broadcast view
+    first = torch.randn((8, 4_979_040), device=dev,
+                        generator=gen).bfloat16()
+    whole = torch.empty((8, 8, 4_979_040), device=dev, dtype=torch.bfloat16)
+    with mesh:
+        loop_ms = time_ms(lambda: ring._ring_all_gather_loop(first, "data"),
+                          reps=5)
+    gather = {
+        "ms": time_ms(lambda: fc.fused_gather(first, dim=0, rank_ndim=1)),
+        "plain_ms": time_ms(lambda: fc.gather_plain(first, dim=0,
+                                                    rank_ndim=1)),
+        "library_ms": time_ms(lambda: whole.copy_(
+            first.unsqueeze(0).expand(8, 8, 4_979_040))),
+        "loop_ms": loop_ms,
+        "device_ms_per_launch": per_launch(
+            lambda: fc.fused_gather(first, dim=0, rank_ndim=1),
+            "gather_kernel"),
+        "bytes": 9 * first.numel() * first.element_size(),
+        "shape": [8, 4_979_040], "dtype": "bfloat16",
+    }
+    del first, whole
     arena = torch.zeros((8, 19200), device=dev)
     parts = [torch.randn((8, s), device=dev, generator=gen)
              for s in (768, 9216, 9216)]
@@ -1689,7 +1850,8 @@ def kernel_timings(dev, peak: float, f32_peak: float, cfg,
     }
     del x, x2
     torch.cuda.empty_cache()
-    out = {"fused_combine": comb, "fused_hop": hop, "fused_pack": pack,
+    out = {"fused_combine": comb, "fused_hop": hop, "fused_gather": gather,
+           "fused_pack": pack,
            "quant_combine": quant, "quant_hop": qhop,
            "topk_accumulate": topk, "prefix_sum": scan,
            "rwkv6_recurrence": wkv_timings(dev, gen, serve_cfg, SERVE),
@@ -1745,7 +1907,13 @@ def expected_launches(compiled, mesh) -> dict:
     int8_hopquant EF stage, and per top-k EF stage one accumulate of the
     rank's own payload, n-1 of the hops' and one for the decompress, and
     one prefix_sum (every rank's local scan at once) per inclusive-add
-    scan+allgather stage."""
+    scan+allgather stage.  One gather launch per ring all-gather over an
+    axis of n > 1: a bandwidth all-reduce's second half (of a plain
+    ``allreduce``, ``batched_allreduce`` or ``map+allreduce`` stage, one
+    per encoded leaf of an int8-coded ring, whatever its schedule: the
+    blocks and the scales), an ``allgather``, ``allgather+map`` or
+    ``scan+allgather`` stage, and an EF stage's int8 rings (the int8
+    compressor's one int16 leaf, int8_hopquant's two)."""
     from repro_torch.kernels import pack_combine as pc
 
     # the plan counts the collective's kernels: the model's attention
@@ -1753,18 +1921,26 @@ def expected_launches(compiled, mesh) -> dict:
     out = {k: 0 for k in kernel_modules() if k != "flash_attention"}
     for st in compiled.stages:
         n = mesh.axis_size(st.axis) if st.axis else 1
+        gathers = 0
         if st.kind == "scan+allgather":
             scan = st.ir.nodes[1].op
             if scan.monoid.name == "add" and not scan.exclusive:
                 out["prefix_sum"] += 1
+        if st.kind in ("allgather", "allgather+map", "scan+allgather"):
+            gathers = 1
+        if st.kind == "map+allreduce":
+            gathers = 2 if st.ir.nodes[-1].op.codec.combine_encoded \
+                is not None else int(st.schedule == "bandwidth")
         if st.kind in ("allreduce", "batched_allreduce"):
             codec = st.ir.nodes[-1].op.codec
             if codec.combine_encoded is not None:
                 out["quant_hop"] += n - 1         # the int8 wire's ring
+                gathers = 2
             else:
                 hop = "fused_hop" if st.schedule == "bandwidth" \
                     else "fused_combine"
                 out[hop] += n - 1
+                gathers = int(st.schedule == "bandwidth")
         if st.kind == "reduce_scatter":
             out["fused_hop"] += n - 1
         if st.kind == "allreduce+alltoall":
@@ -1775,9 +1951,24 @@ def expected_launches(compiled, mesh) -> dict:
             comp = st.ir.nodes[0].op.ef.compressor
             if comp == "int8_hopquant":
                 out["quant_hop"] += n - 1
+                gathers = 2
             elif comp == "topk":
                 out["topk_accumulate"] += n + 1
+            elif comp == "int8":
+                gathers = 1
+        if n > 1:
+            out["fused_gather"] += gathers
     return out
+
+
+def with_plain_gathers(per_run: dict) -> dict:
+    """``per_run`` for a window where a kernel run and a
+    ``use_kernels=False`` run of the same plan take turns: the gather
+    kernel takes every ring all-gather on the card, whatever
+    ``use_kernels`` says (its dispatch reads only the device), so both
+    runs launch the plan's gathers; the other kernels launch in the
+    kernel run alone."""
+    return {**per_run, "fused_gather": 2 * per_run["fused_gather"]}
 
 
 def check_launches(launches: dict, per_sync: dict, syncs: int) -> None:
@@ -1867,7 +2058,7 @@ def main_path(mesh, cfg, seed: int, *, steps: int = 3,
             t_p.append(dt_p)
     launches = read_counts()
     if expect_kernels:
-        check_launches(launches, per_sync, steps + 1)
+        check_launches(launches, with_plain_gathers(per_sync), steps + 1)
         check(per_sync["fused_hop"] > 0 and per_sync["fused_pack"] > 0,
               "the acis plan runs no fused hop or pack")
 
@@ -2139,7 +2330,7 @@ def compressed_path(mesh, cfg, seed: int, compressor: str, *,
         del out_k, out_p, new_k, new_p
     launches = read_counts()
     if expect_kernels:
-        check_launches(launches, per_sync, steps + 1)
+        check_launches(launches, with_plain_gathers(per_sync), steps + 1)
         kernel = {"int8_hopquant": "quant_hop",
                   "topk": "topk_accumulate"}.get(compressor)
         check(kernel is None or per_sync[kernel] > 0,
@@ -2260,7 +2451,7 @@ def f2_path(mesh, seed: int, local: int, *, steps: int = 3,
             t_p.append(dp)
     launches = read_counts()
     if expect_kernels:
-        check_launches(launches, per_call, steps + 1)
+        check_launches(launches, with_plain_gathers(per_call), steps + 1)
         check(per_call["quant_hop"] > 0 and per_call["fused_hop"] > 0,
               "F2's plan runs no quant_hop or fused_hop")
     ranks = ok.view(n, local)
@@ -2394,7 +2585,8 @@ class FusedRun:
             res[f"step{step}"] = compare(ok, op, False)
         launches = read_counts()
         if self.expect_kernels:
-            check_launches(launches, per_call, self.steps + 1)
+            check_launches(launches, with_plain_gathers(per_call),
+                           self.steps + 1)
         if after is not None:
             res["after"] = after(fk.compiled, ok)
         rec = {"phase": "fused", "program": name, "stages": fk.stages,
@@ -3201,16 +3393,16 @@ TP_MODES = ("compiled", "compiled_plain", "direct", "xla", "unsharded")
 
 
 def tp_launches(programs, n: int) -> dict:
-    """``fused_combine`` launches (both forms) of one run of the
+    """``fused_combine`` launches (all three forms) of one run of the
     ``(name, program, calls)`` list on a ring of ``n`` ranks
-    (:func:`expected_launches` of each program): n-1 ``fused_hop`` per
-    bandwidth ring all-reduce, n-1 elementwise ``fused_combine`` per
-    latency ring and per fused ``allreduce+alltoall`` stage; an
-    all-to-all is data movement only."""
+    (:func:`expected_launches` of each program): n-1 ``fused_hop`` and
+    one ``fused_gather`` per bandwidth ring all-reduce, n-1 elementwise
+    ``fused_combine`` per latency ring and per fused
+    ``allreduce+alltoall`` stage; an all-to-all is data movement only."""
     from repro_torch.mesh import LocalMesh
 
     mesh = LocalMesh({"tp": n}, device="meta")
-    out = {"fused_combine": 0, "fused_hop": 0}
+    out = {"fused_combine": 0, "fused_hop": 0, "fused_gather": 0}
     for _, prog, calls in programs:
         per = expected_launches(prog, mesh)
         for k in out:
@@ -3440,7 +3632,9 @@ def tp_serve_path(cfg, seed: int, sizes: TPSizes, *, device="cuda",
         unsharded path's (:func:`hold_logits`); ``fused_combine`` and
         ``fused_hop`` launched exactly as ``prefill_programs`` /
         ``decode_programs`` predict with kernels (:func:`tp_launches`)
-        and never without; a MoE tick holds ``serve_moe_alltoall`` and
+        and never without, ``fused_gather`` as they predict in both
+        compiled modes and never in the xla and unsharded ones; a MoE
+        tick holds ``serve_moe_alltoall`` and
         ``serve_moe_combine``, the combine one ``allreduce+alltoall``
         stage;
       * a MoE stack: the direct, xla and unsharded runs replay the
@@ -3577,6 +3771,15 @@ def tp_serve_path(cfg, seed: int, sizes: TPSizes, *, device="cuda",
                 check(got[k] == need.get(k, 0),
                       f"{phase} {mode}: {k} launched {got[k]} times, the "
                       f"programs predict {need.get(k, 0)}")
+            # the gather kernel takes the compiled programs' all-gathers
+            # with use_kernels off too (the direct rings' are not
+            # predicted by a plan)
+            if expect_kernels and mode in ("compiled", "compiled_plain",
+                                           "xla", "unsharded"):
+                k = "fused_gather"
+                need = want[k] if mode.startswith("compiled") else 0
+                check(got[k] == need, f"{phase} {mode}: {k} launched "
+                      f"{got[k]} times, the programs predict {need}")
             launches = _add_counts(launches, got)
             if feed is None:
                 feed = res[mode]["tokens"]
@@ -4217,8 +4420,12 @@ def elastic_path(cfg, seed: int, *, device="cuda", steps: int = 3,
                 t_u.append(du)
         launches = read_counts()
         if expect_kernels:
-            check_launches(launches, {k: per_sync[k] + per_plain_sync[k]
-                                      for k in per_sync}, steps + 1)
+            # a masked and an unmasked sync with kernels, and the plain
+            # masked sync's gathers
+            check_launches(launches, {
+                k: per_sync[k] + per_plain_sync[k] + (
+                    per_sync[k] if k == "fused_gather" else 0)
+                for k in per_sync}, steps + 1)
         n_live = int(live.sum())
         worst = 0.0
         for k, g in grads.items():
@@ -4529,7 +4736,7 @@ def train_sync_check(cfg, seed: int, sizes: TrainSizes, backend: str,
         del grads, syn_k, syn_p, new_k, new_p
     launches = read_counts()
     if expect_kernels:
-        check_launches(launches, per_sync, sizes.steps)
+        check_launches(launches, with_plain_gathers(per_sync), sizes.steps)
         check(any(per_sync.values()),
               f"the {backend} sync runs none of the kernels")
     return {"phase": "train", "program": "sync_check", "backend": backend,
@@ -5820,7 +6027,8 @@ def dryrun_finish(started: dict, timeout: float = 600.0) -> list[dict]:
 # hand-written hops, combines and pack
 RING_OPS = {"rolls": "roll_cuda_kernel",
             "gathers_and_puts": "index_elementwise_kernel",
-            "fused_hop": "::hop_kernel", "fused_pack": "pack_kernel",
+            "fused_hop": "::hop_kernel", "fused_gather": "gather_kernel",
+            "fused_pack": "pack_kernel",
             "fused_combine": "::combine_kernel",
             "quant_hop": "quant_hop_kernel",
             "quant_combine": "quant_combine_kernel"}
@@ -6111,6 +6319,8 @@ SOURCES = {
                       "src/repro/kernels/fused_combine.py:70"),
     "fused_hop": ("src/repro_torch/kernels/csrc/fused_combine.cu",
                   "src/repro/kernels/fused_combine.py:70"),
+    "fused_gather": ("src/repro_torch/kernels/csrc/fused_combine.cu",
+                     "none: the reference's all-gather is a ppermute loop"),
     "fused_pack": ("src/repro_torch/kernels/csrc/fused_pack.cu",
                    "src/repro/kernels/pack_combine.py:68"),
     "quant_combine": ("src/repro_torch/kernels/csrc/quant_combine.cu",
@@ -6213,6 +6423,7 @@ def _phases(args, smi, name, peak, f32_peak, records, dev, dry) -> int:
     emit(rec)
     records.append(rec)
 
+    plans = GatherPlans().start()
     mesh = LocalMesh({"data": 8}, device="cuda")
     paths = [main_path(mesh, CONFIG, args.seed)]
     emit(paths[-1])
@@ -6294,6 +6505,10 @@ def _phases(args, smi, name, peak, f32_peak, records, dev, dry) -> int:
     records.append(rec)
     emit(rec)
     records.extend(paths)
+    plans.stop()
+    rec = plans.hold()
+    records.append(rec)
+    emit(rec)
     # the dry run's records: CPU processes, no launch of the card's
     for rec in dryrun_finish(dry):
         rec["card"] = smi

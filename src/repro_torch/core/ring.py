@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.types import ADD, Monoid, TensorSpec
+from repro_torch.kernels import fused_combine
 from repro_torch.mesh import ambient, current
 
 PyTree = Any
@@ -148,6 +149,11 @@ def ring_all_gather(
     ``hop_map`` (ACiS Type 4 "map" fused into the collective) is applied
     to every chunk exactly once, as it is *forwarded*; the result at
     every rank is ``concat([map(chunk_0), ..., map(chunk_{n-1})])``.
+
+    On CUDA tensors the whole gather is one
+    :func:`~repro_torch.kernels.fused_combine.fused_gather` launch, which
+    writes each rank's copy of every chunk once; CPU tensors take the
+    ring's shift + put loop.  Both leave the same bits.
     """
     tp = current()
     n = tp.axis_size(axis_name)
@@ -155,9 +161,26 @@ def ring_all_gather(
         hop_map = lambda c: c  # noqa: E731
     if n == 1:
         return hop_map(x)
-    i = tp.axis_index(axis_name)
     d = tp.rank_ndim
     first = hop_map(x)
+    if first.is_cuda:
+        out = fused_combine.fused_gather(first.contiguous(),
+                                         dim=tp.dim(axis_name), rank_ndim=d)
+    else:
+        out = _ring_all_gather_loop(first, axis_name)
+    return out.reshape(tuple(first.shape[:d]) + (n * first.shape[d],)
+                       + tuple(first.shape[d + 1:]))
+
+
+def _ring_all_gather_loop(first: torch.Tensor,
+                          axis_name: str) -> torch.Tensor:
+    """The ring itself: each rank puts its own chunk, then forwards what it
+    holds n - 1 times, putting each arrival at its sender's place.
+    Returns ``[*rank, n, *chunk]``."""
+    tp = current()
+    n = tp.axis_size(axis_name)
+    i = tp.axis_index(axis_name)
+    d = tp.rank_ndim
     out = first.new_zeros(tuple(first.shape[:d]) + (n,)
                           + tuple(first.shape[d:]))
     tp.put(out, i, first)
@@ -165,8 +188,7 @@ def ring_all_gather(
     for s in range(n - 1):
         buf = tp.shift(buf, axis_name, 1)
         tp.put(out, (i - 1 - s) % n, buf)
-    return out.reshape(tuple(first.shape[:d]) + (n * first.shape[d],)
-                       + tuple(first.shape[d + 1:]))
+    return out
 
 
 # ---------------------------------------------------------------------------

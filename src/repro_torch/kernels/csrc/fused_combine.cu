@@ -1,4 +1,5 @@
-// Hop combine: out = combine(x, y) elementwise, in two forms.
+// Hop combine: out = combine(x, y) elementwise, in two forms, and the ring
+// all-gather beside them.
 //
 //  * acis_fused_combine — over flat contiguous operands (one launch covers
 //    the hop of every rank).
@@ -10,8 +11,12 @@
 //    card every rank's chunk lies in the same memory, so the neighbour's
 //    partial sum and the local chunk are found by index arithmetic: no
 //    roll, no gather and no index tensor before the combine.
+//  * acis_fused_gather — the whole ring all-gather of every rank at once:
+//      out[a, r, b, j, :] = first[a, j, b, :]      for every r
+//    (each rank ends with every rank's chunk, in rank order).
 //
-// Replaces the Pallas kernel repro/kernels/fused_combine.py:fused_combine.
+// The combines replace the Pallas kernel
+// repro/kernels/fused_combine.py:fused_combine.
 // Bound: device memory, 3 * numel * itemsize bytes (two reads, one write)
 // against a handful of ALU ops per element; the unfused hop (roll, gather,
 // add) moves 7 * numel * itemsize.  Design: each thread keeps `unroll`
@@ -24,12 +29,28 @@
 // one unrolled step per thread (`waves` 0, no grid-stride loop), which
 // measured faster for it (tools/probe_combine.py).
 //
-// Each form's launch shape can be set at build time, for the probe:
-// ACIS_{COMBINE,HOP}_THREADS per block, ACIS_{COMBINE,HOP}_UNROLL loads per
-// operand in flight, ACIS_{COMBINE,HOP}_WAVES resident grids per launch (0:
-// one unrolled step per thread), and ACIS_COMBINE_STREAM 0 (no cache
-// hints), 1 (the hints above) or 2 (the hop's partial sums evict-first
-// too).
+// The gather replaces no TPU kernel: the reference's all-gather is a ppermute
+// loop (repro/core/ring.py:ring_all_gather), n - 1 shifts of a chunk, each
+// written into the result at its rank's place.  It is a copy of bytes, so
+// one instantiation serves every dtype.  Bound: device memory, (1 + n) *
+// first bytes (read every chunk once, write each rank's copy once); the
+// PyTorch loop it replaces zeroes the result, then makes n indexed puts and
+// n - 1 rolls of every rank's chunk.  Design: a block loads its tile of a
+// source segment once, `unroll` 16-byte vectors a thread, and stores it
+// into each of the n copies from registers.  Where the segments lie off
+// the 16-byte grid, each copy takes a scalar head up to the destination's
+// grid, a body of aligned 16-byte stores (each built from the two aligned
+// source vectors it straddles by a funnel shift when source and
+// destination are out of phase) and a scalar tail: no launch falls back
+// to scalar copies.
+//
+// The combine and hop forms' launch shapes can be set at build time, for
+// the probe: ACIS_{COMBINE,HOP}_THREADS per block, ACIS_{COMBINE,HOP}_UNROLL
+// loads per operand in flight, ACIS_{COMBINE,HOP}_WAVES resident grids per
+// launch (0: one unrolled step per thread), and ACIS_COMBINE_STREAM 0 (no
+// cache hints), 1 (the hints above) or 2 (the hop's partial sums
+// evict-first too).  The gather has one shape: 256 threads, 4 vectors a
+// thread, one unrolled step per thread.
 #include "combine.cuh"
 
 #ifndef ACIS_COMBINE_THREADS
@@ -61,6 +82,7 @@ struct Shape {
 };
 constexpr Shape kCombine{ACIS_COMBINE_THREADS, ACIS_COMBINE_UNROLL, ACIS_COMBINE_WAVES};
 constexpr Shape kHop{ACIS_HOP_THREADS, ACIS_HOP_UNROLL, ACIS_HOP_WAVES};
+constexpr Shape kGather{256, 4, 0};
 constexpr int kStream = ACIS_COMBINE_STREAM;
 
 template <typename T, int OP>
@@ -136,6 +158,95 @@ __global__ void __launch_bounds__(kHop.threads)
   }
 }
 
+// Bytes sh .. sh + 15 of the 32 bytes lo:hi (little-endian words), from
+// word Q on: out word m = (w[Q + m + 1]:w[Q + m]) >> b.
+template <int Q>
+__device__ __forceinline__ uint4 funnel(const uint32_t (&w)[8], uint32_t b) {
+  return make_uint4(__funnelshift_r(w[Q], w[Q + 1], b), __funnelshift_r(w[Q + 1], w[Q + 2], b),
+                    __funnelshift_r(w[Q + 2], w[Q + 3], b),
+                    __funnelshift_r(w[Q + 3], w[Q + 4], b));
+}
+
+__device__ __forceinline__ uint4 shifted(uint4 lo, uint4 hi, int sh) {
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const uint32_t b = (sh & 3) * 8;
+  switch (sh >> 2) {  // uniform over the segment: no divergence
+    case 0: return funnel<0>(w, b);
+    case 1: return funnel<1>(w, b);
+    case 2: return funnel<2>(w, b);
+    default: return funnel<3>(w, b);
+  }
+}
+
+// d[k] = s[k] for k in [0, bytes), any alignment, by `lanes` threads of
+// which this is `lane` (lanes >= 16): a head of bytes up to d's 16-byte
+// grid, aligned 16-byte stores, a tail of bytes.  A store's source bytes
+// straddle two aligned vectors when s and d are out of phase; both are
+// loaded aligned (each holds a byte of the segment, so neither leaves the
+// allocation's 16-byte granule) and funnel-shifted into place.
+__device__ __forceinline__ void copy_any(const uint8_t* __restrict__ s, uint8_t* __restrict__ d,
+                                        int64_t bytes, int64_t lane, int64_t lanes) {
+  const int64_t to_grid = (16 - (int64_t)(reinterpret_cast<uintptr_t>(d) & 15)) & 15;
+  const int64_t head = to_grid < bytes ? to_grid : bytes;
+  const int64_t nvec = (bytes - head) / 16;
+  const int64_t tail = head + nvec * 16;
+  if (lane < head) d[lane] = s[lane];
+  if (tail + lane < bytes) d[tail + lane] = s[tail + lane];
+  const uint8_t* sp = s + head;
+  const int sh = (int)(reinterpret_cast<uintptr_t>(sp) & 15);
+  const uint4* sv = reinterpret_cast<const uint4*>(sp - sh);
+  uint4* dv = reinterpret_cast<uint4*>(d + head);
+  if (sh == 0) {
+    for (int64_t k = lane; k < nvec; k += lanes) dv[k] = sv[k];
+  } else {
+    for (int64_t k = lane; k < nvec; k += lanes) dv[k] = shifted(sv[k], sv[k + 1], sh);
+  }
+}
+
+// Source segment `seg` = (a * J + j) * B + b, of `bytes` bytes, lands in
+// rank r's result at segment ((a * n + r) * B + b) * J + j.  J = n when
+// B > 1 (a segment is one rank's chunk); J = 1 when B = 1 (then the n
+// chunks of one a lie back to back in both, and form one segment).
+// ALIGNED: every segment of both lies on the 16-byte grid, so a thread
+// loads its `unroll` vectors once and stores them n times.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(kGather.threads)
+    gather_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out, int64_t segs,
+                  int n, int64_t B, int64_t J, int64_t bytes) {
+  constexpr int U = kGather.unroll;
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t lanes = (int64_t)gridDim.x * blockDim.x;
+  const int64_t step = B * J * bytes;  // from rank r's copy to rank r + 1's
+  for (int64_t seg = blockIdx.y; seg < segs; seg += gridDim.y) {
+    const int64_t b = seg % B;
+    const int64_t j = (seg / B) % J;
+    const int64_t a = seg / (B * J);
+    const uint8_t* s = src + seg * bytes;
+    uint8_t* d = out + ((a * n * B + b) * J + j) * bytes;
+    if (!ALIGNED) {
+      for (int r = 0; r < n; ++r) copy_any(s, d + r * step, bytes, lane, lanes);
+      continue;
+    }
+    const int64_t nvec = bytes / 16;
+    const uint4* __restrict__ sv = reinterpret_cast<const uint4*>(s);
+    int64_t i = lane;
+    for (; i + (U - 1) * lanes < nvec; i += U * lanes) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = sv[i + u * lanes];
+      for (int r = 0; r < n; ++r) {
+        uint4* dv = reinterpret_cast<uint4*>(d + r * step);
+#pragma unroll
+        for (int u = 0; u < U; ++u) dv[i + u * lanes] = v[u];
+      }
+    }
+    for (; i < nvec; i += lanes) {
+      const uint4 v = sv[i];
+      for (int r = 0; r < n; ++r) reinterpret_cast<uint4*>(d + r * step)[i] = v;
+    }
+  }
+}
+
 // Blocks of `sh.threads` the card holds resident at once for `kernel`,
 // times `sh.waves`: the grid that keeps every SM full, asked once per
 // kernel.
@@ -192,6 +303,24 @@ void launch_hop(const void* buf, const void* xs, void* out, int64_t A, int n, in
       chunk, s, vec);
 }
 
+// first: [A, n, B, chunk_bytes]; out: [A, n, B, n, chunk_bytes].
+void launch_gather(const void* first, void* out, int64_t A, int n, int64_t B,
+                   int64_t chunk_bytes, cudaStream_t stream) {
+  const int64_t J = B == 1 ? 1 : n;
+  const int64_t bytes = chunk_bytes * (n / J);
+  const int64_t segs = A * J * B;
+  const bool aligned = aligned16(first) && aligned16(out) && bytes % 16 == 0;
+  const int64_t gy = segs < 65535 ? segs : 65535;
+  const int64_t gx = grid_for((bytes + 15) / 16, kGather, 0);
+  const dim3 grid((unsigned)gx, (unsigned)gy);
+  const auto* src = static_cast<const uint8_t*>(first);
+  auto* dst = static_cast<uint8_t*>(out);
+  if (aligned)
+    gather_kernel<true><<<grid, kGather.threads, 0, stream>>>(src, dst, segs, n, B, J, bytes);
+  else
+    gather_kernel<false><<<grid, kGather.threads, 0, stream>>>(src, dst, segs, n, B, J, bytes);
+}
+
 template <typename T>
 int dispatch_combine(int op, const void* x, const void* y, void* out, int64_t n, float alpha,
                      cudaStream_t s) {
@@ -229,8 +358,8 @@ int on_device(int device, F launch) {
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 = launched), or -1 for
-// an op/dtype code the kernel does not implement.
+// Each returns cudaGetLastError() after the launch (0 = launched), or -1 for
+// an op/dtype code or a shape the kernel does not implement.
 extern "C" int acis_fused_combine(const void* x, const void* y, void* out, int64_t n, int dtype,
                                   int op, float alpha, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -259,5 +388,17 @@ extern "C" int acis_fused_hop(const void* buf, const void* xs, void* out, int64_
       case acis::kI8: return dispatch_hop<int8_t>(op, buf, xs, out, A, n, B, chunk, step, s);
     }
     return -1;
+  });
+}
+
+// first: [A, n, B, chunk_bytes] (every rank's chunk, any dtype as bytes);
+// out: [A, n, B, n, chunk_bytes], out[a, r, b, j] = first[a, j, b] for every r.
+extern "C" int acis_fused_gather(const void* first, void* out, int64_t A, int n, int64_t B,
+                                 int64_t chunk_bytes, int device, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || A < 1 || B < 1 || chunk_bytes < 1) return -1;
+  return on_device(device, [&]() {
+    launch_gather(first, out, A, n, B, chunk_bytes, s);
+    return 0;
   });
 }

@@ -1,4 +1,5 @@
-"""Per-hop reduce combine (the switch aggregation unit) — CUDA kernels.
+"""Per-hop reduce combine (the switch aggregation unit) and the ring
+all-gather — CUDA kernels.
 
 Replaces the Pallas kernel ``repro/kernels/fused_combine.py:fused_combine``
 (body ``_combine_kernel``).  The hot inner loop of every ACiS reduction
@@ -12,6 +13,11 @@ forms here:
   from the all-ranks tensors by index arithmetic, so the step's roll and
   per-rank gather are never materialised.
 
+Beside them :func:`fused_gather`, the ring all-gather's whole result in
+one launch, replaces no TPU kernel (the reference's all-gather is a
+``ppermute`` loop): on one card every rank's result is the same
+concatenation, so each chunk is read once and written once per rank.
+
 Bound on the card: device memory — 3 × numel × itemsize bytes (read two
 operands, write out) against one or two ALU ops per element; the unfused
 hop (roll, gather, combine) moves 7 × numel × itemsize.  The kernels
@@ -20,8 +26,8 @@ operand in flight per thread, on a grid sized from the occupancy query;
 the TPU kernel's 128-lane padding copies and ``[rows, 128]`` reshape have
 no counterpart.
 
-A CPU tensor goes to the plain version (:func:`plain`, :func:`hop_plain`);
-a CUDA tensor launches the kernel or raises.
+A CPU tensor goes to the plain version (:func:`plain`, :func:`hop_plain`,
+:func:`gather_plain`); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,10 +46,11 @@ OPS = {"add": 0, "max": 1, "min": 2, "mac": 3}
 HOP_OPS = ("add", "max", "min")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# kernel launches made by fused_combine and fused_hop (the main path's
-# proof of use)
+# kernel launches made by fused_combine, fused_hop and fused_gather (the
+# main path's proof of use)
 launches = 0
 hop_launches = 0
+gather_launches = 0
 
 
 def plain(x: torch.Tensor, y: torch.Tensor, op: str = "add",
@@ -67,6 +74,24 @@ def hop_plain(buf: torch.Tensor, xs: torch.Tensor, s: int, *, dim: int,
     return ref.COMBINES[op](incoming, local.movedim(0, 1)).reshape(shape)
 
 
+def _gather_view(first: torch.Tensor, dim: int, rank_ndim: int):
+    """``(A, n, B, C)``: the rank dims of ``first`` as ``[A, n, B]`` around
+    ``dim``, and the elements of one rank's chunk."""
+    shape = first.shape
+    return (math.prod(shape[:dim]), shape[dim],
+            math.prod(shape[dim + 1:rank_ndim]), math.prod(shape[rank_ndim:]))
+
+
+def gather_plain(first: torch.Tensor, *, dim: int,
+                 rank_ndim: int) -> torch.Tensor:
+    """The plain PyTorch version of the gather kernel, its formula over the
+    ``[A, n, B]`` view of the rank dims (see :func:`fused_gather`)."""
+    a, n, b, c = _gather_view(first, dim, rank_ndim)
+    every = first.reshape(a, 1, n, b, c).movedim(2, 3)      # [a, 1, b, n, c]
+    return every.expand(a, n, b, n, c).contiguous().reshape(
+        first.shape[:rank_ndim] + (n,) + first.shape[rank_ndim:])
+
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -83,6 +108,10 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.acis_fused_hop.restype = ctypes.c_int
+    lib.acis_fused_gather.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.acis_fused_gather.restype = ctypes.c_int
     return lib
 
 
@@ -193,4 +222,52 @@ def fused_hop(buf: torch.Tensor, xs: torch.Tensor, s: int, *, dim: int,
     rec = _metrics.RECORDER
     if rec.spans is not None:
         rec.count("kernel.fused_hop.bytes", 3 * buf.nbytes)
+    return out
+
+
+def fused_gather(first: torch.Tensor, *, dim: int,
+                 rank_ndim: int) -> torch.Tensor:
+    """The ring all-gather over rank dim ``dim``, every rank at once: with
+    the rank dims viewed as ``[A, n, B]``,
+
+        out[a, r, b, j] = first[a, j, b]        for every r in 0..n-1
+
+    ``first`` is ``[*rank, *chunk]`` (each rank's chunk), the result
+    ``[*rank, n, *chunk]``: every rank holds every rank's chunk in rank
+    order, which is what the ring's n - 1 shifts and puts leave on a
+    :class:`~repro_torch.mesh.LocalMesh`, bit for bit.  The kernel copies
+    bytes, so any dtype goes.
+
+    The least bytes a launch moves are (1 + n) × ``first.nbytes``: each
+    chunk is read once and written into each of the n ranks' results
+    (``gather_kernel``).
+
+    The kernel's result carries no gradient, so a CUDA ``first`` that
+    requires one, while autograd records, is refused; the plain version
+    on the CPU is differentiable."""
+    global gather_launches
+    if not 0 <= dim < rank_ndim <= first.dim():
+        raise ValueError(f"ring dim {dim} is not one of {rank_ndim} rank "
+                         f"dims of a {first.dim()}-d tensor")
+    if first.is_cpu:
+        return gather_plain(first, dim=dim, rank_ndim=rank_ndim)
+    if not first.is_cuda:
+        raise ValueError(f"fused_gather runs on a CUDA device, got "
+                         f"{first.device}")
+    if torch.is_grad_enabled() and first.requires_grad:
+        raise RuntimeError("fused_gather has no backward: gather a CUDA "
+                           "tensor that requires grad under torch.no_grad()")
+    if not first.is_contiguous():
+        raise ValueError("fused_gather kernel needs a contiguous operand")
+    a, n, b, c = _gather_view(first, dim, rank_ndim)
+    out = first.new_empty(first.shape[:rank_ndim] + (n,)
+                          + first.shape[rank_ndim:])
+    if out.numel() == 0:
+        return out
+    rc = _lib().acis_fused_gather(
+        first.data_ptr(), out.data_ptr(), a, n, b, c * first.element_size(),
+        first.get_device(), build.stream_of(first.get_device()))
+    gather_launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused_gather kernel launch failed (code {rc})")
     return out

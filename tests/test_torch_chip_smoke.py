@@ -60,11 +60,15 @@ def test_fused_path_rehearsed_on_the_cpu(smoke):
         assert r["launches"]["prefix_sum"] == 0
         per = r.get("launches_per_call", {})
         # the fused allreduce+alltoall stage's reduce: n-1 elementwise
-        # fused_combine hops a call; every other program launches only
-        # its prefix_sum
+        # fused_combine hops a call; one gather launch a ring all-gather
+        # (the gathering stages'); every other program launches only its
+        # prefix_sum
         hops = 7 if r["program"] == "nas_is_c" else 0
+        gathers = int(r["program"] in ("fig5_scan", "fig5_scan_2d", "ag_map",
+                                       "gcn_pubmed_baseline"))
         assert per.get("fused_combine", 0) == hops
-        assert sum(per.values()) == per.get("prefix_sum", 0) + hops
+        assert per.get("fused_gather", 0) == gathers
+        assert sum(per.values()) == per.get("prefix_sum", 0) + hops + gathers
     assert len(by["powersgd_r4"]["ms"]) == 3
 
 
@@ -415,6 +419,84 @@ def test_sim_launch_expectations_at_full_width(smoke):
         assert {k: v for k, v in got.items() if v} == want[comp or backend]
 
 
+@pytest.mark.parametrize("backend,comp,sizes,gathers", [
+    ("acis", None, {"data": 8}, 10),
+    ("acis_hierarchical", None, {"data": 4, "pod": 2}, 20),
+    ("acis_compressed", "int8", {"data": 8}, 10),
+    ("acis_compressed", "int8_hopquant", {"data": 8}, 20),
+    ("acis_compressed", "topk", {"data": 8}, 0)])
+def test_gather_launch_expectations_at_full_width(smoke, backend, comp,
+                                                  sizes, gathers):
+    """One ``fused_gather`` launch per ring all-gather of the acis-100m
+    sync's plan: a bandwidth ring's second half (10 bucket rings of 8), a
+    hierarchical sync's pod all-reduce and data all-gather (10 buckets of
+    each), the int8 EF ring's int16 leaf and int8_hopquant's blocks and
+    scales (10 stages), none for top-k's sparse ring.  A window that runs
+    the plain sync too counts its gathers again."""
+    c = _full_width_sync(smoke, backend, comp, sizes)
+    per = smoke.expected_launches(c, LocalMesh(sizes, device="meta"))
+    assert per["fused_gather"] == gathers
+    both = smoke.with_plain_gathers(per)
+    assert both == dict(per, fused_gather=2 * gathers)
+
+
+def _note_gathers(smoke):
+    """A noted run of ``fused_gather`` on the CPU: f32, bf16 from one
+    element into its allocation (2 bytes off the 16-byte grid), int8 and
+    the int8 EF ring's int16 sums, over both axes of pod 2 x data 4, the
+    bf16 form twice."""
+    from repro_torch.kernels import fused_combine as fc
+
+    plans = smoke.GatherPlans().start()
+    kernel = plans.kernel
+    mesh = LocalMesh({"pod": 2, "data": 4}, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    with mesh:
+        for ax, dtype, offset in (("data", torch.float32, 0),
+                                  ("pod", torch.bfloat16, 1),
+                                  ("pod", torch.bfloat16, 1),
+                                  ("data", torch.int8, 0),
+                                  ("data", torch.int16, 0)):
+            flat = torch.randint(-100, 100, (2 * 4 * 7 + offset,),
+                                 generator=g).to(dtype)
+            first = flat[offset:].view(2, 4, 7)
+            fc.fused_gather(first, dim=mesh.dim(ax), rank_ndim=2)
+    plans.stop()
+    assert fc.fused_gather is kernel
+    return plans
+
+
+def test_gather_plans_note_every_form_and_hold_it(smoke):
+    """``GatherPlans`` notes each form of gather once, by mesh, axis,
+    shape, dtype and offset from the grid, and holds ``fused_gather``
+    against the ring's loop at each: on the CPU the wrapper's plain
+    version, on the card the kernel."""
+    plans = _note_gathers(smoke)
+    assert sorted(plans.seen.values()) == [1, 1, 1, 2]
+    assert sorted(k[-1] for k in plans.seen) == [0, 0, 0, 2]
+    rec = plans.hold(device="cpu")
+    assert rec == {"phase": "gather_plans", "forms": 4, "gathers": 5,
+                   "dtypes": ["bfloat16", "float32", "int16", "int8"],
+                   "off_grid": 1, "max_abs_err": 0.0}
+
+
+def test_gather_plans_catch_a_gather_off_by_one_byte(smoke, monkeypatch):
+    """A gather that writes one byte wrong fails the hold."""
+    from repro_torch.kernels import fused_combine as fc
+
+    plans = _note_gathers(smoke)
+    kernel = fc.fused_gather
+
+    def wrong(first, *, dim, rank_ndim):
+        out = kernel(first, dim=dim, rank_ndim=rank_ndim)
+        out.view(torch.uint8).view(-1)[-1] ^= 1
+        return out
+    monkeypatch.setattr(fc, "fused_gather", wrong)
+    with pytest.raises(AssertionError, match="differs from the loop in 1 "
+                                             "bytes"):
+        plans.hold(device="cpu")
+
+
 def test_sim_path_rehearsed_on_the_cpu(smoke):
     from repro_torch.configs.acis_100m import SMOKE
 
@@ -627,20 +709,21 @@ def test_rank_check_fails_when_ranks_route_apart(smoke, monkeypatch):
 def test_tp_launches_at_the_phases_full_sizes(smoke):
     """Read off the full-size programs (compiled on meta): a qwen3-8b
     tick at tp=8 and batch 8 is 72 bandwidth all-reduces, 7 fused_hop
-    each; a qwen2-moe tick at tp=4 and batch 4 is 24 bandwidth
-    all-reduces, 24 all-to-alls and 24 fused combines (3 fused_hop and 3
-    elementwise fused_combine per layer)."""
+    and one fused_gather each; a qwen2-moe tick at tp=4 and batch 4 is
+    24 bandwidth all-reduces, 24 all-to-alls and 24 fused combines (3
+    fused_hop, one fused_gather and 3 elementwise fused_combine per
+    layer)."""
     from repro_torch import configs
     from repro_torch.serve.collectives import ServeCollectives
 
     sc = ServeCollectives(configs.get("qwen3-8b"), 8, device="meta")
     assert smoke.tp_launches(sc.decode_programs(8), 8) == \
-        {"fused_combine": 0, "fused_hop": 504}
+        {"fused_combine": 0, "fused_hop": 504, "fused_gather": 72}
     assert smoke.tp_launches(sc.prefill_programs(8, 512), 8) == \
-        {"fused_combine": 0, "fused_hop": 504}
+        {"fused_combine": 0, "fused_hop": 504, "fused_gather": 72}
     sc = ServeCollectives(configs.get("qwen2-moe-a2.7b"), 4, device="meta")
     assert smoke.tp_launches(sc.decode_programs(4), 4) == \
-        {"fused_combine": 72, "fused_hop": 72}
+        {"fused_combine": 72, "fused_hop": 72, "fused_gather": 24}
 
 
 def test_train_path_rehearsed_on_the_cpu(smoke):

@@ -8,6 +8,7 @@ that are not bitwise state why.
 """
 
 import dataclasses
+import math
 import importlib
 
 import jax
@@ -532,3 +533,198 @@ def test_int8_codec_fused_hop_matches_the_transport_loop_on_card(rng, axes,
         want = "step" if dev == "cpu" else "fused"
         assert calls == [want] * (axes[axis] - 1)
     assert torch.equal(results["cuda"], results["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the fused all-gather: on CUDA tensors ``ring_all_gather`` is one
+# ``fused_gather`` launch; CPU tensors keep the shift + put loop
+# (``_ring_all_gather_loop``), whose result the kernel's plain version
+# computes from the index formula alone
+# ---------------------------------------------------------------------------
+
+GATHER_VIEWS = [({"data": N}, "data"), ({"data": 1}, "data"),
+                (PD, "pod"), (PD, "data")]
+
+
+def _gather_input(rng, rank_shape, chunk, dtype):
+    """Every rank's chunk, ``[*rank, *chunk]``, in ``dtype``."""
+    if dtype == "int8":
+        return torch.from_numpy(rng.integers(-128, 128, rank_shape + chunk)
+                                .astype(np.int8))
+    x = torch.from_numpy(rng.standard_normal(rank_shape + chunk)
+                         .astype(np.float32))
+    return x.to(getattr(torch, dtype))
+
+
+def _int8_scale_leaf(rng, mesh, n):
+    """The f32 scales of the int8 wire's encoded payload, one rank's chunk
+    of them: the leaf the encoded ring gathers beside the int8 blocks."""
+    x = torch.from_numpy(rng.standard_normal(mesh.rank_shape + (n * 3 * 256,))
+                         .astype(np.float32))
+    with mesh:
+        q, s = twire.int8_codec().encode(x)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    return s.reshape(mesh.rank_shape + (n, -1))[..., 0, :].contiguous()
+
+
+@pytest.mark.parametrize("chunk", [(4, 3), (5,), (8,), (1003,), (2, 5, 2)],
+                         ids=["f12", "f5", "f8", "f1003", "f2x5x2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("axes,axis", GATHER_VIEWS,
+                         ids=["data8", "data1", "pd-pod", "pd-data"])
+def test_gather_plain_is_the_ring_loop(rng, axes, axis, dtype, chunk):
+    """``fused_gather``'s plain version (and the wrapper on CPU tensors)
+    equals the ring's shift + put loop bit for bit, over any rank dim, in
+    every dtype, with chunks of 1 to 2,006 bytes on and off the 16-byte
+    grid; the CPU launches nothing."""
+    from repro_torch.kernels import fused_combine as tfc
+
+    mesh = LocalMesh(axes, device="cpu")
+    first = _gather_input(rng, mesh.rank_shape, chunk, dtype)
+    kw = dict(dim=mesh.dim(axis), rank_ndim=mesh.rank_ndim)
+    before = tfc.gather_launches
+    with mesh:
+        want = tring._ring_all_gather_loop(first, axis)
+    assert want.shape == mesh.rank_shape + (axes[axis],) + chunk
+    for got in (tfc.gather_plain(first, **kw), tfc.fused_gather(first, **kw)):
+        assert_bitwise(got.view(torch.uint8).numpy(),
+                       want.view(torch.uint8).numpy())
+    assert tfc.gather_launches == before
+
+
+@pytest.mark.parametrize("axes,axis", GATHER_VIEWS,
+                         ids=["data8", "data1", "pd-pod", "pd-data"])
+def test_gather_plain_takes_the_int8_wires_scale_leaves(rng, axes, axis):
+    """The encoded ring gathers the int8 wire's f32 scales beside its
+    blocks: the plain version and the loop agree on them bit for bit."""
+    from repro_torch.kernels import fused_combine as tfc
+
+    mesh = LocalMesh(axes, device="cpu")
+    scales = _int8_scale_leaf(rng, mesh, axes[axis])
+    with mesh:
+        want = tring._ring_all_gather_loop(scales, axis)
+    got = tfc.gather_plain(scales, dim=mesh.dim(axis),
+                           rank_ndim=mesh.rank_ndim)
+    assert_bitwise(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("hop_map", [False, True])
+@pytest.mark.parametrize("axes,axis", GATHER_VIEWS,
+                         ids=["data8", "data1", "pd-pod", "pd-data"])
+def test_ring_all_gather_on_cpu_is_the_loop(rng, axes, axis, hop_map):
+    """On CPU tensors ``ring_all_gather`` maps each chunk once and takes
+    the loop: its result is the plain version's of the mapped chunks,
+    reshaped, and nothing is launched."""
+    from repro_torch.kernels import fused_combine as tfc
+
+    mesh = LocalMesh(axes, device="cpu")
+    x = _gather_input(rng, mesh.rank_shape, (6, 3), "float32")
+    calls = []
+
+    def hm(c):
+        calls.append(tuple(c.shape))
+        return 2.0 * c + 1.0
+    before = tfc.gather_launches
+    with mesh:
+        got = tring.ring_all_gather(x, axis, hop_map=hm if hop_map else None)
+    first = 2.0 * x + 1.0 if hop_map else x
+    n = axes[axis]
+    want = tfc.gather_plain(first, dim=mesh.dim(axis),
+                            rank_ndim=mesh.rank_ndim).reshape(
+        mesh.rank_shape + (n * 6, 3))
+    assert_bitwise(got.numpy(), want.numpy())
+    assert calls == ([tuple(x.shape)] if hop_map else [])
+    assert tfc.gather_launches == before
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that the card's
+    branch of ``ring_all_gather`` and of ``fused_gather`` runs on the CPU
+    against :class:`_FakeGatherLib`."""
+
+    is_cuda = property(lambda self: True)
+    is_cpu = property(lambda self: False)
+
+
+class _FakeGatherLib:
+    """``acis_fused_gather``'s contract by ``ctypes.memmove``: ``out[a, r,
+    b, j] = first[a, j, b]`` over rows of ``chunk_bytes``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def acis_fused_gather(self, first, out, A, n, B, chunk_bytes, device,
+                          stream):
+        import ctypes
+
+        self.calls.append((A, n, B, chunk_bytes))
+        for a in range(A):
+            for r in range(n):
+                for b in range(B):
+                    for j in range(n):
+                        ctypes.memmove(
+                            out + (((a * n + r) * B + b) * n + j) * chunk_bytes,
+                            first + ((a * n + j) * B + b) * chunk_bytes,
+                            chunk_bytes)
+        return 0
+
+
+def _on_card_gather(monkeypatch):
+    """``fused_gather``'s card branch on the CPU, its C entry
+    :class:`_FakeGatherLib`."""
+    from repro_torch.kernels import fused_combine as tfc
+
+    lib = _FakeGatherLib()
+    monkeypatch.setattr(tfc, "_lib", lambda: lib)
+    monkeypatch.setattr(tfc.build, "stream_of", lambda device: 0)
+    return tfc, lib
+
+
+CARD_VIEWS = [({"data": N}, "data"), (PD, "pod"), (PD, "data")]
+
+
+@pytest.mark.parametrize("axes,axis", CARD_VIEWS)
+def test_card_branch_launches_the_kernel_on_the_rank_view(monkeypatch, rng,
+                                                          axes, axis):
+    """On the card's branch ``ring_all_gather`` is one ``fused_gather``
+    launch: the wrapper hands the kernel the ``[A, n, B]`` view and the
+    chunk's bytes, and the result is the loop's, bit for bit."""
+    tfc, lib = _on_card_gather(monkeypatch)
+    mesh = LocalMesh(axes, device="cpu")
+    n = axes[axis]
+    x = _gather_input(rng, mesh.rank_shape, (5, 2), "bfloat16")
+    before = tfc.gather_launches
+    with mesh:
+        got = tring.ring_all_gather(x.as_subclass(_OnCard), axis)
+        want = tring._ring_all_gather_loop(x, axis)
+    assert tfc.gather_launches == before + 1
+    a = math.prod(mesh.rank_shape[:mesh.dim(axis)])
+    b = math.prod(mesh.rank_shape[mesh.dim(axis) + 1:])
+    assert lib.calls == [(a, n, b, 5 * 2 * 2)]
+    assert_bitwise(got.as_subclass(torch.Tensor).view(torch.uint8).numpy(),
+                   want.reshape(got.shape).view(torch.uint8).numpy())
+
+
+@pytest.mark.parametrize("axes,axis", CARD_VIEWS)
+def test_card_branch_refuses_a_tensor_that_needs_grad(monkeypatch, rng, axes,
+                                                      axis):
+    """The kernel's result has no backward, so on the card a gather of a
+    tensor that requires grad raises while autograd records, and launches
+    nothing; under ``torch.no_grad()`` it runs.  The CPU's loop keeps its
+    gradient."""
+    tfc, lib = _on_card_gather(monkeypatch)
+    mesh = LocalMesh(axes, device="cpu")
+    x = _gather_input(rng, mesh.rank_shape, (4,), "float32")
+    card = x.as_subclass(_OnCard).requires_grad_()
+    before = tfc.gather_launches
+    with mesh:
+        with pytest.raises(RuntimeError, match="no backward"):
+            tring.ring_all_gather(card, axis)
+        assert tfc.gather_launches == before and lib.calls == []
+        with torch.no_grad():
+            tring.ring_all_gather(card, axis)
+        assert tfc.gather_launches == before + 1
+        leaf = x.clone().requires_grad_()
+        tring.ring_all_gather(leaf, axis).sum().backward()
+    # every rank's chunk lands in each of the n ranks' results
+    assert torch.equal(leaf.grad, torch.full_like(x, axes[axis]))
